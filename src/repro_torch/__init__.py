@@ -1,0 +1,19 @@
+"""repro_torch — the PyTorch/CUDA port of the ``repro`` package.
+
+The paper's pipeline (Peise 2017) on an NVIDIA H100: measure the
+BLAS/LAPACK-style kernels (:mod:`repro_torch.dla`), fit piecewise-polynomial
+performance models (:mod:`repro_torch.core`), predict blocked-algorithm
+runtimes and rank variants and block sizes — and, on the accelerator,
+measure and tune the tiles of a hand-written CUDA matmul
+(:mod:`repro_torch.kernels`, :mod:`repro_torch.tc.device`,
+:mod:`repro_torch.perf.tile_tuner`).
+
+The package mirrors ``repro``'s module layout and names so each counterpart
+is easy to find.  It imports ``torch`` and never ``jax`` or ``repro``.
+Every entry point runs on the CUDA card unless the caller passes
+``device="cpu"`` (see :mod:`repro_torch._device`).
+"""
+
+from ._device import resolve_device, synchronize, to_numpy, to_torch
+
+__all__ = ["resolve_device", "synchronize", "to_numpy", "to_torch"]

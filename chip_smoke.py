@@ -5,9 +5,10 @@ Run from the repository root on a machine with an NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA matmul from ``src/repro_torch/kernels/
-csrc`` (into ``build/repro_torch_kernels/``), holds it against its plain
-PyTorch version, and runs the paper's pipeline end to end on the card:
+It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
+csrc`` (one nvcc per source, all at once, into
+``build/repro_torch_kernels/``), holds each against its plain PyTorch
+version, and drives every path of the port on the card:
 
 1. card and kernel build;
 2. kernel check: the CUDA matmul against its plain version on the test
@@ -17,17 +18,32 @@ PyTorch version, and runs the paper's pipeline end to end on the card:
    the card over the domains the Cholesky tracers call, rank the three
    potrf variants and the block size without executing them, then execute
    them through ``ExecEngine`` and compare predicted with measured times;
-4. the tile path: sweep every legal tile of the CUDA matmul on its proxy
-   problem, fit the transfer models and select the tile for 4096^3; then
-   run every legal tile at 4096^3, check each result against the plain
-   version and compare predicted with measured order;
-5. a ``kernels`` JSON line per ported kernel (launches on each path of the
-   main run, error, times and bound).
+4. the matmul tile path: sweep every legal tile of the CUDA matmul on its
+   proxy problem, fit the transfer models and select the tile for 4096^3;
+   then run every legal tile at 4096^3, check each result against the
+   plain version and compare predicted with measured order;
+5. the matmul at 4096^3 beside its plain version and ``torch.matmul``;
+6. kernel check: flash attention and the SSD scan against their plain
+   versions on the reference tests' cases, then at gemma2-27b's attention
+   width (local and global layers, float32 and bfloat16) and at
+   mamba2-2.7b's SSD width, each timed beside its bound;
+7. the attention tile path: sweep the legal (bq, bkv, 128) blocks on their
+   proxies and rank them for gemma2-27b's query heads at 4096 tokens; then
+   run every legal block there, check and time it, and compare orders;
+8. the SSD chunk path: the same for the (chunk, 64, 128) configs and
+   mamba2-2.7b's 80 heads at 4096 tokens;
+
+and prints a ``kernels`` JSON line (launches on each path of the main run,
+error, times and bound per kernel).  The count of every kernel is set to 0
+just before each of the paths 3, 4, 7 and 8 and read just after; the
+checks and timings of phases 2, 5 and 6, and those after each path, are
+not counted.
 
 The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
-script exits nonzero and prints no result.  Long outputs (the compiler's
-report, the fitted models, per-tile times) go to ``chiprun_out/chip_smoke/``.
+script exits nonzero and prints no result.  Long outputs (the compilers'
+reports, the fitted models, per-config times) go to
+``chiprun_out/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -57,6 +73,41 @@ KERNEL_BKS = (8, 16, 32, 64)
 #: relative normwise bound of the 4096^3 float32 check: float32 rounding
 #: grows like sqrt(k) * eps over a k = 4096 sum, in both versions
 BIG_TOL = 1e-5
+#: test_kernels_pallas.py's flash-attention cases: (hq, hkv, s, d, kwargs)
+ATTN_CASES = [(4, 4, 64, 32, dict(causal=True)),
+              (4, 2, 128, 32, dict(causal=True)),
+              (4, 1, 64, 16, dict(causal=False)),
+              (4, 2, 128, 32, dict(causal=True, window=32)),
+              (4, 2, 64, 32, dict(causal=True, softcap=20.0))]
+#: test_kernels_pallas.py's SSD cases: (l, h, p, g, n, chunk)
+SSD_CASES = [(64, 4, 16, 2, 8, 16), (128, 4, 16, 1, 16, 32),
+             (64, 8, 8, 4, 8, 64)]
+#: gemma2-27b (src/repro/configs/gemma2_27b.py): 32 query heads, 16 kv
+#: heads, head dim 128, attention softcap 50, sliding window 4096 on local
+#: layers, none on global ones
+GEMMA = dict(hq=32, hkv=16, d=128, softcap=50.0, windows=(4096, 0))
+GEMMA_S = 8192                           # the check's sequence length
+#: the attention tile path's problem: gemma2-27b's query heads at its
+#: train_4k length, with the family's causal, equal-head operands
+ATTN_PROBLEM = (1, 32, 4096, 4096, 128)
+ATTN_BLOCKS = (16, 32, 64, 128)
+#: mamba2-2.7b (src/repro/configs/mamba2_2_7b.py): 80 heads of dim 64, one
+#: group, state 128, chunk 256; the SSD path's problem at 4096 tokens
+SSD_PROBLEM = (1, 4096, 80, 64, 1, 128)
+SSD_MODEL_CHUNK = 256
+SSD_CHUNKS = (32, 64, 128, 256)
+#: relative normwise bounds of the wide checks (||kernel - plain|| /
+#: ||plain||).  float32: both versions sum up to 8192 products (attention)
+#: or 256-long chunk products (SSD) in different orders, an error that
+#: grows like sqrt(terms) * eps ~ 1e-5 at worst.  bfloat16 attention: both
+#: versions round p to bfloat16 before p v and round the output once, so
+#: they differ only where their float32 logits differ in the last bits and
+#: flip one of those roundings (about 7e-5 normwise at gemma2 width).  A
+#: version that leaves p unrounded is off by the rounding of every p, about
+#: 2^-8 / sqrt(3) ~ 1e-3 normwise.  2^-12 lies between the two, and phase 6
+#: measures that fault on the same inputs and fails if the bound would
+#: pass it.
+WIDE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -12}
 
 
 _T0 = time.perf_counter()
@@ -88,6 +139,66 @@ def event_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in pairs)
     return times[len(times) // 2]
+
+
+def kendall_tau(pred_order, meas: dict) -> float:
+    """Kendall tau of the predicted order against the measured times (a
+    pair agrees when the one predicted faster measured no slower)."""
+    n_pairs = agree = 0
+    for i in range(len(pred_order)):
+        for j in range(i + 1, len(pred_order)):
+            n_pairs += 1
+            agree += meas[pred_order[i]] <= meas[pred_order[j]]
+    tau = 2 * agree / n_pairs - 1 if n_pairs else 1.0
+    log(f"  predicted vs measured order: {agree}/{n_pairs} pairs agree "
+        f"(Kendall tau {tau:.3f})")
+    return tau
+
+
+def rel_err(out, ref) -> float:
+    """Relative normwise error ||out - ref|| / ||ref|| in float32."""
+    import torch
+    out, ref = out.float(), ref.float()
+    return float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
+
+
+def bound(flops: float, nbytes: float, peak_flops: float, card) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate and the bytes over the memory rate."""
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / card.hbm_bytes_per_s * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def attn_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a mask keeps over one s x s head: row i keeps
+    keys max(0, i - window + 1) .. (i if causal else s - 1)."""
+    return sum((i if causal else s - 1) -
+               (max(0, i - window + 1) if window > 0 else 0) + 1
+               for i in range(s))
+
+
+def attn_work(b, hq, hkv, s, d, causal, window, itemsize):
+    """(flops, bytes) attention needs: 4 d flops per kept pair (q k^T and
+    p v), q, k, v read once and o written once."""
+    flops = 4.0 * b * hq * d * attn_pairs(s, causal, window)
+    nbytes = float(itemsize) * b * s * d * (2 * hq + 2 * hkv)
+    return flops, nbytes
+
+
+def ssd_work(b, l, h, p, g, n, chunk):
+    """(flops, bytes) the SSD scan needs, per head and chunk: C B^T and
+    G X over the Q (Q + 1) / 2 pairs i >= j that causality keeps (2 N and
+    2 P flops a pair; the upper triangle is zero, so, as in attn_work,
+    only kept pairs count), C h^T and X^T (B w) (2 Q P N each); x, dt,
+    a_log, b, c read once and y written once."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2.0 * pairs * (n + p) + 4.0 * chunk * p * n
+    flops = per_chunk * b * h * (l // chunk)
+    nbytes = 4.0 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n)
+    return flops, nbytes
 
 
 # ------------------------------------------------------------ phase 2 --
@@ -256,79 +367,46 @@ def tune_tiles(dev) -> dict:
     ranked = session.rank_device_tiles(KERNEL, (N, N, N), legal)
     analytic = rank_tiles(N, N, N, session=session, analytic=True,
                           smem_limit=ds.smem_limit)[0]
-    return {"legal": legal, "ranked": ranked, "transfer": (h2d, d2h),
+    return {"session": session, "legal": legal, "ranked": ranked,
+            "transfer": (h2d, d2h),
             "choice": (choice.bm, choice.bn, choice.bk),
             "t_compute": choice.t_compute,
             "analytic": (analytic.bm, analytic.bn, analytic.bk)}
 
 
 def check_tiles(dev, tuned: dict) -> dict:
-    """Run every legal tile at 4096^3: hold each result against the plain
-    version (which depends only on bk) and time it, then compare the
-    measured order with the predicted one.  Not part of the port's path:
-    its launches are not counted."""
+    """Run every legal tile at 4096^3 through :func:`check_family`, each
+    held against the plain result for its bk within BIG_TOL x max |plain|
+    (max abs error), and add where the analytic oracle's tile ranks."""
     import numpy as np
     import torch
     from repro_torch.kernels.matmul import matmul, matmul_plain
 
-    legal, ranked = tuned["legal"], tuned["ranked"]
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal((N, N)).astype(
         np.float32)).to(dev)
     y = torch.from_numpy(rng.standard_normal((N, N)).astype(
         np.float32)).to(dev)
-    plain = {bk: matmul_plain(x, y, bm=N, bn=N, bk=bk)
-             for bk in sorted({c[2] for c in legal})}
-    meas, errs = {}, {}
-    for cfg in legal:
+
+    def run(cfg, plain=False):
         bm, bn, bk = cfg
-        out = matmul(x, y, bm=bm, bn=bn, bk=bk)
-        torch.cuda.synchronize()           # a fault surfaces here
-        errs[cfg] = float((out - plain[bk]).abs().max())
-        scale = float(plain[bk].abs().max())
-        if not errs[cfg] <= BIG_TOL * scale:
-            raise AssertionError(
-                f"matmul at tiles {cfg} disagrees with its plain version "
-                f"at 4096^3: max_abs_err {errs[cfg]} above {BIG_TOL} x "
-                f"{scale}")
-        del out
-        meas[cfg] = event_ms(lambda: matmul(x, y, bm=bm, bn=bn, bk=bk), 3)
-    worst = max(errs, key=errs.get)
-    log(f"  all {len(legal)} tiles at 4096^3 agree with the plain version: "
-        f"worst max_abs_err {errs[worst]:.3e} at {worst} (bound {BIG_TOL} "
-        f"x max |plain|, max |plain| "
-        f"{max(float(p.abs().max()) for p in plain.values()):.1f})")
-    order = sorted(legal, key=lambda c: (meas[c], c))
-    pos = {c: i for i, c in enumerate(order)}
-    pred_order = [r.config for r in ranked]
-    chosen, analytic = tuned["choice"], tuned["analytic"]
-    log(f"  selected tile {chosen} (predicted compute "
-        f"{tuned['t_compute'] * 1e3:.2f} ms); measured {meas[chosen]:.2f} "
-        f"ms, rank {pos[chosen] + 1} of {len(legal)}; measured best "
-        f"{order[0]} {meas[order[0]]:.2f} ms; analytic oracle picks "
-        f"{analytic} ({meas[analytic]:.2f} ms measured)")
-    log("  predicted top 5: " + ", ".join(
-        f"{c} {r.t_compute * 1e3:.2f}/{meas[c]:.2f} ms"
-        for c, r in zip(pred_order[:5], ranked[:5])) +
-        "  (predicted compute / measured)")
-    n_pairs = agree = 0
-    for i in range(len(legal)):
-        for j in range(i + 1, len(legal)):
-            a, b = pred_order[i], pred_order[j]
-            n_pairs += 1
-            agree += meas[a] <= meas[b]
-    log(f"  predicted vs measured order: {agree}/{n_pairs} pairs agree "
-        f"(Kendall tau {2 * agree / n_pairs - 1:.3f})")
-    (OUT / "tiles_4096.json").write_text(json.dumps(
-        [{"tile": list(r.config), "pred_compute_ms": r.t_compute * 1e3,
-          "pred_total_ms": r.t_total * 1e3, "meas_ms": meas[r.config],
-          "max_abs_err": errs[r.config]}
-         for r in ranked], indent=1))
-    return {"choice": chosen, "x": x, "y": y, "meas_ms": meas[chosen],
-            "err": errs[chosen], "plain": plain[chosen[2]],
-            "worst_err": errs[worst], "analytic": analytic,
-            "best": order[0], "best_ms": meas[order[0]],
-            "tau": 2 * agree / n_pairs - 1, "n_legal": len(legal)}
+        if plain:
+            return matmul_plain(x, y, bm=N, bn=N, bk=bk)
+        return matmul(x, y, bm=bm, bn=bn, bk=bk)
+
+    def within(out, ref):
+        return (float((out - ref).abs().max()),
+                BIG_TOL * float(ref.abs().max()))
+
+    res, meas, plains = check_family(
+        "cuda_matmul", tuned, run, lambda cfg: cfg[2], "4096^3", within,
+        f"max_abs_err <= {BIG_TOL} x max |plain|", chosen=tuned["choice"])
+    analytic = tuned["analytic"]
+    log(f"  analytic oracle picks {analytic} ({meas[analytic]:.2f} ms "
+        f"measured)")
+    (OUT / "tiles_4096.json").write_text(json.dumps(res["rows"], indent=1))
+    res.update(x=x, y=y, plain=plains[res["choice"][2]], analytic=analytic)
+    return res
 
 
 def transfer_shares(models, h2d, d2h) -> dict:
@@ -355,6 +433,331 @@ def transfer_shares(models, h2d, d2h) -> dict:
     return shares
 
 
+# ------------------------------------------------------------ phase 6 --
+def check_attention(card) -> dict:
+    """Flash attention against its plain version: the reference tests'
+    cases, then gemma2-27b's local and global layers at 8192 tokens in
+    both dtypes, each timed beside its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.perf.roofline import peak_flops
+
+    rng = np.random.default_rng(7)
+
+    def operands(shapes, dtype):
+        return [torch.from_numpy(rng.standard_normal(sh).astype(
+            np.float32)).to("cuda", dtype) for sh in shapes]
+
+    for hq, hkv, sl, d, kw in ATTN_CASES:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            q, k, v = operands(((2, hq, sl, d), (2, hkv, sl, d),
+                                (2, hkv, sl, d)), dtype)
+            out = flash_attention(q, k, v, bq=32, bkv=32, **kw)
+            torch.cuda.synchronize()       # a fault surfaces here
+            ref = flash_attention_plain(q, k, v, bkv=32, **kw).float()
+            diff = (out.float() - ref).abs()
+            ratio = float((diff / (tol + tol * ref.abs())).max())
+            log(f"  attention hq={hq} hkv={hkv} s={sl} d={d} {kw} "
+                f"{str(dtype)[6:]}: max_abs_err {float(diff.max()):.3e}, "
+                f"max |diff| / ({tol} + {tol} |plain|) {ratio:.3f} (bound 1)")
+            if not ratio <= 1.0:
+                raise AssertionError(f"flash_attention disagrees with its "
+                                     f"plain version at {hq, hkv, sl, d, kw}"
+                                     f" {dtype}")
+    rows = []
+    hq, hkv, d, cap = GEMMA["hq"], GEMMA["hkv"], GEMMA["d"], GEMMA["softcap"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = operands(((1, hq, GEMMA_S, d), (1, hkv, GEMMA_S, d),
+                            (1, hkv, GEMMA_S, d)), dtype)
+        name = str(dtype)[6:]
+        for window in GEMMA["windows"]:
+            kw = dict(causal=True, window=window, softcap=cap)
+            out = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ref = flash_attention_plain(q, k, v, bkv=128, **kw)
+            err = rel_err(out, ref)
+            max_abs = float((out.float() - ref.float()).abs().max())
+            layer = "local" if window else "global"
+            if not err <= WIDE_TOL[name]:
+                raise AssertionError(
+                    f"flash_attention disagrees with its plain version on "
+                    f"gemma2-27b's {layer} layer ({name}): normwise "
+                    f"{err:.3e} above {WIDE_TOL[name]:.3e}")
+            fault = None
+            if dtype == torch.bfloat16:
+                # the plain loop on the same values in float32 leaves p
+                # unrounded; only the output is rounded to bfloat16
+                fault = rel_err(flash_attention_plain(
+                    q.float(), k.float(), v.float(), bkv=128,
+                    **kw).to(dtype), ref)
+                log(f"  gemma2-27b {layer} layer, bfloat16: a version that "
+                    f"leaves p unrounded reads {fault:.3e} normwise (bound "
+                    f"{WIDE_TOL[name]:.3e} must reject it)")
+                if not fault > WIDE_TOL[name]:
+                    raise AssertionError(
+                        f"the bfloat16 bound {WIDE_TOL[name]:.3e} would "
+                        f"pass a version that leaves p unrounded "
+                        f"({fault:.3e})")
+            del out, ref
+            ms = event_ms(lambda: flash_attention(q, k, v, **kw), 3)
+            plain_ms = event_ms(lambda: flash_attention_plain(
+                q, k, v, bkv=128, **kw), 3)
+            flops, nbytes = attn_work(1, hq, hkv, GEMMA_S, d, True, window,
+                                      q.element_size())
+            bd = bound(flops, nbytes, peak_flops(card, dtype), card)
+            log(f"  gemma2-27b {layer} layer (window {window}), s={GEMMA_S},"
+                f" {name}, blocks (128, 128): normwise {err:.3e} (bound "
+                f"{WIDE_TOL[name]:.3e}), max_abs_err {max_abs:.3e}; kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+                f"{flops / 1e9:.1f} GFLOP at "
+                f"{peak_flops(card, dtype) / 1e12:.0f} TFLOP/s)")
+            rows.append({"layer": layer, "window": window, "dtype": name,
+                         "s": GEMMA_S, "normwise": err, "max_abs_err": max_abs,
+                         "unrounded_p_normwise": fault, "kernel_ms": ms,
+                         "plain_ms": plain_ms, **bd})
+        del q, k, v
+    return {"gemma2_27b": rows}
+
+
+def ssd_inputs(problem, rng, model_like: bool):
+    """SSD operands on the card: the reference test's (dt = |N(0,1)| 0.1,
+    a_log = N(0,1) 0.5) when ``model_like``, else the device family's
+    (dt = 1e-3, a_log = 0); x, b, c standard normal."""
+    import numpy as np
+    import torch
+    b, l, h, p, g, n = problem
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    if model_like:
+        dt = (np.abs(rng.standard_normal((b, l, h))) * 0.1).astype(
+            np.float32)
+        a_log = (rng.standard_normal((h,)) * 0.5).astype(np.float32)
+    else:
+        dt = np.full((b, l, h), 1e-3, dtype=np.float32)
+        a_log = np.zeros((h,), dtype=np.float32)
+    bb = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    cc = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    return [torch.from_numpy(a).to("cuda") for a in (x, dt, a_log, bb, cc)]
+
+
+def check_ssd(card) -> dict:
+    """The SSD kernel against its plain version and the sequential oracle
+    on the reference test's cases, then against its plain version at
+    mamba2-2.7b's width, timed beside its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+
+    rng = np.random.default_rng(7)
+    tol = 2e-4
+    for l, h, p, g, n, chunk in SSD_CASES:
+        ops = ssd_inputs((2, l, h, p, g, n), rng, model_like=True)
+        out = ssd(*ops, chunk=chunk)
+        torch.cuda.synchronize()           # a fault surfaces here
+        for what, ref in (("plain", ssd_plain(*ops, chunk=chunk)),
+                          ("ssd_ref", ssd_ref(*ops))):
+            diff = (out - ref).abs()
+            ratio = float((diff / (tol + tol * ref.abs())).max())
+            log(f"  ssd l={l} h={h} p={p} g={g} n={n} chunk={chunk} vs "
+                f"{what}: max_abs_err {float(diff.max()):.3e}, max |diff| / "
+                f"({tol} + {tol} |{what}|) {ratio:.3f} (bound 1)")
+            if not ratio <= 1.0:
+                raise AssertionError(f"ssd disagrees with {what} at "
+                                     f"{(l, h, p, g, n, chunk)}")
+    ops = ssd_inputs(SSD_PROBLEM, rng, model_like=True)
+    chunk = SSD_MODEL_CHUNK
+    out = ssd(*ops, chunk=chunk)
+    torch.cuda.synchronize()
+    ref = ssd_plain(*ops, chunk=chunk)
+    err, max_abs = rel_err(out, ref), float((out - ref).abs().max())
+    if not err <= WIDE_TOL["float32"]:
+        raise AssertionError(f"ssd disagrees with its plain version at "
+                             f"mamba2-2.7b width: normwise {err:.3e}")
+    ms = event_ms(lambda: ssd(*ops, chunk=chunk), 3)
+    plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), 3)
+    flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
+    bd = bound(flops, nbytes, card.fp32_flops, card)
+    log(f"  mamba2-2.7b SSD {SSD_PROBLEM}, chunk {chunk}, model-like dt and "
+        f"a_log: normwise {err:.3e} (bound {WIDE_TOL['float32']:.0e}), "
+        f"max_abs_err {max_abs:.3e} (max |plain| "
+        f"{float(ref.abs().max()):.1f}); kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']}, {flops / 1e9:.1f} GFLOP)")
+    return {"mamba2_2_7b": {"chunk": chunk, "normwise": err,
+                            "max_abs_err": max_abs, "kernel_ms": ms,
+                            "plain_ms": plain_ms, **bd}}
+
+
+# -------------------------------------------------------- phases 7, 8 --
+def tune_family(session, kernel: str, problem, legal) -> dict:
+    """A device family's path: sweep its legal configs on their proxies
+    (deduplicated in the session's suite), then rank them for the
+    problem."""
+    ds = session.device_suite()
+    t0 = time.perf_counter()
+    ds.measure_grid(kernel, legal)
+    sweep_s = time.perf_counter() - t0
+    ranked = session.rank_device_tiles(kernel, problem, legal)
+    log(f"  swept {len(legal)} legal configs of {kernel} on their proxy "
+        f"problems in {sweep_s:.2f} s; selected {ranked[0].config} for "
+        f"{problem} (predicted compute {ranked[0].t_compute * 1e3:.3f} ms)")
+    return {"legal": legal, "ranked": ranked, "sweep_s": sweep_s}
+
+
+def normwise_within(out, ref):
+    """The wide checks' reading and bound: normwise error against the
+    float32 WIDE_TOL."""
+    return rel_err(out, ref), WIDE_TOL["float32"]
+
+
+def check_family(kernel: str, tuned: dict, run, plain_for, label: str,
+                 within=normwise_within, rule: str = "normwise <= "
+                 f"{WIDE_TOL['float32']:.0e}", chosen=None) -> dict:
+    """Run every legal config at the full problem: hold each against the
+    plain version (``within(out, plain)`` gives the reading and its
+    bound), time it, and compare the measured order with the predicted
+    one.  ``chosen`` is the path's selection (the top of the ranking by
+    default).  Not part of the port's path: its launches are not
+    counted.  Returns the summary, the measured ms per config and the
+    plain results by ``plain_for`` key."""
+    import torch
+    legal, ranked = tuned["legal"], tuned["ranked"]
+    meas, errs, reading = {}, {}, {}
+    plains = {}
+    for cfg in legal:
+        key = plain_for(cfg)
+        if key not in plains:
+            plains[key] = run(cfg, plain=True)
+        out = run(cfg)
+        torch.cuda.synchronize()           # a fault surfaces here
+        ref = plains[key]
+        errs[cfg] = float((out.float() - ref.float()).abs().max())
+        reading[cfg], limit = within(out, ref)
+        if not reading[cfg] <= limit:
+            raise AssertionError(
+                f"{kernel} at {cfg} disagrees with its plain version at "
+                f"{label}: {reading[cfg]:.3e} above {limit:.3e} ({rule})")
+        del out
+        meas[cfg] = event_ms(lambda: run(cfg), 3)
+    worst = max(reading, key=reading.get)
+    log(f"  all {len(legal)} configs agree with the plain version at "
+        f"{label} ({rule}): worst reading {reading[worst]:.3e} at {worst}, "
+        f"worst max_abs_err {max(errs.values()):.3e}")
+    order = sorted(legal, key=lambda c: (meas[c], c))
+    pos = {c: i for i, c in enumerate(order)}
+    chosen = ranked[0].config if chosen is None else chosen
+    pred = {r.config: r for r in ranked}
+    log(f"  selected {chosen} (predicted compute "
+        f"{pred[chosen].t_compute * 1e3:.3f} ms); measured "
+        f"{meas[chosen]:.3f} ms, rank {pos[chosen] + 1} of {len(legal)}; "
+        f"measured best {order[0]} {meas[order[0]]:.3f} ms")
+    log("  predicted / measured ms, in predicted order (first 16): " +
+        ", ".join(f"{r.config} {r.t_compute * 1e3:.3f}/{meas[r.config]:.3f}"
+                  for r in ranked[:16]))
+    tau = kendall_tau([r.config for r in ranked], meas)
+    rows = [{"config": list(r.config), "pred_compute_ms": r.t_compute * 1e3,
+             "pred_total_ms": r.t_total * 1e3, "meas_ms": meas[r.config],
+             "max_abs_err": errs[r.config], "reading": reading[r.config]}
+            for r in ranked]
+    return {"choice": chosen, "meas_ms": meas[chosen], "err": errs[chosen],
+            "worst_err": max(errs.values()), "best": order[0],
+            "best_ms": meas[order[0]], "rank_of_choice": pos[chosen] + 1,
+            "tau": tau, "n_legal": len(legal), "rows": rows}, meas, plains
+
+
+def attention_path(session) -> dict:
+    from repro_torch.kernels.flash_attention import attn_tile_legal
+    ds = session.device_suite()
+    d = ATTN_PROBLEM[4]
+    legal = [(bq, bkv, d) for bq in ATTN_BLOCKS for bkv in ATTN_BLOCKS
+             if attn_tile_legal(ATTN_PROBLEM[2], ATTN_PROBLEM[3], bq, bkv, d,
+                                ds.smem_limit)]
+    return tune_family(session, "cuda_flash_attention", ATTN_PROBLEM, legal)
+
+
+def ssd_path(session) -> dict:
+    from repro_torch.kernels.ssd import ssd_tile_legal
+    ds = session.device_suite()
+    _, l, _, p, _, n = SSD_PROBLEM
+    legal = [(c, p, n) for c in SSD_CHUNKS
+             if ssd_tile_legal(l, c, p, n, ds.smem_limit)]
+    if (SSD_MODEL_CHUNK, p, n) not in legal:
+        raise AssertionError(f"mamba2-2.7b's chunk {SSD_MODEL_CHUNK} is not "
+                             f"legal for the SSD kernel: {legal}")
+    return tune_family(session, "cuda_ssd", SSD_PROBLEM, legal)
+
+
+def finish_attention(tuned: dict, card) -> dict:
+    """Phase 7's checks and the attention row of the kernels line: every
+    legal block at (1, 32, 4096, 4096, 128) causal float32, then the
+    selected one beside its plain version and PyTorch's SDPA (TF32 off)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    b, h, sq, skv, d = ATTN_PROBLEM
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to("cuda") for sh in ((b, h, sq, d), (b, h, skv, d),
+                                          (b, h, skv, d)))
+
+    def run(cfg, plain=False):
+        if plain:
+            return flash_attention_plain(q, k, v, bkv=cfg[1])
+        return flash_attention(q, k, v, bq=cfg[0], bkv=cfg[1])
+
+    res = check_family("cuda_flash_attention", tuned, run,
+                       lambda cfg: cfg[1], f"{ATTN_PROBLEM} causal f32")[0]
+    bq, bkv, _ = res["choice"]
+    kernel_ms = event_ms(lambda: flash_attention(q, k, v, bq=bq, bkv=bkv),
+                         TIME_REPS)
+    plain_ms = event_ms(lambda: flash_attention_plain(q, k, v, bkv=bkv),
+                        TIME_REPS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True), TIME_REPS)
+    lib_err = rel_err(sdpa(q, k, v, is_causal=True),
+                      flash_attention_plain(q, k, v, bkv=bkv))
+    flops, nbytes = attn_work(b, h, h, sq, d, True, 0, 4)
+    bd = bound(flops, nbytes, card.fp32_flops, card)
+    log(f"  attention {ATTN_PROBLEM} causal f32 at the selected "
+        f"({bq}, {bkv}): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms,"
+        f" SDPA {library_ms:.3f} ms (normwise {lib_err:.1e} from the plain "
+        f"version), bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_normwise=lib_err, **bd)
+    return res
+
+
+def finish_ssd(tuned: dict, card) -> dict:
+    """Phase 8's checks and the SSD row of the kernels line: every legal
+    chunk at mamba2-2.7b's (1, 4096, 80, 64, 1, 128) with the family's
+    operands, then the selected one beside its plain version."""
+    import numpy as np
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    ops = ssd_inputs(SSD_PROBLEM, np.random.default_rng(17),
+                     model_like=False)
+
+    def run(cfg, plain=False):
+        return (ssd_plain if plain else ssd)(*ops, chunk=cfg[0])
+
+    res = check_family("cuda_ssd", tuned, run, lambda cfg: cfg[0],
+                       f"{SSD_PROBLEM}")[0]
+    chunk = res["choice"][0]
+    kernel_ms = event_ms(lambda: ssd(*ops, chunk=chunk), TIME_REPS)
+    plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), TIME_REPS)
+    flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
+    bd = bound(flops, nbytes, card.fp32_flops, card)
+    log(f"  ssd {SSD_PROBLEM} at the selected chunk {chunk}: kernel "
+        f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, no library call, "
+        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+        f"{flops / 1e9:.1f} GFLOP)")
+    res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None, **bd)
+    return res
+
+
 # ---------------------------------------------------------------- main --
 def main() -> int:
     import torch
@@ -365,7 +768,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.ssd import ssd
     from repro_torch.perf.roofline import card_of
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -374,66 +779,129 @@ def main() -> int:
     log(f"[1] card: {line}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = _build.build("matmul")
-    log(f"    kernel build {time.perf_counter() - t0:.1f} s -> "
-        f"{lib.relative_to(ROOT)}")
-    (OUT / "ptxas.log").write_text(lib.with_suffix(".log").read_text())
+    libs = _build.build_all(["matmul", "flash_attention", "ssd"])
+    log(f"    kernel build (three nvcc at once) "
+        f"{time.perf_counter() - t0:.1f} s -> " +
+        ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    for name, lib in libs.items():
+        (OUT / f"ptxas_{name}.log").write_text(
+            lib.with_suffix(".log").read_text())
+    the_card = card_of(dev)
+    phase_s = {}
+
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t
+        log(f"    phase {label} took {phase_s[label]:.1f} s")
+        return out
 
     log("[2] kernel check (CUDA matmul vs its plain version)")
-    check_kernel_shapes()
+    phase("2", check_kernel_shapes)
 
-    # the main path: each of its two paths runs with the count set to 0
-    # just before it and read just after
-    matmul.launches = 0
+    # the main path: each of its paths runs with every kernel's count set
+    # to 0 just before it and read just after
+    wrappers = {"matmul": matmul, "flash_attention": flash_attention,
+                "ssd": ssd}
+    launches = {name: {} for name in wrappers}
+
+    def counted(path, label, fn, *args):
+        for w in wrappers.values():
+            w.launches = 0
+        out = phase(label, fn, *args)
+        for name, w in wrappers.items():
+            launches[name][path] = w.launches
+        return out
+
     log(f"[3] paper path: potrf at n={N}, b in {BLOCK_SIZES}")
-    paper = paper_path(dev)
-    by_path = {"paper": matmul.launches}
-    matmul.launches = 0
+    paper = counted("paper", "3", paper_path, dev)
     log("[4] tile path: CUDA matmul tiles for 4096^3")
-    tuned = tune_tiles(dev)
-    by_path["tiles"] = matmul.launches
-    launches = sum(by_path.values())
-    log(f"  matmul launches on the main path: {by_path}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the matmul")
+    tuned = counted("tiles", "4", tune_tiles, dev)
     paper["copy_share"] = transfer_shares(paper.pop("models"),
                                           *tuned["transfer"])
-    tiles = check_tiles(dev, tuned)
+    tiles = phase("4 check", check_tiles, dev, tuned)
 
     bm, bn, bk = tiles["choice"]
     x, y = tiles.pop("x"), tiles.pop("y")
     err = tiles["err"]
-    log(f"  4096^3 float32 at the selected {tiles['choice']}: max_abs_err "
+    log(f"[5] 4096^3 float32 at the selected {tiles['choice']}: max_abs_err "
         f"{err:.3e}, max |plain| {float(tiles.pop('plain').abs().max()):.1f}"
         f" (bound {BIG_TOL} x max |plain|)")
-
     kernel_ms = event_ms(lambda: matmul(x, y, bm=bm, bn=bn, bk=bk),
                          TIME_REPS)
     plain_ms = event_ms(lambda: matmul_plain(x, y, bm=bm, bn=bn, bk=bk),
                         TIME_REPS)
     library_ms = event_ms(lambda: torch.matmul(x, y), TIME_REPS)
-    the_card = card_of(dev)
-    flops = 2.0 * N ** 3
-    nbytes = 4.0 * 3 * N * N
-    t_ops = flops / the_card.fp32_flops * 1e3
-    t_bytes = nbytes / the_card.hbm_bytes_per_s * 1e3
-    kernels = {"kernels": [{
-        "name": "matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/matmul.cu",
-        "replaces": "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
-        "launches": launches, "launches_by_path": by_path,
-        "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms, "shape": [N, N, N], "dtype": "float32",
-        "tile": [bm, bn, bk]}]}
-    (OUT / "result.json").write_text(json.dumps(
-        {"paper": paper, "tiles": tiles, **kernels}, indent=1, default=str))
-    log(f"[5] matmul 4096^3 f32: kernel {kernel_ms:.3f} ms, plain "
+    mm_bound = bound(2.0 * N ** 3, 4.0 * 3 * N * N, the_card.fp32_flops,
+                     the_card)
+    del x, y
+    log(f"    matmul 4096^3 f32: kernel {kernel_ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, bound "
-        f"{max(t_ops, t_bytes):.3f} ms; {launches} launches on the main "
-        f"path {by_path}")
+        f"{mm_bound['bound_ms']:.3f} ms")
+
+    log("[6] kernel check (CUDA flash attention and SSD vs their plain "
+        "versions)")
+    wide = phase("6 attention", check_attention, the_card)
+    wide.update(phase("6 ssd", check_ssd, the_card))
+
+    session = tuned["session"]
+    log(f"[7] attention tile path: (bq, bkv, 128) blocks for "
+        f"{ATTN_PROBLEM} (gemma2-27b query heads, train_4k)")
+    attn_tuned = counted("attn_tiles", "7", attention_path, session)
+    attn = phase("7 check", finish_attention, attn_tuned, the_card)
+    log(f"[8] SSD chunk path: (chunk, 64, 128) configs for {SSD_PROBLEM} "
+        f"(mamba2-2.7b, 4096 tokens)")
+    ssd_tuned = counted("ssd_chunks", "8", ssd_path, session)
+    ssd_res = phase("8 check", finish_ssd, ssd_tuned, the_card)
+    session.device_suite().to_model_set().save(
+        str(OUT / "device_models.json"))
+
+    log(f"  launches on the main path, per kernel and path: {launches}")
+    for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
+                       ("ssd", "ssd_chunks")):
+        if launches[name][path] <= 0:
+            raise AssertionError(f"the main path never launched {name} on "
+                                 f"its path {path}: {launches[name]}")
+
+    def entry(name, source, replaces, res, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(launches[name].values()),
+                "launches_by_path": launches[name],
+                "max_abs_err": res["err"], "ms": res["kernel_ms"],
+                "kernel_ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "library_ms": res["library_ms"], **extra}
+
+    csrc = "src/repro_torch/kernels/csrc"
+    kernels = {"kernels": [
+        entry("matmul", f"{csrc}/matmul.cu",
+              "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
+              {"err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, **mm_bound},
+              library="torch.matmul", shape=[N, N, N], dtype="float32",
+              config=[bm, bn, bk]),
+        entry("flash_attention", f"{csrc}/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:37 (_attn_kernel)",
+              attn, library="torch.nn.functional.scaled_dot_product_attention"
+              " (is_causal=True, float32, TF32 off)",
+              shape=list(ATTN_PROBLEM), dtype="float32",
+              config=list(attn["choice"])),
+        entry("ssd", f"{csrc}/ssd.cu",
+              "src/repro/kernels/ssd.py:30 (_ssd_kernel)", ssd_res,
+              library="none", shape=list(SSD_PROBLEM), dtype="float32",
+              config=list(ssd_res["choice"])),
+    ]}
+    tuned.pop("session")
+    for t in (attn_tuned, ssd_tuned):
+        t["ranked"] = [r.__dict__ for r in t["ranked"]]
+    (OUT / "result.json").write_text(json.dumps(
+        {"paper": paper, "tiles": tiles, "wide_checks": wide,
+         "attn_tiles": {**attn_tuned, **attn}, "ssd_chunks":
+         {**ssd_tuned, **ssd_res}, "phase_s": phase_s, **kernels},
+        indent=1, default=str))
+    log(f"  phase host times (s): "
+        + ", ".join(f"{k}: {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps(kernels))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,9 @@ import hashlib
 import os
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: build directory: ``build/`` at the repository root (listed in .gitignore)
@@ -70,6 +71,13 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)     # atomic: a concurrent loader sees all or none
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Build several kernels at once: one nvcc process for each source,
+    all started together (each compile is one process on one core)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from ._card import H100_SMEM_OPTIN
 
 #: (bm, bn) output tiles the kernel is instantiated for: 16 x 16 threads,
 #: each owning a (bm/16) x (bn/16) register tile of at most 64 accumulators
@@ -30,9 +31,6 @@ KERNEL_TILES: Tuple[Tuple[int, int], ...] = tuple(
     for tm in (2, 4, 8, 16) for tn in (2, 4, 8, 16) if tm * tn <= 64)
 #: threads per block of the kernel (fixed by its design)
 THREADS = 256
-#: opt-in shared memory per block of the H100 (bytes): the staging limit the
-#: plain version emulates when no card is asked about
-H100_SMEM_OPTIN = 232_448
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,8 +72,9 @@ def proxy_problem(bm: int, bn: int, bk: int,
     a tile config on this problem and models the *per-step* cost; a full
     problem's compute term is that cost scaled by :func:`grid_steps`.
     On a GPU the blocks run in parallel, so the proxy must fill the card
-    to measure throughput rather than one block's latency: 16 x 16 = 256
-    blocks (about two per SM on the H100's 132) and 16 k-slabs, which
+    to measure throughput rather than one block's latency: 16 x 16 =
+    :data:`~repro_torch.kernels._card.PROXY_BLOCKS` blocks (about two per
+    SM on the H100's 132) and 16 k-slabs, which
     also amortizes each block's prologue and epilogue.
     """
     return (bm * steps_per_dim, bn * steps_per_dim, bk * steps_per_dim)

@@ -22,6 +22,7 @@ class Card:
 
     name: str
     fp32_flops: float        # FLOP/s, float32 outside the tensor cores
+    bf16_tensor_flops: float  # FLOP/s, dense bfloat16 on the tensor cores
     hbm_bytes_per_s: float   # device-memory bandwidth
     sms: int                 # streaming multiprocessors
     power_w: float           # the power limit the rates assume
@@ -29,7 +30,8 @@ class Card:
 
 #: the H100 SXM (80 GB HBM3), the card the port is written for
 H100_SXM = Card(name="NVIDIA H100 80GB HBM3", fp32_flops=67e12,
-                hbm_bytes_per_s=3.35e12, sms=132, power_w=700.0)
+                bf16_tensor_flops=989e12, hbm_bytes_per_s=3.35e12, sms=132,
+                power_w=700.0)
 
 CARDS: Dict[str, Card] = {c.name: c for c in (H100_SXM,)}
 
@@ -52,3 +54,15 @@ def card_of(device: torch.device) -> Card:
     if device.type == "cuda":
         return card(torch.cuda.get_device_name(device))
     return H100_SXM
+
+
+def peak_flops(the_card: Card, dtype: torch.dtype) -> float:
+    """The card's peak rate for operands of ``dtype``: the dense bfloat16
+    tensor-core rate for bfloat16 (the least time any bfloat16 kernel
+    could take), the FP32 non-tensor rate for float32 (kept IEEE, no
+    TF32)."""
+    if dtype == torch.bfloat16:
+        return the_card.bf16_tensor_flops
+    if dtype == torch.float32:
+        return the_card.fp32_flops
+    raise ValueError(f"no peak rate recorded for {dtype}")

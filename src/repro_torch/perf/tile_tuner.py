@@ -36,7 +36,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..kernels.matmul import H100_SMEM_OPTIN, grid_steps, tile_legal
+from ..kernels._card import H100_SMEM_OPTIN
+from ..kernels.matmul import grid_steps, tile_legal
 from .roofline import H100_SXM, Card, card_of
 
 #: napkin cost of one (block, k-slab) step: slab fill latency + 2 barriers

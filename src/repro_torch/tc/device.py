@@ -1,15 +1,19 @@
 """Device measurement of the hand-written kernels' tile configs.
 
-The counterpart of ``repro.tc.device`` for the CUDA matmul: a device
-kernel family in the :class:`~repro_torch.tc.suite.MicroBenchmarkSuite`,
-keyed by (kernel name, tile config, shared-memory class) through the
-key's ``config`` facet — deduplicated and cost-accounted like any key.
+The counterpart of ``repro.tc.device``: a device kernel family in the
+:class:`~repro_torch.tc.suite.MicroBenchmarkSuite` for each CUDA kernel —
+the matmul's (bm, bn, bk) tiles, flash attention's (bq, bkv, d) blocks
+and the SSD scan's (chunk, p, n) configs — keyed by (kernel name, tile
+config, shared-memory class) through the key's ``config`` facet,
+deduplicated and cost-accounted like any key.
 
 **Measurement protocol**: each tile config is timed on its canonical
-*proxy problem* (:func:`repro_torch.kernels.matmul.proxy_problem`, sized
-to fill the card), so the measured quantity is a per-step kernel cost
-(one block's k-slab, in throughput terms); a full problem's compute term
-is that cost scaled by the problem's step count — the paper's
+*proxy problem* (:func:`repro_torch.kernels.matmul.proxy_problem`,
+:func:`~repro_torch.kernels.flash_attention.attn_proxy_problem`,
+:func:`~repro_torch.kernels.ssd.ssd_proxy_problem`, each sized to fill
+the card), so the measured quantity is a per-step kernel cost (one
+block's step, in throughput terms); a full problem's compute term is
+that cost scaled by the problem's step count — the paper's
 measure-the-kernel / predict-the-blocked-algorithm split (§4.6) applied
 to tiles.  The sweep times on the device: every launch is bracketed by a
 pair of ``torch.cuda.Event(enable_timing=True)`` on one stream, and the
@@ -47,9 +51,13 @@ from ..core.grids import Domain
 from ..core.model import CaseModel, ModelSet, PerformanceModel, Piece
 from ..core.sampler import STATS, Stats
 from ..core.transfer import D2H, H2D, TransferModel, measure_transfers
-from ..kernels.matmul import H100_SMEM_OPTIN
+from ..kernels.flash_attention import (attn_grid_steps, attn_proxy_problem,
+                                       attn_smem_bytes, flash_attention)
+from ..kernels._card import H100_SMEM_OPTIN
 from ..kernels.matmul import grid_steps as matmul_grid_steps
 from ..kernels.matmul import matmul, proxy_problem, smem_bytes
+from ..kernels.ssd import (ssd, ssd_grid_steps, ssd_proxy_problem,
+                           ssd_smem_bytes)
 from .suite import MicroBenchmark, MicroBenchmarkKey, MicroBenchmarkSuite
 
 #: the two shared-memory classes: two blocks per SM fit, or one
@@ -114,8 +122,101 @@ class _MatmulDevice:
         return itemsize * (m * k + k * n), itemsize * m * n
 
 
+class _FlashAttentionDevice:
+    """(bq, bkv, d) blocks of the CUDA flash attention
+    (``kernels/flash_attention.py``).  The head dim rides in the config:
+    it is a compile-time size of every block, so two head dims are two
+    kernel configurations.  The measured call is the reference's: causal,
+    no window, no softcap, as many kv heads as query heads."""
+
+    name = "cuda_flash_attention"
+    config_dims = ("bq", "bkv", "d")
+
+    def smem_bytes(self, cfg: Tuple[int, ...]) -> int:
+        return attn_smem_bytes(*cfg)
+
+    def proxy(self, cfg, steps_per_dim: int) -> Tuple[int, ...]:
+        return attn_proxy_problem(*cfg, steps_per_dim=steps_per_dim)
+
+    def proxy_steps(self, cfg, steps_per_dim: int) -> int:
+        return self.steps(self.proxy(cfg, steps_per_dim), cfg)
+
+    def steps(self, problem, cfg) -> int:
+        b, h, sq, skv, d = problem
+        assert d == cfg[2], (d, cfg)
+        return attn_grid_steps(b, h, sq, skv, cfg[0], cfg[1])
+
+    def operand_shapes(self, problem):
+        b, h, sq, skv, d = problem
+        return (b, h, sq, d), (b, h, skv, d), (b, h, sq, d)
+
+    def operands(self, problem, rng):
+        q_sh, kv_sh, _ = self.operand_shapes(problem)
+        q = rng.standard_normal(q_sh).astype(np.float32)
+        k = rng.standard_normal(kv_sh).astype(np.float32)
+        v = rng.standard_normal(kv_sh).astype(np.float32)
+        return q, k, v
+
+    def bind(self, cfg):
+        bq, bkv, _ = cfg
+        return lambda q, k, v: flash_attention(q, k, v, bq=bq, bkv=bkv)
+
+    def transfer_bytes(self, problem, itemsize: int = 4):
+        q_sh, kv_sh, o_sh = self.operand_shapes(problem)
+        nin = int(np.prod(q_sh)) + 2 * int(np.prod(kv_sh))
+        return itemsize * nin, itemsize * int(np.prod(o_sh))
+
+
+class _SsdDevice:
+    """(chunk, p, n) configs of the CUDA SSD scan (``kernels/ssd.py``),
+    measured on the reference's operands: dt = 1e-3 and a_log = 0
+    everywhere, x, b and c standard normal."""
+
+    name = "cuda_ssd"
+    config_dims = ("chunk", "p", "n")
+
+    def smem_bytes(self, cfg: Tuple[int, ...]) -> int:
+        return ssd_smem_bytes(*cfg)
+
+    def proxy(self, cfg, steps_per_dim: int) -> Tuple[int, ...]:
+        return ssd_proxy_problem(*cfg, steps_per_dim=steps_per_dim)
+
+    def proxy_steps(self, cfg, steps_per_dim: int) -> int:
+        return self.steps(self.proxy(cfg, steps_per_dim), cfg)
+
+    def steps(self, problem, cfg) -> int:
+        b, l, h, p, g, n = problem
+        assert (p, n) == (cfg[1], cfg[2]), (problem, cfg)
+        return ssd_grid_steps(b, l, h, cfg[0])
+
+    def operand_shapes(self, problem):
+        b, l, h, p, g, n = problem
+        return (b, l, h, p), (b, l, g, n), (b, l, h, p)
+
+    def operands(self, problem, rng):
+        b, l, h, p, g, n = problem
+        x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+        dt = np.full((b, l, h), 1e-3, dtype=np.float32)
+        a_log = np.zeros((h,), dtype=np.float32)
+        bb = rng.standard_normal((b, l, g, n)).astype(np.float32)
+        cc = rng.standard_normal((b, l, g, n)).astype(np.float32)
+        return x, dt, a_log, bb, cc
+
+    def bind(self, cfg):
+        chunk = cfg[0]
+        return lambda x, dt, a_log, b, c: ssd(x, dt, a_log, b, c,
+                                              chunk=chunk)
+
+    def transfer_bytes(self, problem, itemsize: int = 4):
+        b, l, h, p, g, n = problem
+        nin = b * l * h * p + b * l * h + h + 2 * b * l * g * n
+        return itemsize * nin, itemsize * b * l * h * p
+
+
 #: the device kernel registry: name -> adapter
-DEVICE_KERNELS = {k.name: k for k in (_MatmulDevice(),)}
+DEVICE_KERNELS = {k.name: k for k in (_MatmulDevice(),
+                                      _FlashAttentionDevice(),
+                                      _SsdDevice())}
 
 
 def device_key(kernel_name: str, config: Sequence[int], *,

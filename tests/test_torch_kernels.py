@@ -146,3 +146,20 @@ def test_numpy_torch_helpers_round_trip(dtype):
     t = to_torch(a, "cpu", dtype)
     assert t.dtype == dtype
     np.testing.assert_array_equal(to_numpy(t).astype(np.float32), a)
+
+
+def test_every_kernel_source_ships_as_package_data():
+    """Each ``csrc/*.cu`` that ``_build`` compiles is package data, so an
+    installed port can build its kernels as a checkout does."""
+    import fnmatch
+    import tomllib
+    from repro_torch.kernels import _build
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert {"matmul", "flash_attention", "ssd"} <= set(names)
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "repro_torch"]
+    for name in names:
+        rel = f"kernels/csrc/{name}.cu"
+        assert (ROOT / "src" / "repro_torch" / rel).is_file()
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel

@@ -36,7 +36,8 @@ from repro_torch.core.grids import Domain  # noqa: E402
 from repro_torch.core.sampler import Stats  # noqa: E402
 from repro_torch.dla import ExecEngine, blocked, tracers  # noqa: E402
 from repro_torch.dla.kernels import KERNELS  # noqa: E402
-from repro_torch.perf.roofline import H100_SXM, card, card_of  # noqa: E402
+from repro_torch.perf.roofline import (H100_SXM, card, card_of,  # noqa: E402
+                                       peak_flops)
 from repro_torch.perf.tile_tuner import (predict_tile_time,  # noqa: E402
                                          rank_tiles, select_tiles)
 from repro_torch.tc import PredictorSession  # noqa: E402
@@ -268,6 +269,13 @@ def test_card_constants_are_keyed_by_device_name():
     assert card(H100_SXM.name) is H100_SXM
     with pytest.raises(KeyError, match="no published constants"):
         card("an unrecorded card")
+    # NVIDIA's published dense rates for the SXM part at 700 W
+    assert H100_SXM.fp32_flops == 67e12
+    assert H100_SXM.bf16_tensor_flops == 989e12
+    assert peak_flops(H100_SXM, torch.bfloat16) == 989e12
+    assert peak_flops(H100_SXM, torch.float32) == 67e12
+    with pytest.raises(ValueError, match="no peak rate"):
+        peak_flops(H100_SXM, torch.float64)
 
 
 def test_device_model_set_round_trips_and_loads_in_reference():

@@ -12,8 +12,9 @@ version, and drives every path of the port on the card:
 
 1. card and kernel build;
 2. kernel check: the CUDA matmul against its plain version on the test
-   shapes and on a shape for each of its (bm, bn) instantiations (float32
-   and bfloat16);
+   shapes and on a shape for each of its (bm, bn, bk) instantiations that
+   the card can stage (float32 and bfloat16); a test shape whose tiles
+   the kernel does not take must be refused;
 3. the paper's path at n = 4096: generate potf2/trsm/syrk/gemm models on
    the card over the domains the Cholesky tracers call, rank the three
    potrf variants and the block size without executing them, then execute
@@ -68,8 +69,6 @@ TIME_REPS = 10                             # launches per kernel timing
 TEST_SHAPES = [(128, 128, 128, 64, 64, 64), (256, 128, 192, 128, 64, 64),
                (64, 64, 64, 64, 64, 64), (256, 256, 256, 128, 128, 128),
                (384, 128, 256, 128, 128, 64)]
-#: slab depths the kernel is built for, cycled over the instantiation shapes
-KERNEL_BKS = (8, 16, 32, 64)
 #: relative normwise bound of the 4096^3 float32 check: float32 rounding
 #: grows like sqrt(k) * eps over a k = 4096 sum, in both versions
 BIG_TOL = 1e-5
@@ -162,6 +161,32 @@ def rel_err(out, ref) -> float:
     return float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
 
 
+def ptxas_table(log_text: str) -> dict:
+    """Registers and spill bytes per instantiation, from ``-Xptxas -v``:
+    {(kernel, dtype, template ints): (registers, spill stores, spill
+    loads)}, the kernel name and arguments read from the mangled name."""
+    import re
+    table, key, spills = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kern = re.search(r"\d+([a-z_]+_kernel)I", name)
+            dtype = "bfloat16" if "__nv_bfloat16" in name else "float32"
+            key = (kern.group(1) if kern else name, dtype,
+                   tuple(int(a) for a in re.findall(r"Li(\d+)E", name)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key is not None:
+            table[key] = (int(m.group(1)), *spills)
+            key, spills = None, (0, 0)
+    return table
+
+
 def bound(flops: float, nbytes: float, peak_flops: float, card) -> dict:
     """The least time the card could take: the larger of the operations
     over the peak rate and the bytes over the memory rate."""
@@ -203,16 +228,22 @@ def ssd_work(b, l, h, p, g, n, chunk):
 
 # ------------------------------------------------------------ phase 2 --
 def check_kernel_shapes() -> None:
-    """The test shapes, then one shape per (bm, bn) instantiation of the
-    kernel (a 2 x 3 grid of blocks, 4 k-slabs), each in both dtypes."""
+    """The test shapes, then one shape per (bm, bn, bk) instantiation of
+    the kernel that the card can stage (a 2 x 3 grid of blocks, k = 4 bk
+    up to the test shapes' 256, where the 2e-5 bound holds two float32
+    summation orders; phase 4 runs every legal tile at k = 4096), each in
+    both dtypes.  A test shape whose tiles the kernel does not take must
+    be refused by the wrapper."""
     import numpy as np
     import torch
-    from repro_torch.kernels.matmul import KERNEL_TILES, matmul, matmul_plain
+    from repro_torch.kernels.matmul import (KERNEL_BKS, KERNEL_TILES,
+                                            matmul, matmul_plain, tile_legal)
 
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     shapes = list(TEST_SHAPES) + [
-        (2 * bm, 3 * bn, 4 * bk, bm, bn, bk)
-        for (bm, bn), bk in zip(KERNEL_TILES,
-                                KERNEL_BKS * len(KERNEL_TILES))]
+        (2 * bm, 3 * bn, min(4 * bk, 256), bm, bn, bk)
+        for bm, bn in KERNEL_TILES for bk in KERNEL_BKS
+        if tile_legal(2 * bm, 3 * bn, 4 * bk, bm, bn, bk, limit)]
     rng = np.random.default_rng(7)
     for m, n, k, bm, bn, bk in shapes:
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
@@ -220,6 +251,16 @@ def check_kernel_shapes() -> None:
                 np.float32)).to("cuda", dtype)
             y = torch.from_numpy(rng.standard_normal((k, n)).astype(
                 np.float32)).to("cuda", dtype)
+            if not tile_legal(m, n, k, bm, bn, bk, limit):
+                try:
+                    matmul(x, y, bm=bm, bn=bn, bk=bk)
+                except ValueError as exc:
+                    log(f"  matmul {m}x{n}x{k} tiles ({bm},{bn},{bk}) "
+                        f"{str(dtype)[6:]}: not legal for the kernel, "
+                        f"refused ({str(exc)[:60]}...)")
+                    continue
+                raise AssertionError(f"matmul took illegal tiles "
+                                     f"{(bm, bn, bk)}")
             out = matmul(x, y, bm=bm, bn=bn, bk=bk)
             torch.cuda.synchronize()       # a fault surfaces here
             ref = matmul_plain(x, y, bm=bm, bn=bn, bk=bk)
@@ -440,7 +481,8 @@ def check_attention(card) -> dict:
     both dtypes, each timed beside its bound."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (attn_grid_steps,
+                                                     flash_attention,
                                                      flash_attention_plain)
     from repro_torch.perf.roofline import peak_flops
 
@@ -507,15 +549,19 @@ def check_attention(card) -> dict:
             flops, nbytes = attn_work(1, hq, hkv, GEMMA_S, d, True, window,
                                       q.element_size())
             bd = bound(flops, nbytes, peak_flops(card, dtype), card)
+            visits = attn_grid_steps(1, hq, GEMMA_S, GEMMA_S, 128, 128,
+                                     causal=True, window=window)
             log(f"  gemma2-27b {layer} layer (window {window}), s={GEMMA_S},"
-                f" {name}, blocks (128, 128): normwise {err:.3e} (bound "
-                f"{WIDE_TOL[name]:.3e}), max_abs_err {max_abs:.3e}; kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f" {name}, blocks (128, 128), visits {visits} of "
+                f"{hq * (GEMMA_S // 128) ** 2} kv blocks: normwise {err:.3e} "
+                f"(bound {WIDE_TOL[name]:.3e}), max_abs_err {max_abs:.3e}; "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
                 f"{flops / 1e9:.1f} GFLOP at "
                 f"{peak_flops(card, dtype) / 1e12:.0f} TFLOP/s)")
             rows.append({"layer": layer, "window": window, "dtype": name,
-                         "s": GEMMA_S, "normwise": err, "max_abs_err": max_abs,
+                         "s": GEMMA_S, "visited_blocks": visits,
+                         "normwise": err, "max_abs_err": max_abs,
                          "unrounded_p_normwise": fault, "kernel_ms": ms,
                          "plain_ms": plain_ms, **bd})
         del q, k, v
@@ -696,7 +742,8 @@ def finish_attention(tuned: dict, card) -> dict:
     selected one beside its plain version and PyTorch's SDPA (TF32 off)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (attn_grid_steps,
+                                                     flash_attention,
                                                      flash_attention_plain)
     b, h, sq, skv, d = ATTN_PROBLEM
     rng = np.random.default_rng(13)
@@ -714,20 +761,34 @@ def finish_attention(tuned: dict, card) -> dict:
     bq, bkv, _ = res["choice"]
     kernel_ms = event_ms(lambda: flash_attention(q, k, v, bq=bq, bkv=bkv),
                          TIME_REPS)
-    plain_ms = event_ms(lambda: flash_attention_plain(q, k, v, bkv=bkv),
-                        TIME_REPS)
+    # the plain version's loop over the kv blocks the kernel visits
+    skip_err = rel_err(flash_attention(q, k, v, bq=bq, bkv=bkv),
+                       flash_attention_plain(q, k, v, bq=bq, bkv=bkv))
+    if not skip_err <= WIDE_TOL["float32"]:
+        raise AssertionError(f"flash_attention at ({bq}, {bkv}) disagrees "
+                             f"with the plain loop over its visited blocks: "
+                             f"normwise {skip_err:.3e}")
+    plain_ms = event_ms(lambda: flash_attention_plain(q, k, v, bq=bq,
+                                                      bkv=bkv), TIME_REPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True), TIME_REPS)
     lib_err = rel_err(sdpa(q, k, v, is_causal=True),
                       flash_attention_plain(q, k, v, bkv=bkv))
     flops, nbytes = attn_work(b, h, h, sq, d, True, 0, 4)
     bd = bound(flops, nbytes, card.fp32_flops, card)
+    steps = attn_grid_steps(b, h, sq, skv, bq, bkv)
+    grid = b * h * (sq // bq) * (skv // bkv)
     log(f"  attention {ATTN_PROBLEM} causal f32 at the selected "
-        f"({bq}, {bkv}): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms,"
-        f" SDPA {library_ms:.3f} ms (normwise {lib_err:.1e} from the plain "
-        f"version), bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+        f"({bq}, {bkv}), visiting {steps} of {grid} kv blocks (normwise "
+        f"{skip_err:.1e} from the plain loop over them): kernel_ms "
+        f"{kernel_ms:.3f}, plain_ms {plain_ms:.3f}, "
+        f"library_ms {library_ms:.3f} (SDPA, normwise {lib_err:.1e} from "
+        f"the plain version), bound_ms {bd['bound_ms']:.3f} "
+        f"({bd['bound_by']}); {flops / kernel_ms / 1e9:.1f} TFLOP/s on the "
+        f"kept pairs")
     res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               library_normwise=lib_err, **bd)
+               library_normwise=lib_err, visited_blocks=steps,
+               skip_normwise=skip_err, **bd)
     return res
 
 
@@ -783,9 +844,17 @@ def main() -> int:
     log(f"    kernel build (three nvcc at once) "
         f"{time.perf_counter() - t0:.1f} s -> " +
         ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    ptxas = {}
     for name, lib in libs.items():
-        (OUT / f"ptxas_{name}.log").write_text(
-            lib.with_suffix(".log").read_text())
+        text = lib.with_suffix(".log").read_text()
+        (OUT / f"ptxas_{name}.log").write_text(text)
+        ptxas.update(ptxas_table(text))
+        rows = [v for k, v in ptxas_table(text).items()]
+        if not rows:
+            raise AssertionError(f"no ptxas report for {name}")
+        log(f"    ptxas {name}: {len(rows)} instantiations, registers "
+            f"{min(r[0] for r in rows)}-{max(r[0] for r in rows)}, "
+            f"{sum(1 for r in rows if r[1])} spill")
     the_card = card_of(dev)
     phase_s = {}
 
@@ -835,9 +904,10 @@ def main() -> int:
     mm_bound = bound(2.0 * N ** 3, 4.0 * 3 * N * N, the_card.fp32_flops,
                      the_card)
     del x, y
-    log(f"    matmul 4096^3 f32: kernel {kernel_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, bound "
-        f"{mm_bound['bound_ms']:.3f} ms")
+    log(f"    matmul 4096^3 f32: kernel_ms {kernel_ms:.3f}, plain_ms "
+        f"{plain_ms:.3f}, library_ms {library_ms:.3f} (torch.matmul), "
+        f"bound_ms {mm_bound['bound_ms']:.3f} ({mm_bound['bound_by']}); "
+        f"{2.0 * N ** 3 / kernel_ms / 1e9:.1f} TFLOP/s")
 
     log("[6] kernel check (CUDA flash attention and SSD vs their plain "
         "versions)")
@@ -856,6 +926,24 @@ def main() -> int:
     session.device_suite().to_model_set().save(
         str(OUT / "device_models.json"))
 
+    ssd_p, ssd_n = SSD_PROBLEM[3], SSD_PROBLEM[5]
+    chunk = ssd_res["choice"][0]
+    selected = {
+        "matmul": ("matmul_kernel", "float32", (bm // 64, bn // 64, bk)),
+        "flash_attention": ("attn_kernel", "float32",
+                            tuple(c // 16 for c in attn["choice"])),
+        "ssd": ("ssd_kernel", "float32", (ssd_p, ssd_n, min(chunk, 64)))}
+    regs = {}
+    for name, key in selected.items():
+        if key not in ptxas:
+            raise AssertionError(f"no ptxas report for {name}'s selected "
+                                 f"instantiation {key}")
+        regs[name] = dict(zip(("registers", "spill_store_bytes",
+                               "spill_load_bytes"), ptxas[key]))
+        log(f"  {name} at its selected config: {key[0]}<{key[2]}> uses "
+            f"{regs[name]['registers']} registers, spills "
+            f"{regs[name]['spill_store_bytes']} B stored / "
+            f"{regs[name]['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
     for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
                        ("ssd", "ssd_chunks")):
@@ -871,7 +959,7 @@ def main() -> int:
                 "max_abs_err": res["err"], "ms": res["kernel_ms"],
                 "kernel_ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-                "library_ms": res["library_ms"], **extra}
+                "library_ms": res["library_ms"], **regs[name], **extra}
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {"kernels": [

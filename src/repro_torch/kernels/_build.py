@@ -24,8 +24,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: build directory: ``build/`` at the repository root (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
+#: ``--split-compile=0`` spreads one source's kernels over every core (the
+#: attention file alone holds 128 instantiations)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -2,23 +2,30 @@
 
 The counterpart of ``repro/kernels/flash_attention.py``.  The kernel is
 ``csrc/flash_attention.cu`` (FP32 FFMA; one thread block per (batch, query
-head, query block) looping over every kv block with the online-softmax
-state in registers; its note says what bounds it and why it is built so).
-One kernel covers every flavour the reference covers: GQA by index (kv
-head ``h // (Hq / Hkv)``, nothing repeated), causal and sliding-window
-masks with the finite ``-1e30`` sentinel, and gemma2's logit softcap.
+head, query block) looping over the kv blocks that hold a kept (query,
+key) pair, with the online-softmax state in registers, 16-byte vector
+loads from shared memory and cp.async copies of k and v that overlap the
+FFMAs; its note says what bounds it and why it is built so).  One kernel
+covers every flavour the reference covers: GQA by index (kv head
+``h // (Hq / Hkv)``, nothing repeated), causal and sliding-window masks
+with the finite ``-1e30`` sentinel, and gemma2's logit softcap.
 
 :func:`flash_attention` dispatches on where its operands lie: CUDA tensors
 launch the kernel (or raise); CPU tensors take
 :func:`flash_attention_plain`, the kernel's kv-block loop in plain PyTorch
 — the counterpart of Pallas ``interpret=True``.  There is no fall back
 from one to the other.
+
+The kernel skips the kv blocks a mask removes (:func:`attn_kv_range`), so
+:func:`attn_grid_steps` counts the (query block, kv block) pairs it
+visits.  That differs on purpose from the reference's count, which is the
+TPU kernel's full grid; the two agree where no mask removes a block.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,22 +39,20 @@ KERNEL_BLOCKS: Tuple[int, ...] = (16, 32, 64, 128)
 KERNEL_HEAD_DIMS: Tuple[int, ...] = (16, 32, 64, 128)
 #: the reference kernel's finite mask sentinel
 NEG_INF = -1e30
+#: widest column chunk of the probability tile the kernel stages at once
+PROB_CHUNK = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _prob_stride(bkv: int) -> int:
-    """Row stride of the kernel's staged probability tile (% 32 == 16)."""
-    return bkv + 16 - bkv % 32
-
-
 def attn_smem_bytes(bq: int, bkv: int, d: int) -> int:
-    """Shared memory one block stages, all float32: the query block
-    transposed (d x (bq + 1)), one buffer that holds k transposed
-    (d x (bkv + 1)) and then v (bkv x d), and the probability tile
-    (bq x stride).  k and v share their buffer, which keeps bq = bkv =
-    d = 128 at 205,824 bytes, within the H100's opt-in limit."""
-    return 4 * (d * (bq + 1) + d * (bkv + 1) + bq * _prob_stride(bkv))
+    """Shared memory one block stages, in float32 (bfloat16 operands
+    stage half as much for q, k and v): one q tile (bq x d), one k tile
+    and one v tile (bkv x d each; the next block's k and v land in them
+    while the other product runs), and the probability tile in column
+    chunks of at most :data:`PROB_CHUNK`.  bq = bkv = d = 128 takes
+    229,376 bytes, within the H100's opt-in limit."""
+    return 4 * ((bq + 2 * bkv) * d + bq * min(bkv, PROB_CHUNK))
 
 
 def attn_tile_legal(sq: int, skv: int, bq: int, bkv: int, d: int,
@@ -64,11 +69,37 @@ def attn_tile_legal(sq: int, skv: int, bq: int, bkv: int, d: int,
     return attn_smem_bytes(bq, bkv, d) <= smem_limit
 
 
-def attn_grid_steps(b: int, h: int, sq: int, skv: int,
-                    bq: int, bkv: int) -> int:
-    """(query block, kv block) steps of one attention call at blocks
-    (bq, bkv): every kv block is visited, masked or not."""
-    return b * h * (sq // bq) * (skv // bkv)
+def attn_kv_range(qblk: int, bq: int, bkv: int, skv: int, causal: bool,
+                  window: int) -> Tuple[int, int]:
+    """The kv blocks ``[lo, hi)`` the kernel visits for query block
+    ``qblk``: those that hold a kept (query, key) pair.
+
+    Under ``causal`` the blocks up to the diagonal; under ``window > 0``
+    those from ``(qblk bq - window + 1) // bkv``, clamped at 0.  A block
+    with a row whose window lies wholly past the keys (``sq > skv``)
+    visits every block: that row keeps no key, and the reference returns
+    the mean of v over every key, which only the full loop reproduces.
+    ``csrc/flash_attention.cu`` computes the same range.
+    """
+    nkv = skv // bkv
+    q0, q_last = qblk * bq, qblk * bq + bq - 1
+    if window > 0 and q_last >= skv + window - 1:
+        return 0, nkv
+    hi = min(nkv, q_last // bkv + 1) if causal else nkv
+    lo = max(0, q0 - window + 1) // bkv if window > 0 else 0
+    return lo, hi
+
+
+def attn_grid_steps(b: int, h: int, sq: int, skv: int, bq: int, bkv: int,
+                    causal: bool = True, window: int = 0) -> int:
+    """(query block, kv block) pairs one attention call visits at blocks
+    (bq, bkv): the blocks of :func:`attn_kv_range` for every query block.
+    Without a mask that is the full grid, the reference's count."""
+    per_head = 0
+    for qblk in range(sq // bq):
+        lo, hi = attn_kv_range(qblk, bq, bkv, skv, causal, window)
+        per_head += hi - lo
+    return b * h * per_head
 
 
 def attn_proxy_problem(bq: int, bkv: int, d: int,
@@ -105,47 +136,59 @@ def _check(q, k, v) -> None:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, bkv: int, causal: bool = True,
-                          window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          window: int = 0, softcap: float = 0.0,
+                          bq: Optional[int] = None) -> torch.Tensor:
     """The kernel's online-softmax loop over kv blocks in plain PyTorch.
 
-    Vectorised over batches, query heads and every query row at once:
-    the rows are independent, so the query block size changes nothing and
-    only ``bkv`` (where the running max is refreshed) matters.  GQA
+    With ``bq``, each query block visits only the kv blocks of
+    :func:`attn_kv_range`, as the kernel does; without, every query row
+    visits every kv block at once, as the TPU kernel's grid does.  The
+    two give the same result: a skipped block adds nothing (see
+    ``attn_kv_range``).  Vectorised over batches and query heads; GQA
     broadcasts each kv head over its query-head group.  Same arithmetic
     as the kernel: float32 logits and state, ``-1e30`` masking, ``p``
-    rounded to the value dtype before ``p @ v``, output
-    ``acc / max(l, 1e-30)`` cast to the input dtype.
+    rounded to the value dtype before ``p @ v`` while the denominator
+    sums the unrounded ``p``, output ``acc / max(l, 1e-30)`` cast to the
+    input dtype.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     scale = 1.0 / (d ** 0.5)
     dev = q.device
     qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
-    m = torch.full((b, hkv, hq // hkv, sq, 1), NEG_INF, device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros_like(qf)
-    q_pos = torch.arange(sq, device=dev)[:, None]
-    for j0 in range(0, skv, bkv):
-        kb = k[:, :, None, j0:j0 + bkv].float()
-        vb = v[:, :, None, j0:j0 + bkv]
-        s = (qf @ kb.transpose(-1, -2)) * scale
-        if softcap > 0.0:
-            s = softcap * torch.tanh(s / softcap)
-        k_pos = torch.arange(j0, j0 + bkv, device=dev)[None, :]
-        mask = torch.ones((sq, bkv), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= q_pos >= k_pos
-        if window > 0:
-            mask &= (q_pos - k_pos) < window
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)
+    if bq is None:
+        blocks = [(0, sq, 0, skv // bkv)]
+    else:
+        blocks = [(i * bq, i * bq + bq,
+                   *attn_kv_range(i, bq, bkv, skv, causal, window))
+                  for i in range(sq // bq)]
+    out = torch.empty_like(qf)
+    for r0, r1, lo, hi in blocks:
+        qb = qf[..., r0:r1, :]
+        m = torch.full((*qb.shape[:-1], 1), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        q_pos = torch.arange(r0, r1, device=dev)[:, None]
+        for j0 in range(lo * bkv, hi * bkv, bkv):
+            kb = k[:, :, None, j0:j0 + bkv].float()
+            vb = v[:, :, None, j0:j0 + bkv]
+            s = (qb @ kb.transpose(-1, -2)) * scale
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
+            k_pos = torch.arange(j0, j0 + bkv, device=dev)[None, :]
+            mask = torch.ones((r1 - r0, bkv), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= q_pos >= k_pos
+            if window > 0:
+                mask &= (q_pos - k_pos) < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
+            m = m_new
+        out[..., r0:r1, :] = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
@@ -181,9 +224,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window attention; ``softcap > 0`` applies gemma2-style logit
     soft-capping.  Blocks are clamped to the sequence lengths and must
     divide them, as in the reference.  CUDA tensors launch the
-    hand-written kernel on the current stream — contiguous, float32 or
-    bfloat16, blocks legal for the card — and anything the kernel does not
-    take raises; CPU tensors run :func:`flash_attention_plain`.
+    hand-written kernel on the current stream — contiguous, 16-byte
+    aligned, float32 or bfloat16, blocks legal for the card — and anything
+    the kernel does not take raises; CPU tensors run
+    :func:`flash_attention_plain` over the same visited kv blocks.  Both
+    visit only the kv blocks of :func:`attn_kv_range`.
     ``flash_attention.launches`` counts kernel launches.
     """
     _check(q, k, v)
@@ -194,14 +239,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"blocks ({bq}, {bkv}) must divide the sequence "
                          f"lengths ({sq}, {skv})")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bkv=bkv, causal=causal,
+        return flash_attention_plain(q, k, v, bq=bq, bkv=bkv, causal=causal,
                                      window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the flash_attention kernel takes contiguous "
-                         "(B, H, S, D) operands")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("the flash_attention kernel takes contiguous, "
+                         "16-byte aligned (B, H, S, D) operands")
     limit = torch.cuda.get_device_properties(
         q.device).shared_memory_per_block_optin
     if not attn_tile_legal(sq, skv, bq, bkv, d, limit):

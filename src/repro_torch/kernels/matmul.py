@@ -2,8 +2,10 @@
 
 The counterpart of ``repro/kernels/matmul.py``.  The kernel itself is
 ``csrc/matmul.cu`` (FP32 FFMA, one thread block per ``(bm, bn)`` output
-tile looping over k in ``bk``-deep shared-memory slabs; its note says what
-bounds it and why it is built so).  The tile sizes ``(bm, bn, bk)`` are the
+tile looping over k in ``bk``-deep slabs that a ring of :data:`STAGES`
+cp.async copies keeps in flight, each thread on a register tile of 4 x 4
+quads fed by 16-byte shared-memory loads; its note says what bounds it and
+why it is built so).  The tile sizes ``(bm, bn, bk)`` are the
 GPU counterpart of the paper's algorithmic block size b: they fix the
 shared-memory staging and the register tile, and are selected by the
 model-based tile tuner (:mod:`repro_torch.perf.tile_tuner`).
@@ -25,10 +27,15 @@ from . import _build
 from ._card import H100_SMEM_OPTIN
 
 #: (bm, bn) output tiles the kernel is instantiated for: 16 x 16 threads,
-#: each owning a (bm/16) x (bn/16) register tile of at most 64 accumulators
+#: each owning (bm/64) x (bn/64) quads of 4 x 4 accumulators, at most 64
 KERNEL_TILES: Tuple[Tuple[int, int], ...] = tuple(
-    (16 * tm, 16 * tn)
-    for tm in (2, 4, 8, 16) for tn in (2, 4, 8, 16) if tm * tn <= 64)
+    (64 * gm, 64 * gn)
+    for gm in (1, 2, 4) for gn in (1, 2, 4) if gm * gn <= 4)
+#: slab depths the kernel is instantiated for (a compile-time size, so the
+#: k loop unrolls whole)
+KERNEL_BKS: Tuple[int, ...] = (8, 16, 32, 64, 128)
+#: slabs in the kernel's cp.async ring (fixed by its design)
+STAGES = 3
 #: threads per block of the kernel (fixed by its design)
 THREADS = 256
 
@@ -36,9 +43,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Shared memory one block stages: an x slab (bm x bk, padded column
-    stride bm + 1) and a y slab (bk x bn), both converted to float32."""
-    return 4 * ((bm + 1) * bk + bk * bn)
+    """Shared memory one block stages, in float32 (bfloat16 operands
+    stage half as much): a ring of :data:`STAGES` slabs, each an x slab
+    (bm x bk) and a y slab (bk x bn)."""
+    return 4 * STAGES * (bm + bn) * bk
 
 
 def tile_legal(m: int, n: int, k: int, bm: int, bn: int, bk: int,
@@ -47,13 +55,14 @@ def tile_legal(m: int, n: int, k: int, bm: int, bn: int, bk: int,
 
     The tiles must divide the problem, ``(bm, bn)`` must be one of the
     kernel's instantiated register tiles (launchable: 256 threads within
-    the register file), and the staging must fit ``smem_limit`` — the
-    card's opt-in shared memory per block.  This is the GPU analogue of
+    the register file), ``bk`` one of its instantiated slab depths, and
+    the ring must fit ``smem_limit`` — the card's opt-in shared memory
+    per block.  This is the GPU analogue of
     the paper's cache-driven constraints on block sizes (§3.1.3).
     """
     if min(m, n, k, bm, bn, bk) <= 0 or m % bm or n % bn or k % bk:
         return False
-    if (bm, bn) not in KERNEL_TILES:
+    if (bm, bn) not in KERNEL_TILES or bk not in KERNEL_BKS:
         return False
     return smem_bytes(bm, bn, bk) <= smem_limit
 
@@ -146,16 +155,18 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
         return matmul_plain(x, y, bm=bm, bn=bn, bk=bk)
     if x.device.type != "cuda":
         raise ValueError(f"matmul runs on CUDA or the CPU, not {x.device}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("the matmul kernel takes contiguous row-major "
-                         "operands")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (x, y)):
+        raise ValueError("the matmul kernel takes contiguous, 16-byte "
+                         "aligned row-major operands")
     limit = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
     if not tile_legal(m, n, k, bm, bn, bk, limit):
         raise ValueError(
             f"tiles ({bm}, {bn}, {bk}) are not legal for the kernel: "
-            f"(bm, bn) must be one of {KERNEL_TILES} and the staging "
-            f"{smem_bytes(bm, bn, bk)} B must fit {limit} B")
+            f"(bm, bn) must be one of {KERNEL_TILES}, bk one of "
+            f"{KERNEL_BKS}, and the staging {smem_bytes(bm, bn, bk)} B "
+            f"must fit {limit} B")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _launch(x, y, out, bm, bn, bk)
     matmul.launches += 1

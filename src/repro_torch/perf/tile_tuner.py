@@ -4,10 +4,11 @@ block-size optimization applied to kernel tiles).
 The paper tunes a blocked algorithm's block size b by predicting runtime
 over candidate b and taking the argmin (§4.6).  The GPU analogue tunes the
 CUDA matmul's (bm, bn, bk): candidates are filtered by *legality* (tiles
-that divide the problem, an instantiated register tile, staging that fits
-the card's shared memory per block — :func:`~repro_torch.kernels.matmul.
-tile_legal`) and ranked by **measured per-step tile models** served
-through a :class:`~repro_torch.tc.session.PredictorSession`'s device facet
+that divide the problem, an instantiated register tile, a cp.async ring
+that fits the card's shared memory per block —
+:func:`~repro_torch.kernels.matmul.tile_legal`) and ranked by **measured
+per-step tile models** served through a
+:class:`~repro_torch.tc.session.PredictorSession`'s device facet
 (:mod:`repro_torch.tc.device`): each candidate's predicted total is
 ``T_h2d + per_step(bm, bn, bk) * grid_steps + T_d2h``, with the transfer
 terms fitted from the memcpy micro-benchmark.
@@ -24,8 +25,9 @@ ranks with the H100 SXM's:
 * memory:    device-memory traffic: every block re-reads its operand
   panels, so total traffic = m*k*(n/bn) + k*n*(m/bm) + m*n elements —
   small bm/bn re-stream the other operand;
-* overhead:  a fixed cost per (block, k-slab) step (the slab fill and two
-  barriers), spread over the card's SMs, which run blocks in parallel.
+* overhead:  a fixed cost per (block, k-slab) step (the barrier and the
+  ring's bookkeeping of one slab), spread over the card's SMs, which run
+  blocks in parallel.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..kernels._card import H100_SMEM_OPTIN
 from ..kernels.matmul import grid_steps, tile_legal
 from .roofline import H100_SXM, Card, card_of
 
-#: napkin cost of one (block, k-slab) step: slab fill latency + 2 barriers
+#: napkin cost of one (block, k-slab) step: one barrier and a ring slot
 _SLAB_OVERHEAD_S = 5e-7
 #: tile sizes tried in every dimension; legality keeps the kernel's
 #: instantiated (bm, bn) register tiles and the depths whose staging fits

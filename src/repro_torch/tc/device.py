@@ -127,7 +127,9 @@ class _FlashAttentionDevice:
     (``kernels/flash_attention.py``).  The head dim rides in the config:
     it is a compile-time size of every block, so two head dims are two
     kernel configurations.  The measured call is the reference's: causal,
-    no window, no softcap, as many kv heads as query heads."""
+    no window, no softcap, as many kv heads as query heads.  Its steps are
+    the (query block, kv block) pairs the kernel visits, which skips the
+    blocks above the diagonal; the reference counts the TPU's full grid."""
 
     name = "cuda_flash_attention"
     config_dims = ("bq", "bkv", "d")
@@ -144,7 +146,8 @@ class _FlashAttentionDevice:
     def steps(self, problem, cfg) -> int:
         b, h, sq, skv, d = problem
         assert d == cfg[2], (d, cfg)
-        return attn_grid_steps(b, h, sq, skv, cfg[0], cfg[1])
+        return attn_grid_steps(b, h, sq, skv, cfg[0], cfg[1], causal=True,
+                               window=0)
 
     def operand_shapes(self, problem):
         b, h, sq, skv, d = problem

@@ -28,8 +28,8 @@ from repro_torch.core.model import ModelSet  # noqa: E402
 from repro_torch.core.sampler import Stats  # noqa: E402
 from repro_torch.kernels import flash_attention, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    KERNEL_BLOCKS, attn_grid_steps, attn_proxy_problem, attn_smem_bytes,
-    attn_tile_legal, flash_attention_plain)
+    KERNEL_BLOCKS, attn_grid_steps, attn_kv_range, attn_proxy_problem,
+    attn_smem_bytes, attn_tile_legal, flash_attention_plain)
 from repro_torch.kernels.ref import attention_ref  # noqa: E402
 from repro_torch.tc import DEVICE_KERNELS, PredictorSession  # noqa: E402
 from repro_torch.tc.suite import MicroBenchmarkSuite  # noqa: E402
@@ -112,12 +112,138 @@ def test_masked_leading_blocks_stay_finite():
         flash_attention(q, k, v, bq=128, bkv=16, window=16).numpy())
 
 
+# ------------------------------------------------------ block skipping --
+
+def _kept(sq, skv, causal, window):
+    """The reference's mask as a (sq, skv) boolean array."""
+    q_pos = np.arange(sq)[:, None]
+    k_pos = np.arange(skv)[None, :]
+    mask = np.ones((sq, skv), dtype=bool)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    return mask
+
+
+def _brute_visits(sq, skv, bq, bkv, causal, window):
+    """Per query block, the kv blocks that hold a kept pair, by brute force
+    over the mask, and whether a row of the block keeps no key at all."""
+    mask = _kept(sq, skv, causal, window)
+    out = []
+    for i in range(sq // bq):
+        rows = mask[i * bq:(i + 1) * bq]
+        hits = [j for j in range(skv // bkv)
+                if rows[:, j * bkv:(j + 1) * bkv].any()]
+        out.append((hits, bool((~rows.any(axis=1)).any())))
+    return out
+
+
+def _brute_steps(b, h, sq, skv, bq, bkv, causal, window):
+    """What the kernel visits, counted row by row from the mask's
+    definition: a kv block is visited when a row of the query block keeps
+    a key in it, and every block is visited where a row keeps no key."""
+    rows = np.arange(sq)
+    k_lo = np.maximum(0, rows - window + 1) if window > 0 else \
+        np.zeros_like(rows)
+    k_hi = np.minimum(rows, skv - 1) if causal else np.full_like(rows,
+                                                                 skv - 1)
+    starts = np.arange(0, skv, bkv)
+    total = 0
+    for i in range(sq // bq):
+        lo, hi = k_lo[i * bq:(i + 1) * bq], k_hi[i * bq:(i + 1) * bq]
+        if (lo > hi).any():
+            total += skv // bkv
+            continue
+        hit = (lo[:, None] <= starts[None, :] + bkv - 1) & \
+            (hi[:, None] >= starts[None, :])
+        total += int(hit.any(axis=0).sum())
+    return b * h * total
+
+
+MASKS = [(c, w) for c in (True, False) for w in (0, 1, 16, 100)]
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("sq", [256, 128, 512])
+def test_attn_kv_range_matches_brute_force(sq, causal, window):
+    """Every skipped block has no kept pair and every visited block has
+    one, at sq = skv, skv / 2 and 2 skv; a block with a row that keeps no
+    key (its window wholly past the keys) visits every block."""
+    skv = 256
+    for bq in (16, 32, 64):
+        for bkv in (16, 32, 64):
+            for i, (hits, empty) in enumerate(
+                    _brute_visits(sq, skv, bq, bkv, causal, window)):
+                lo, hi = attn_kv_range(i, bq, bkv, skv, causal, window)
+                if empty:
+                    assert (lo, hi) == (0, skv // bkv)
+                else:
+                    assert list(range(lo, hi)) == hits, (i, bq, bkv)
+            # the two brute forces (mask, row intervals) count alike
+            assert attn_grid_steps(1, 1, sq, skv, bq, bkv, causal, window) \
+                == _brute_steps(1, 1, sq, skv, bq, bkv, causal, window)
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
+                                           (True, 16), (False, 100),
+                                           (True, 4096)])
 @pytest.mark.parametrize("b,h,s,bq,bkv", [
     (1, 1, 64, 32, 32), (2, 4, 128, 32, 64), (1, 32, 4096, 128, 64),
     (3, 16, 8192, 16, 128), (1, 8, 256, 256, 16)])
-def test_attn_grid_steps_match_reference(b, h, s, bq, bkv):
-    assert attn_grid_steps(b, h, s, 2 * s, bq, bkv) == \
-        ref_grid_steps(b, h, s, 2 * s, bq, bkv)
+def test_attn_grid_steps_match_reference(b, h, s, bq, bkv, causal, window):
+    """The visited (query block, kv block) pairs: the reference's full
+    grid where no mask removes a block, the brute-force count otherwise."""
+    steps = attn_grid_steps(b, h, s, 2 * s, bq, bkv, causal=causal,
+                            window=window)
+    if not causal and window == 0:
+        assert steps == ref_grid_steps(b, h, s, 2 * s, bq, bkv)
+    assert steps == _brute_steps(b, h, s, 2 * s, bq, bkv, causal, window)
+
+
+def test_attn_grid_steps_at_the_papers_problems():
+    # causal (1, 32, 4096, 4096, 128) at (128, 128): 528 of 1024 a head
+    assert attn_grid_steps(1, 32, 4096, 4096, 128, 128) == 32 * 528
+    assert attn_grid_steps(1, 32, 4096, 4096, 128, 128, causal=False) == \
+        ref_grid_steps(1, 32, 4096, 4096, 128, 128) == 32 * 1024
+    # gemma2-27b at 8192 tokens: local (window 4096) 1584, global 2080
+    assert attn_grid_steps(1, 1, 8192, 8192, 128, 128, window=4096) == 1584
+    assert attn_grid_steps(1, 1, 8192, 8192, 128, 128) == 2080
+
+
+SKIP_CASES = [
+    (2, 1, 64, 64, 16, dict(causal=True)),
+    (2, 1, 128, 64, 16, dict(causal=True, window=16)),    # rows past keys
+    (2, 1, 128, 64, 16, dict(causal=False, window=16)),   # rows past keys
+    (2, 2, 64, 128, 16, dict(causal=True, window=24)),
+    (4, 2, 128, 128, 32, dict(causal=True, window=32, softcap=20.0)),
+    (2, 1, 64, 128, 16, dict(causal=False, window=40)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,sq,skv,d,kw", SKIP_CASES)
+def test_skipping_plain_matches_reference_and_all_blocks(hq, hkv, sq, skv, d,
+                                                         kw, dtype):
+    """The plain version that visits only attn_kv_range per query block
+    agrees with the Pallas kernel in interpret mode (which visits every
+    block) and with the all-blocks plain version, including query blocks
+    whose rows keep no key, where the reference averages all of v."""
+    rng = np.random.default_rng(5)
+    arrays = [rng.standard_normal(sh).astype(np.float32) for sh in
+              ((2, hq, sq, d), (2, hkv, skv, d), (2, hkv, skv, d))]
+    (jq, jk, jv), (q, k, v) = _both(arrays, dtype)
+    tol = TOLS[dtype]
+    for bq, bkv in ((16, 16), (32, 16), (16, 32)):
+        ref = jax_flash_attention(jq, jk, jv, bq=bq, bkv=bkv,
+                                  interpret=True, **kw)
+        out = flash_attention(q, k, v, bq=bq, bkv=bkv, **kw)
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   rtol=tol, atol=tol)
+        full = flash_attention_plain(q, k, v, bkv=bkv, **kw)
+        np.testing.assert_allclose(out.float().numpy(),
+                                   full.float().numpy(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("problem", [(1, 1, 64, 64, 32), (2, 8, 128, 256, 16),
@@ -129,8 +255,15 @@ def test_attn_transfer_bytes_match_reference(problem):
         assert mine.transfer_bytes(problem, itemsize) == \
             ref.transfer_bytes(problem, itemsize)
     assert mine.operand_shapes(problem) == ref.operand_shapes(problem)
-    cfg = (32, 32, problem[4])
-    assert mine.steps(problem, cfg) == ref.steps(problem, cfg)
+    # the family's call is causal: the port counts the blocks the kernel
+    # visits, the reference the TPU's full grid; they agree without a mask
+    b, h, sq, skv, d = problem
+    cfg = (32, 32, d)
+    assert mine.steps(problem, cfg) == _brute_steps(b, h, sq, skv, 32, 32,
+                                                    True, 0)
+    assert attn_grid_steps(b, h, sq, skv, 32, 32, causal=False) == \
+        ref.steps(problem, cfg)
+    assert mine.steps(problem, cfg) < ref.steps(problem, cfg)
 
 
 @pytest.mark.parametrize("bq", KERNEL_BLOCKS)
@@ -150,13 +283,19 @@ def test_attn_proxy_fills_the_card(bq, bkv):
 
 
 def test_attn_tile_legality_is_instantiation_and_shared_memory():
-    # k and v share one buffer: every block at d = 128 fits the H100
-    assert attn_smem_bytes(128, 128, 128) == 205_824 <= H100_SMEM_OPTIN
-    assert all(attn_tile_legal(4096, 4096, bq, bkv, 128)
-               for bq in KERNEL_BLOCKS for bkv in KERNEL_BLOCKS)
+    # one q, one k and one v tile and the probability tile in chunks of at
+    # most 64 columns: every block at every head dim fits the H100
+    assert attn_smem_bytes(128, 128, 128) == \
+        4 * (3 * 128 * 128 + 128 * 64) == 229_376 <= H100_SMEM_OPTIN
+    assert attn_smem_bytes(128, 64, 128) == 4 * (2 * 128 * 128 + 128 * 64)
+    assert attn_smem_bytes(64, 32, 16) == 4 * (128 * 16 + 64 * 32)
+    assert all(attn_tile_legal(4096, 4096, bq, bkv, d)
+               for bq in KERNEL_BLOCKS for bkv in KERNEL_BLOCKS
+               for d in (16, 32, 64, 128))
     assert not attn_tile_legal(4096, 4096, 128, 128, 128,
                                smem_limit=200_000)    # over the limit
     assert attn_tile_legal(4096, 4096, 64, 64, 128, smem_limit=200_000)
+    assert attn_tile_legal(4096, 4096, 128, 64, 128, smem_limit=200_000)
     assert not attn_tile_legal(4096, 4096, 256, 128, 128)   # not built
     assert not attn_tile_legal(4096, 4096, 128, 128, 96)    # d not built
     assert not attn_tile_legal(4000, 4096, 64, 64, 128)     # not dividing
@@ -228,8 +367,10 @@ def _session():
 
 def test_attention_family_ranks_like_the_reference():
     """With the same per-step costs, both packages predict the same full
-    problem: the step counts and transfer bytes agree, although the
-    port's proxy differs from the reference's."""
+    problem once each is scaled by its own step count: the reference's by
+    the TPU's full grid, the port's by the blocks its kernel visits (the
+    family's call is causal).  Transfer bytes agree, although the port's
+    proxy differs from the reference's."""
     from repro.core.sampler import Stats as RefStats
     mine = _session()
     ref = RefSession(repetitions=2)
@@ -241,14 +382,24 @@ def test_attention_family_ranks_like_the_reference():
     ref.device_suite(sweep_fn=ref_sweep, transfer_measure_fn=_xfer,
                      steps_per_dim=2, interpret=True)
     got = mine.rank_device_tiles("cuda_flash_attention", PROBLEM, CONFIGS)
-    want = ref.rank_device_tiles("flash_attention", PROBLEM, CONFIGS)
-    assert [r.config for r in got] == [r.config for r in want]
+    want = {r.config: r for r in ref.rank_device_tiles("flash_attention",
+                                                       PROBLEM, CONFIGS)}
+    b, h, sq, skv, _ = PROBLEM
+    visited = {cfg: attn_grid_steps(b, h, sq, skv, *cfg[:2])
+               for cfg in CONFIGS}
+    scaled = {cfg: want[cfg].t_h2d + want[cfg].t_d2h + want[cfg].t_compute *
+              visited[cfg] / ref_grid_steps(b, h, sq, skv, *cfg[:2])
+              for cfg in CONFIGS}
+    assert [r.config for r in got] == sorted(CONFIGS, key=lambda c: (
+        scaled[c], c))
     np.testing.assert_allclose([r.t_total for r in got],
-                               [r.t_total for r in want], rtol=1e-12)
+                               [scaled[r.config] for r in got], rtol=1e-12)
     for r in got:
         assert r.t_compute == pytest.approx(
-            _per_step(r.config) * attn_grid_steps(2, 8, 256, 256, *r.config[:2]),
-            rel=1e-12)
+            _per_step(r.config) * visited[r.config], rel=1e-12)
+        assert r.t_compute < want[r.config].t_compute    # causal skips
+        assert (r.t_h2d, r.t_d2h) == pytest.approx(
+            (want[r.config].t_h2d, want[r.config].t_d2h), rel=1e-12)
     assert mine.suite.measured == len(CONFIGS)
 
 
@@ -273,7 +424,14 @@ def test_three_families_round_trip_and_warm_rank_measures_nothing():
     assert warm.suite.measured == 0
     cold = session.rank_device_tiles("cuda_flash_attention", PROBLEM,
                                      CONFIGS)
-    assert [r.config for r in ranked] == [r.config for r in cold]
+    # the same totals, so the same order; (32, 64) and (64, 32) visit the
+    # same number of causal blocks and tie, so either may come first
+    cold_t = {r.config: r.t_total for r in cold}
+    np.testing.assert_allclose([r.t_total for r in ranked],
+                               [cold_t[r.config] for r in ranked], rtol=1e-9)
+    assert [cold_t[r.config] for r in ranked] == pytest.approx(
+        sorted(cold_t.values()), rel=1e-9)
+    assert {r.config for r in ranked} == set(cold_t)
 
 
 # ------------------------------------------------------------- on card --

@@ -103,15 +103,54 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_tile_legality_is_shared_memory_and_register_tiles():
+    # 16 x 16 threads, each on (bm/64) x (bn/64) quads of 4 x 4: at most
+    # 64 accumulators, so 64-multiples with bm bn <= 128 * 128
+    assert KERNEL_TILES == ((64, 64), (64, 128), (64, 256), (128, 64),
+                            (128, 128), (256, 64))
     assert tile_legal(4096, 4096, 4096, 128, 128, 64)
     assert (128, 128) in KERNEL_TILES and (256, 256) not in KERNEL_TILES
     assert not tile_legal(4096, 4096, 4096, 256, 256, 8)    # no register tile
+    assert not tile_legal(4096, 4096, 4096, 256, 128, 8)    # 128 accumulators
+    assert not tile_legal(4096, 4096, 4096, 32, 32, 8)      # not instantiated
     assert not tile_legal(4096, 4096, 4096, 100, 128, 8)    # not instantiated
     assert not tile_legal(96, 4096, 4096, 64, 128, 8)       # does not divide
-    # 128x128x256 stages 263 KB: above the H100's 232,448-byte opt-in
-    assert smem_bytes(128, 128, 256) > 232_448
-    assert not tile_legal(4096, 4096, 4096, 128, 128, 256)
-    assert tile_legal(4096, 4096, 4096, 128, 128, 256, smem_limit=2 ** 20)
+    assert not tile_legal(4096, 4096, 4096, 64, 64, 4)      # bk not built
+    assert not tile_legal(4096, 4096, 4096, 64, 64, 24)
+    assert not tile_legal(4096, 4096, 4096, 64, 64, 256, smem_limit=2 ** 30)
+    # the ring: 3 stages of (bm + bn) x bk float32
+    assert smem_bytes(128, 128, 64) == 3 * 4 * 256 * 64 == 196_608
+    assert smem_bytes(128, 128, 128) > 232_448
+    assert not tile_legal(4096, 4096, 4096, 128, 128, 128)
+    assert tile_legal(4096, 4096, 4096, 128, 128, 128, smem_limit=2 ** 20)
+    assert tile_legal(4096, 4096, 4096, 64, 64, 128)        # 196,608 B
+    assert not tile_legal(4096, 4096, 4096, 256, 64, 64)    # 245,760 B
+    assert tile_legal(4096, 4096, 4096, 256, 64, 32)
+
+
+def test_stage_count_sets_the_ring_and_legal_set():
+    from repro_torch.kernels.matmul import KERNEL_BKS, STAGES
+    from repro_torch.perf.tile_tuner import legal_candidates
+    assert (STAGES, KERNEL_BKS) == (3, (8, 16, 32, 64, 128))
+    for bm, bn in KERNEL_TILES:
+        for bk in KERNEL_BKS:
+            assert smem_bytes(bm, bn, bk) == 4 * STAGES * (bm + bn) * bk
+    legal = legal_candidates(4096, 4096, 4096)
+    # small enough to sweep in seconds, every instantiated tile in it
+    assert len(legal) == 23
+    assert {(bm, bn) for bm, bn, _ in legal} == set(KERNEL_TILES)
+    assert max(smem_bytes(*c) for c in legal) <= 232_448
+
+
+@pytest.mark.parametrize("bm,bn", KERNEL_TILES)
+def test_matmul_proxy_fills_the_card(bm, bn):
+    from repro_torch.kernels.matmul import grid_steps, proxy_problem
+    from repro_torch.tc import DEVICE_KERNELS
+    kernel = DEVICE_KERNELS["cuda_matmul"]
+    for bk in (8, 64):
+        m, n, k = proxy_problem(bm, bn, bk)
+        assert (m // bm) * (n // bn) >= 132          # the kernel's grid
+        assert grid_steps(m, n, k, bm, bn, bk) == 16 ** 3 == \
+            kernel.proxy_steps((bm, bn, bk), 16)
 
 
 def test_port_imports_neither_jax_nor_repro():

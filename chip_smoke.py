@@ -32,7 +32,8 @@ version, and drives every path of the port on the card:
    proxies and rank them for gemma2-27b's query heads at 4096 tokens; then
    run every legal block there, check and time it, and compare orders;
 8. the SSD chunk path: the same for the (chunk, 64, 128) configs and
-   mamba2-2.7b's 80 heads at 4096 tokens;
+   mamba2-2.7b's 80 heads at 4096 tokens, then the selected chunk's three
+   passes (chunk state, state pass, chunk scan) timed one by one;
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
@@ -140,6 +141,26 @@ def event_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def pass_ms(calls, reps: int) -> list:
+    """Median device time in ms of each of ``calls``, run in sequence with
+    an event between each two."""
+    import torch
+    for fn in calls:                       # warm up
+        fn()
+    runs = []
+    for _ in range(reps):
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(calls) + 1)]
+        events[0].record()
+        for fn, event in zip(calls, events[1:]):
+            fn()
+            event.record()
+        runs.append(events)
+    torch.cuda.synchronize()
+    return [sorted(r[i].elapsed_time(r[i + 1]) for r in runs)[reps // 2]
+            for i in range(len(calls))]
+
+
 def kendall_tau(pred_order, meas: dict) -> float:
     """Kendall tau of the predicted order against the measured times (a
     pair agrees when the one predicted faster measured no slower)."""
@@ -164,14 +185,15 @@ def rel_err(out, ref) -> float:
 def ptxas_table(log_text: str) -> dict:
     """Registers and spill bytes per instantiation, from ``-Xptxas -v``:
     {(kernel, dtype, template ints): (registers, spill stores, spill
-    loads)}, the kernel name and arguments read from the mangled name."""
+    loads)}, the kernel name and arguments read from the mangled name (no
+    template ints for a kernel that is not a template)."""
     import re
     table, key, spills = {}, None, (0, 0)
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            kern = re.search(r"\d+([a-z_]+_kernel)I", name)
+            kern = re.search(r"\d+([a-z_]+_kernel)[IE]", name)
             dtype = "bfloat16" if "__nv_bfloat16" in name else "float32"
             key = (kern.group(1) if kern else name, dtype,
                    tuple(int(a) for a in re.findall(r"Li(\d+)E", name)))
@@ -185,6 +207,27 @@ def ptxas_table(log_text: str) -> dict:
             table[key] = (int(m.group(1)), *spills)
             key, spills = None, (0, 0)
     return table
+
+
+def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
+    """The ptxas_table keys of each kernel's instantiations at its selected
+    config: {kernel: [(what, key), ...]}.  The matmul's (bm, bn, bk) is
+    instantiated as (bm / 64, bn / 64, bk), attention's (bq, bkv, d) as
+    (bq, bkv, d) / 16, and the SSD's (chunk, p, n) as its three passes:
+    chunk state (p, n), the state pass (no template) and chunk scan (p, n,
+    min(chunk, 64))."""
+    bm, bn, bk = matmul_cfg
+    chunk, p, n = ssd_cfg
+    return {
+        "matmul": [("matmul", ("matmul_kernel", "float32",
+                               (bm // 64, bn // 64, bk)))],
+        "flash_attention": [("attention", (
+            "attn_kernel", "float32", tuple(c // 16 for c in attn_cfg)))],
+        "ssd": [("chunk_state", ("ssd_chunk_state_kernel", "float32",
+                                 (p, n))),
+                ("state_pass", ("ssd_state_pass_kernel", "float32", ())),
+                ("chunk_scan", ("ssd_chunk_scan_kernel", "float32",
+                                (p, n, min(chunk, 64))))]}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float, card) -> dict:
@@ -795,9 +838,16 @@ def finish_attention(tuned: dict, card) -> dict:
 def finish_ssd(tuned: dict, card) -> dict:
     """Phase 8's checks and the SSD row of the kernels line: every legal
     chunk at mamba2-2.7b's (1, 4096, 80, 64, 1, 128) with the family's
-    operands, then the selected one beside its plain version."""
+    operands, then the selected one beside its plain version, each of its
+    three passes timed, and the state scratch's bytes."""
     import numpy as np
-    from repro_torch.kernels.ssd import ssd, ssd_plain
+    import torch
+    from repro_torch.kernels.ssd import (_launch_chunk_scan,
+                                         _launch_chunk_state,
+                                         _launch_state_pass, ssd,
+                                         ssd_grid_steps, ssd_plain,
+                                         ssd_scan_blocks, ssd_scratch,
+                                         ssd_scratch_bytes)
     ops = ssd_inputs(SSD_PROBLEM, np.random.default_rng(17),
                      model_like=False)
 
@@ -811,11 +861,32 @@ def finish_ssd(tuned: dict, card) -> dict:
     plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), TIME_REPS)
     flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
     bd = bound(flops, nbytes, card.fp32_flops, card)
+    x, dt, a_log, bb, cc = ops
+    s, states = ssd_scratch(x, bb, chunk)
+    y = torch.empty_like(x)
+    passes = dict(zip(("chunk_state", "state_pass", "chunk_scan"), pass_ms(
+        [lambda: _launch_chunk_state(x, dt, a_log, bb, s, states, chunk),
+         lambda: _launch_state_pass(s, states, chunk),
+         lambda: _launch_chunk_scan(x, dt, bb, cc, s, states, y, chunk)],
+        TIME_REPS)))
+    b, l, h, p, _, n = SSD_PROBLEM
+    scratch = ssd_scratch_bytes(b, l, h, p, n, chunk)
+    # pass 1 writes the scratch, pass 2 reads and writes it, pass 3 reads it
+    scratch_ms = 4 * scratch / card.hbm_bytes_per_s * 1e3
     log(f"  ssd {SSD_PROBLEM} at the selected chunk {chunk}: kernel "
         f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, no library call, "
         f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
         f"{flops / 1e9:.1f} GFLOP)")
-    res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None, **bd)
+    log(f"  ssd passes at chunk {chunk}, in sequence: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in passes.items()) +
+        f" (sum {sum(passes.values()):.3f}); blocks of pass 1 "
+        f"{ssd_grid_steps(b, l, h, chunk)}, of pass 3 "
+        f"{ssd_scan_blocks(b, l, h, chunk)}; state scratch "
+        f"{scratch / 1e6:.1f} MB, its four passes over HBM "
+        f"{scratch_ms:.3f} ms at {card.hbm_bytes_per_s / 1e12:.2f} TB/s")
+    res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               passes_ms=passes, scratch_bytes=scratch,
+               scratch_hbm_ms=scratch_ms, **bd)
     return res
 
 
@@ -926,24 +997,21 @@ def main() -> int:
     session.device_suite().to_model_set().save(
         str(OUT / "device_models.json"))
 
-    ssd_p, ssd_n = SSD_PROBLEM[3], SSD_PROBLEM[5]
-    chunk = ssd_res["choice"][0]
-    selected = {
-        "matmul": ("matmul_kernel", "float32", (bm // 64, bn // 64, bk)),
-        "flash_attention": ("attn_kernel", "float32",
-                            tuple(c // 16 for c in attn["choice"])),
-        "ssd": ("ssd_kernel", "float32", (ssd_p, ssd_n, min(chunk, 64)))}
     regs = {}
-    for name, key in selected.items():
-        if key not in ptxas:
-            raise AssertionError(f"no ptxas report for {name}'s selected "
-                                 f"instantiation {key}")
-        regs[name] = dict(zip(("registers", "spill_store_bytes",
-                               "spill_load_bytes"), ptxas[key]))
-        log(f"  {name} at its selected config: {key[0]}<{key[2]}> uses "
-            f"{regs[name]['registers']} registers, spills "
-            f"{regs[name]['spill_store_bytes']} B stored / "
-            f"{regs[name]['spill_load_bytes']} B loaded (ptxas)")
+    for name, keys in selected_ptxas_keys(
+            (bm, bn, bk), attn["choice"], ssd_res["choice"]).items():
+        regs[name] = {}
+        for what, key in keys:
+            if key not in ptxas:
+                raise AssertionError(f"no ptxas report for {name}'s "
+                                     f"selected instantiation {key}")
+            r = regs[name][what] = dict(zip(
+                ("registers", "spill_store_bytes", "spill_load_bytes"),
+                ptxas[key]))
+            log(f"  {name} at its selected config: {key[0]}<{key[2]}> uses "
+                f"{r['registers']} registers, spills "
+                f"{r['spill_store_bytes']} B stored / "
+                f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
     for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
                        ("ssd", "ssd_chunks")):
@@ -951,7 +1019,7 @@ def main() -> int:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
 
-    def entry(name, source, replaces, res, **extra):
+    def entry(name, source, replaces, res, registers, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(launches[name].values()),
@@ -959,26 +1027,29 @@ def main() -> int:
                 "max_abs_err": res["err"], "ms": res["kernel_ms"],
                 "kernel_ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-                "library_ms": res["library_ms"], **regs[name], **extra}
+                "library_ms": res["library_ms"], **registers, **extra}
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {"kernels": [
         entry("matmul", f"{csrc}/matmul.cu",
               "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
               {"err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, **mm_bound},
+               "library_ms": library_ms, **mm_bound}, regs["matmul"]["matmul"],
               library="torch.matmul", shape=[N, N, N], dtype="float32",
               config=[bm, bn, bk]),
         entry("flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:37 (_attn_kernel)",
-              attn, library="torch.nn.functional.scaled_dot_product_attention"
+              attn, regs["flash_attention"]["attention"],
+              library="torch.nn.functional.scaled_dot_product_attention"
               " (is_causal=True, float32, TF32 off)",
               shape=list(ATTN_PROBLEM), dtype="float32",
               config=list(attn["choice"])),
         entry("ssd", f"{csrc}/ssd.cu",
               "src/repro/kernels/ssd.py:30 (_ssd_kernel)", ssd_res,
-              library="none", shape=list(SSD_PROBLEM), dtype="float32",
-              config=list(ssd_res["choice"])),
+              regs["ssd"]["chunk_scan"], library="none",
+              shape=list(SSD_PROBLEM), dtype="float32",
+              config=list(ssd_res["choice"]),
+              passes_ms=ssd_res["passes_ms"], passes_registers=regs["ssd"]),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):

@@ -202,3 +202,59 @@ def test_every_kernel_source_ships_as_package_data():
         rel = f"kernels/csrc/{name}.cu"
         assert (ROOT / "src" / "repro_torch" / rel).is_file()
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)       # imports no torch at top level
+    return module
+
+
+def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
+    """chip_smoke reads each selected instantiation's registers from the
+    compilers' ``-Xptxas -v`` reports by key: every key it builds must be
+    found under the mangled names nvcc gives those instantiations (the
+    SSD's three passes included, one of them not a template)."""
+    smoke = _chip_smoke()
+    prefix = "_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_aa245fc2"
+    names = {
+        ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_c44b2bfd13matmul_kernelIf"
+         "Li2ELi2ELi64EEEvPKT_S4_PS2_iiii"): (161, 0, 0),
+        ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_c44b2bfd13matmul_kernelI13"
+         "__nv_bfloat16Li2ELi2ELi64EEEvPKT_S4_PS2_iiii"): (150, 0, 0),
+        ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1811"
+         "attn_kernelIfLi8ELi8ELi8EEEvPKT_S4_S4_PS2_iiiiifiif"): (255, 0, 0),
+        (prefix + "22ssd_chunk_state_kernelILi64ELi128EEEvPKfS2_S2_S2_PfS3_"
+         "iiii"): (80, 4, 4),
+        prefix + "21ssd_state_pass_kernelEPfPKfiiii": (48, 0, 0),
+        (prefix + "21ssd_chunk_scan_kernelILi64ELi128ELi64EEEvPKfS2_S2_S2_"
+         "S2_S2_Pfiiiii"): (128, 0, 0),
+        (prefix + "21ssd_chunk_scan_kernelILi64ELi128ELi32EEEvPKfS2_S2_S2_"
+         "S2_S2_Pfiiiii"): (128, 12, 32),
+    }
+    lines = []
+    for name, (regs, st, ld) in names.items():
+        lines += [f"ptxas info    : Compiling entry function '{name}' for "
+                  "'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  f"    0 bytes stack frame, {st} bytes spill stores, {ld} "
+                  "bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, used 1 barriers"]
+    table = smoke.ptxas_table("\n".join(lines))
+    assert len(table) == len(names)
+    keys = smoke.selected_ptxas_keys((128, 128, 64), (128, 128, 128),
+                                     (64, 64, 128))
+    assert [what for what, _ in keys["ssd"]] == ["chunk_state",
+                                                 "state_pass", "chunk_scan"]
+    found = {what: table[key] for kernel in keys.values()
+             for what, key in kernel}
+    assert found == {"matmul": (161, 0, 0), "attention": (255, 0, 0),
+                     "chunk_state": (80, 4, 4), "state_pass": (48, 0, 0),
+                     "chunk_scan": (128, 0, 0)}
+    # chunk 32 selects the 32-row scan instantiation
+    key = dict(smoke.selected_ptxas_keys((128, 128, 64), (128, 128, 128),
+                                         (32, 64, 128))["ssd"])["chunk_scan"]
+    assert table[key] == (128, 12, 32)

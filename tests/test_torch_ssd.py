@@ -5,9 +5,12 @@ The CUDA kernel runs only on the card (``python3 chip_smoke.py`` holds it
 against its plain version and the sequential oracle there; the
 ``cuda``-marked test below does the same under pytest on a machine with a
 card).  Here, on the CPU, the kernel wrapper takes its plain version — the
-kernel's chunk loop carrying the (P, N) state — which is held against the
-Pallas kernel in interpret mode on the same numpy inputs at the reference
-test's tolerance (2e-4: float32 chunked sums against a sequential scan).
+kernels' three passes (chunk states, the scan over chunks, the outputs) —
+which is held against the Pallas kernel in interpret mode on the same numpy
+inputs at the reference test's tolerance (2e-4: float32 chunked sums
+against a sequential scan).  Its first two passes are held against the
+recurrence written out step by step, and the slab visits that the third
+pass mirrors against brute force over the causal mask.
 """
 
 import numpy as np
@@ -24,8 +27,11 @@ from repro.tc.device import DEVICE_KERNELS as REF_KERNELS  # noqa: E402
 from repro_torch.core.sampler import Stats  # noqa: E402
 from repro_torch.kernels import ops, ssd  # noqa: E402
 from repro_torch.kernels.ref import ssd_ref  # noqa: E402
-from repro_torch.kernels.ssd import (ssd_grid_steps,  # noqa: E402
+from repro_torch.kernels.ssd import (ssd_chunk_states_plain,  # noqa: E402
+                                     ssd_grid_steps, ssd_key_slabs,
                                      ssd_plain, ssd_proxy_problem,
+                                     ssd_query_tiles, ssd_scan_blocks,
+                                     ssd_scratch, ssd_scratch_bytes,
                                      ssd_smem_bytes, ssd_tile_legal)
 from repro_torch.tc import DEVICE_KERNELS, PredictorSession  # noqa: E402
 
@@ -40,6 +46,10 @@ CASES = [
     (64, 8, 8, 4, 8, 64),     # chunk == L
 ]
 TOL = 2e-4
+#: the on-card cases beyond the reference's: (l, h, p, g, n, chunk, b).
+#: L / Q = 16 chunks, so pass 2 carries the state over many; mamba2-2.7b's
+#: width at chunk 64, where pass 3 tiles a chunk and skips slabs
+CARD_CASES = [(512, 4, 16, 1, 16, 32, 2), (4096, 80, 64, 1, 128, 64, 1)]
 
 
 def _inputs(l, h, p, g, n, b=2, seed=7):
@@ -101,6 +111,84 @@ def test_long_chunks_stay_finite():
                                rtol=TOL, atol=TOL)
 
 
+def _recurrence_states(x, dt, a_log, bb, chunk):
+    """The state entering each chunk by the recurrence h_t = h_{t-1}
+    exp(a dt_t) + dt_t x_t (x) b_t, one step at a time (float64)."""
+    bsz, l, h, p = x.shape
+    g, n = bb.shape[2], bb.shape[3]
+    a = -np.exp(a_log.astype(np.float64))
+    bh = np.repeat(bb.astype(np.float64), h // g, axis=2)   # (B, L, H, N)
+    state = np.zeros((bsz, h, p, n))
+    entering = []
+    for t in range(l):
+        if t % chunk == 0:
+            entering.append(state.copy())
+        d = dt[:, t].astype(np.float64)                     # (B, H)
+        state = state * np.exp(a * d)[..., None, None] + \
+            (d[..., None] * x[:, t])[..., None] * bh[:, t, :, None, :]
+    return np.stack(entering, axis=2)                       # (B,H,C,P,N)
+
+
+@pytest.mark.parametrize("l,h,p,g,n,chunk",
+                         CASES + [(96, 6, 8, 3, 16, 16)])
+def test_chunk_entry_states_match_the_recurrence(l, h, p, g, n, chunk):
+    """Passes 1 and 2 of the plain version: the state entering each chunk
+    is the recurrence's state after the chunk before, and s is each
+    chunk's own cumulative log-decay."""
+    x, dt, a_log, bb, cc = _inputs(l, h, p, g, n, seed=3)
+    s, h_in = ssd_chunk_states_plain(*(torch.from_numpy(a) for a in
+                                       (x, dt, a_log, bb)), chunk=chunk)
+    assert s.shape == (2, h, l) and h_in.shape == (2, h, l // chunk, p, n)
+    np.testing.assert_allclose(h_in.numpy(),
+                               _recurrence_states(x, dt, a_log, bb, chunk),
+                               rtol=TOL, atol=TOL)
+    a = -np.exp(a_log.astype(np.float64))
+    ad = (dt.astype(np.float64) * a).transpose(0, 2, 1)     # (B, H, L)
+    want = np.cumsum(ad.reshape(2, h, l // chunk, chunk), axis=-1)
+    np.testing.assert_allclose(s.numpy(), want.reshape(2, h, l),
+                               rtol=TOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64, 128, 256, 512])
+def test_scan_visits_each_kept_pair_once(chunk):
+    """Pass 3's query tiles and key slabs against brute force over the
+    causal mask: every pair i >= j of a chunk lies in exactly one visited
+    (query tile, key slab); no visited slab lies wholly above the
+    diagonal; the launch order is a permutation, heaviest tiles first."""
+    r = min(chunk, 64)
+    order = ssd_query_tiles(chunk)
+    assert sorted(order) == list(range(chunk // r))
+    visits = [len(ssd_key_slabs(t)) for t in order]
+    assert visits == sorted(visits, reverse=True)
+    hits = np.zeros((chunk, chunk), dtype=int)
+    for t in order:
+        for k in ssd_key_slabs(t):
+            i = np.arange(t * r, (t + 1) * r)[:, None]
+            j = np.arange(k * r, (k + 1) * r)[None, :]
+            assert (i >= j).any()                 # not above the diagonal
+            hits[t * r:(t + 1) * r, k * r:(k + 1) * r] += 1
+    kept = np.tril(np.ones((chunk, chunk), dtype=bool))
+    assert (hits[kept] == 1).all() and (hits <= 1).all()
+    assert ssd_scan_blocks(2, 4 * chunk, 3, chunk) == \
+        2 * 3 * 4 * sum(1 for _ in order)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk", [
+    (2, 64, 4, 16, 2, 8, 16), (1, 4096, 80, 64, 1, 128, 32),
+    (1, 4096, 80, 64, 1, 128, 256)])
+def test_scratch_bytes_are_what_the_wrapper_allocates(b, l, h, p, g, n,
+                                                      chunk):
+    x = torch.empty((b, l, h, p), device="meta")
+    bb = torch.empty((b, l, g, n), device="meta")
+    s, states = ssd_scratch(x, bb, chunk)
+    assert s.dtype == states.dtype == torch.float32
+    assert s.shape == (b, h, l) and states.shape == (b, h, l // chunk, p, n)
+    assert ssd_scratch_bytes(b, l, h, p, n, chunk) == \
+        4 * (s.numel() + states.numel())
+    if (l, h, chunk) == (4096, 80, 32):       # mamba2-2.7b at chunk 32
+        assert 4 * states.numel() == 335_544_320
+
+
 @pytest.mark.parametrize("b,l,h,chunk", [
     (1, 64, 1, 16), (2, 128, 4, 32), (1, 4096, 80, 256), (3, 8192, 16, 64),
     (1, 256, 264, 128)])
@@ -134,15 +222,21 @@ def test_ssd_proxy_fills_the_card(chunk):
         b, l, h, p, g, n = problem = ssd_proxy_problem(*cfg,
                                                        steps_per_dim=steps)
         assert (p, g, n) == (64, 1, 128) and l == chunk * steps
-        assert b * h >= H100_SMS                 # one block per (b, h)
+        # pass 1 launches one block per (b, h, chunk)
+        assert ssd_grid_steps(b, l, h, chunk) >= H100_SMS
         assert kernel.proxy_steps(cfg, steps) == \
             ssd_grid_steps(b, l, h, chunk) == kernel.steps(problem, cfg)
+    # mamba2-2.7b's problem at batch 1 fills the card as well
+    assert ssd_grid_steps(1, 4096, 80, chunk) >= 1280 >= H100_SMS
 
 
 def test_ssd_legality_takes_the_models_chunk_and_the_smem_limit():
     # mamba2-2.7b: P 64, N 128, chunk 256 at L = 4096
     assert ssd_tile_legal(4096, 256, 64, 128)
-    assert ssd_smem_bytes(256, 64, 128) == 138_240 <= H100_SMEM_OPTIN
+    assert ssd_smem_bytes(256, 64, 128) == 100_352 <= H100_SMEM_OPTIN
+    # two blocks of pass 3 fit an SM at every chunk of the path
+    assert all(ssd_smem_bytes(c, 64, 128) <= H100_SMEM_OPTIN // 2
+               for c in (32, 64, 128, 256))
     assert all(ssd_tile_legal(4096, c, 64, 128) for c in (32, 64, 128, 256))
     assert not ssd_tile_legal(4096, 256, 64, 128,
                               smem_limit=100_000)     # over the limit
@@ -239,10 +333,12 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,h,p,g,n,chunk", CASES)
+@pytest.mark.parametrize("l,h,p,g,n,chunk,b",
+                         [c + (2,) for c in CASES] + CARD_CASES)
 def test_kernel_matches_plain_and_ref_on_the_card(card, l, h, p, g, n,
-                                                  chunk):
-    ops_ = [torch.from_numpy(a).to(card) for a in _inputs(l, h, p, g, n)]
+                                                  chunk, b):
+    ops_ = [torch.from_numpy(a).to(card)
+            for a in _inputs(l, h, p, g, n, b=b)]
     before = ssd.launches
     out = ssd(*ops_, chunk=chunk)
     torch.cuda.synchronize()

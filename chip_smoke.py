@@ -34,18 +34,34 @@ version, and drives every path of the port on the card:
 8. the SSD chunk path: the same for the (chunk, 64, 128) configs and
    mamba2-2.7b's 80 heads at 4096 tokens, then the selected chunk's three
    passes (chunk state, state pass, chunk scan) timed one by one;
+9. the contraction path (Ch. 6) through one ``backend="torch"`` session
+   whose warm/cold classes are decided against the card's L2: the skewed
+   ``abc=ai,ibc`` at a = b = c = 512, i = 8; the batched ``bij,bjk->bik``
+   at b = 64, i = j = k = 1024; the chain ``aij,ijb,bkl,klc->ac`` at
+   a = b = c = 16, i = j = k = l = 2048 under an 8 GiB intermediate
+   limit.  For each: candidates, requests and distinct micro-benchmarks,
+   the suite's cost, ranking times on torch and numpy and whether they
+   agree, agreement with the oracles; then every candidate predicted
+   under 1 s (the top three and the predicted worst such always, the rest
+   until a budget) executed on the card, predicted against measured,
+   the performance yield, Kendall tau and the suite cost fraction; the
+   executed winner is held against the whole einsum (2e-4 normwise);
+10. the torch prediction engine on phase 3's potrf model set and its
+   (variant, b) grid against the numpy engine (relative 1e-12), with
+   milliseconds per batch of both;
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7 and 8 and read just after; the
-checks and timings of phases 2, 5 and 6, and those after each path, are
-not counted.
+just before each of the paths 3, 4, 7, 8, 9 and 10 and read just after
+(the paths 9 and 10 launch none of the three); the checks and timings of
+phases 2, 5 and 6, and those after each path, are not counted.
 
 The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits nonzero and prints no result.  Long outputs (the compilers'
 reports, the fitted models, per-config times) go to
-``chiprun_out/chip_smoke/``.
+``chiprun_out/chip_smoke/`` (phases 9 and 10 under ``contractions`` and
+``torch_engine`` in ``result.json``).
 """
 
 from __future__ import annotations
@@ -108,6 +124,25 @@ SSD_CHUNKS = (32, 64, 128, 256)
 #: measures that fault on the same inputs and fails if the bound would
 #: pass it.
 WIDE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -12}
+#: phase 9's contraction cases: (label, spec, sizes, source).  The
+#: reference benchmark's skewed example and batched spec, at sizes that
+#: fill the card: C of the skewed one is 512 MiB, ten times the L2
+CONTRACTION_CASES = [
+    ("skewed", "abc=ai,ibc", dict(a=512, b=512, c=512, i=8),
+     "benchmarks/bench_contractions.py:48"),
+    ("batched", "bij,bjk->bik", dict(b=64, i=1024, j=1024, k=1024),
+     "benchmarks/bench_contractions.py:50"),
+]
+#: phase 9's chain: the reference's smoke chain at a = b = c = 16, with a
+#: limit that drops the ijb,bkl pairing (a 64 TiB intermediate) unrun
+CHAIN_CASE = ("chain", "aij,ijb,bkl,klc->ac",
+              dict(a=16, b=16, c=16, i=2048, j=2048, k=2048, l=2048),
+              "benchmarks/bench_einsum_paths.py:49")
+CHAIN_LIMIT = 8 * 2 ** 30
+EXEC_UNDER_S = 1.0           # execute every candidate predicted below this
+EXEC_BUDGET_S = 35.0         # per case: executions beyond it are cut
+CONTRACTION_TOL = 2e-4       # normwise, the executed winner vs the einsum
+ENGINE_TOL = 1e-12           # relative, torch engine vs numpy engine
 
 
 _T0 = time.perf_counter()
@@ -161,15 +196,21 @@ def pass_ms(calls, reps: int) -> list:
             for i in range(len(calls))]
 
 
-def kendall_tau(pred_order, meas: dict) -> float:
-    """Kendall tau of the predicted order against the measured times (a
-    pair agrees when the one predicted faster measured no slower)."""
+def order_agreement(pred_order, meas: dict) -> tuple:
+    """(agreeing pairs, pairs, Kendall tau) of the predicted order against
+    the measured times (a pair agrees when the one predicted faster
+    measured no slower)."""
     n_pairs = agree = 0
     for i in range(len(pred_order)):
         for j in range(i + 1, len(pred_order)):
             n_pairs += 1
             agree += meas[pred_order[i]] <= meas[pred_order[j]]
-    tau = 2 * agree / n_pairs - 1 if n_pairs else 1.0
+    return agree, n_pairs, 2 * agree / n_pairs - 1 if n_pairs else 1.0
+
+
+def kendall_tau(pred_order, meas: dict) -> float:
+    """:func:`order_agreement`'s tau, logged."""
+    agree, n_pairs, tau = order_agreement(pred_order, meas)
     log(f"  predicted vs measured order: {agree}/{n_pairs} pairs agree "
         f"(Kendall tau {tau:.3f})")
     return tau
@@ -891,6 +932,289 @@ def finish_ssd(tuned: dict, card) -> dict:
 
 
 # ---------------------------------------------------------------- main --
+# ------------------------------------------------------- phases 9, 10 --
+def rank_timings(rank) -> dict:
+    """ms of the first and of a repeated ``rank(backend)`` on each
+    backend, and whether the two backends' orders agree."""
+    out, orders = {}, {}
+    for backend in ("torch", "numpy"):
+        t0 = time.perf_counter()
+        rank(backend)
+        first = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ranked = rank(backend)
+        out[backend] = {"first_ms": first,
+                        "repeat_ms": (time.perf_counter() - t0) * 1e3}
+        orders[backend] = [r.name for r in ranked]
+    out["orders_agree"] = orders["torch"] == orders["numpy"]
+    return out
+
+
+def execute_set(ranked, run) -> tuple:
+    """Execute the top three, the predicted worst of those predicted
+    under EXEC_UNDER_S, then the rest of those in predicted order until
+    EXEC_BUDGET_S; returns ({name: measured s}, names cut by the
+    budget)."""
+    under = [r for r in ranked if r.runtime.med < EXEC_UNDER_S]
+    must = list(ranked[:3])
+    if under and under[-1] not in must:
+        must.append(under[-1])
+    rest = [r for r in under if r not in must]
+    measured, cut = {}, []
+    t0 = time.perf_counter()
+    for r in must + rest:
+        if r not in must and time.perf_counter() - t0 > EXEC_BUDGET_S:
+            cut.append(r.name)
+            continue
+        measured[r.name] = run(r)
+    return measured, cut
+
+
+def score_case(label, ranked, measured, cut, suite_s, winner_err) -> dict:
+    """Predicted against measured over the executed set: the winner, the
+    performance yield, Kendall tau and the suite's cost fraction."""
+    executed = [r for r in ranked if r.name in measured]
+    pred_best = executed[0].name
+    meas_best = min(measured, key=measured.get)
+    yld = measured[meas_best] / measured[pred_best]
+    for r in executed:
+        log(f"    {r.name}: predicted {r.runtime.med * 1e3:.3f} ms, "
+            f"measured {measured[r.name] * 1e3:.3f} ms")
+    tau = kendall_tau([r.name for r in executed], measured)
+    frac = suite_s / measured[meas_best]
+    log(f"  {label}: executed {len(executed)} (cut by the "
+        f"{EXEC_BUDGET_S:.0f} s budget: {len(cut)}); predicted best "
+        f"{pred_best}, measured best {meas_best} "
+        f"({'same' if pred_best == meas_best else 'DIFFERENT'}); "
+        f"performance yield {yld:.4f}; suite cost fraction {frac:.3f} of "
+        f"the measured winner (target < 0.25, not gated); winner vs "
+        f"whole einsum normwise {winner_err:.3e} (bound "
+        f"{CONTRACTION_TOL:.0e})")
+    if not winner_err <= CONTRACTION_TOL:
+        raise AssertionError(f"{label}: executed winner {meas_best} "
+                             f"disagrees with the einsum: {winner_err}")
+    return {"executed": [{"name": r.name,
+                          "pred_ms": r.runtime.med * 1e3,
+                          "meas_ms": measured[r.name] * 1e3,
+                          **({"classes": list(r.benchmark.classes),
+                              "n_iterations": r.n_iterations}
+                             if hasattr(r, "benchmark") else
+                             {"steps": [[s.name, list(s.benchmark.classes)]
+                                        for s in r.steps]})}
+                         for r in executed],
+            "cut": cut, "predicted_best": pred_best,
+            "measured_best": meas_best, "same_best": pred_best == meas_best,
+            "yield": yld, "tau": tau, "suite_cost_fraction": frac,
+            "winner_err": winner_err}
+
+
+def suite_report(label, session, before, suite_s) -> dict:
+    after = session.counters()
+    d = {k: after[k] - before[k] for k in ("requests", "n_benchmarks",
+                                           "measured")}
+    classes = {}
+    for key in list(session.suite.results)[before["n_benchmarks"]:]:
+        classes[key.classes] = classes.get(key.classes, 0) + 1
+    log(f"  {label}: {d['requests']} requests, {d['n_benchmarks']} "
+        f"distinct micro-benchmarks, suite cost {suite_s:.2f} s; key "
+        f"classes (A, B): " + ", ".join(
+            f"{'/'.join(c)} {n}" for c, n in sorted(classes.items())))
+    return {**d, "suite_s": suite_s,
+            "classes": {"/".join(c): n for c, n in classes.items()}}
+
+
+def contraction_case(session, dev, label, expr, sizes, source) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.contractions import (execute, execute_reference,
+                                               measure_contraction)
+    from repro_torch.tc import is_batched_kernel
+
+    log(f"  [{label}] {expr} at {sizes} ({source}), float32")
+    pred = session.contraction_predictor(expr, sizes)
+    n_batched = sum(is_batched_kernel(a.kernel) for a in pred.algorithms)
+    before = session.counters()
+    t0 = time.perf_counter()
+    pred.prepare()
+    suite_s = time.perf_counter() - t0
+    rep = suite_report(label, session, before, suite_s)
+    timing = rank_timings(lambda b: pred.rank(
+        backend=b, device=dev if b == "torch" else None))
+    ranked = session.rank_contraction_algorithms(expr, sizes)
+    same_oracle = [r.name for r in pred.rank_oracle(fresh=False)] == \
+        [r.name for r in ranked]
+    t0 = time.perf_counter()
+    fresh = pred.rank_oracle(fresh=True)
+    fresh_s = time.perf_counter() - t0
+    fresh_tau = order_agreement([r.name for r in ranked],
+                                {r.name: r.runtime.med for r in fresh})[2]
+    log(f"  {label}: {len(pred.algorithms)} candidates ({n_batched} "
+        f"batched); rank on torch {timing['torch']['first_ms']:.2f} ms "
+        f"first / {timing['torch']['repeat_ms']:.2f} ms repeated, numpy "
+        f"{timing['numpy']['first_ms']:.2f} / "
+        f"{timing['numpy']['repeat_ms']:.2f} ms; orders agree "
+        f"{timing['orders_agree']}; rank_oracle on the shared "
+        f"measurements identical {same_oracle}; fresh rank_oracle "
+        f"({fresh_s:.2f} s) winner {fresh[0].name} "
+        f"({'same' if fresh[0].name == ranked[0].name else 'different'}), "
+        f"tau against the ranking {fresh_tau:.3f}")
+    rng = np.random.default_rng(17)
+    spec = pred.spec
+    A = torch.from_numpy(rng.standard_normal(
+        [sizes[i] for i in spec.a_idx]).astype(np.float32)).to(dev)
+    B = torch.from_numpy(rng.standard_normal(
+        [sizes[i] for i in spec.b_idx]).astype(np.float32)).to(dev)
+    measured, cut = execute_set(ranked, lambda r: measure_contraction(
+        r.algorithm, A, B, sizes, repetitions=3, device=dev).med)
+    best = min(measured, key=measured.get)
+    alg = next(r.algorithm for r in ranked if r.name == best)
+    err = rel_err(execute(alg, A, B, sizes, device=dev),
+                  execute_reference(spec, A.double(), B.double(),
+                                    device=dev))
+    res = score_case(label, ranked, measured, cut, suite_s, err)
+    return {"spec": expr, "sizes": sizes, "source": source,
+            "n_candidates": len(pred.algorithms), "n_batched": n_batched,
+            **rep, "rank": timing, "oracle_identical": same_oracle,
+            "fresh_oracle_winner": fresh[0].name,
+            "fresh_oracle_tau": fresh_tau, **res}
+
+
+def chain_case(session, dev, label, expr, sizes, source) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.tc import ChainSpec, execute_chain
+    from repro_torch.tc.chains import execute_chain_reference
+
+    log(f"  [{label}] {expr} at {sizes} ({source}), float32, memory "
+        f"limit {CHAIN_LIMIT / 2 ** 30:.0f} GiB")
+    chain = ChainSpec.parse(expr)
+    pred = session.chain_predictor(expr, sizes,
+                                   memory_limit_bytes=CHAIN_LIMIT)
+    n_all = len(chain.paths())
+    for p in pred.paths:
+        if any({s.spec.a_idx, s.spec.b_idx} == {"ijb", "bkl"}
+               for s in p.steps):
+            raise AssertionError(f"path {p.name} through ijb,bkl survived "
+                                 f"the memory limit")
+    before = session.counters()
+    t0 = time.perf_counter()
+    pred.prepare()
+    suite_s = time.perf_counter() - t0
+    rep = suite_report(label, session, before, suite_s)
+    steps = {id(pred.step_predictor(s)): pred.step_predictor(s)
+             for p in pred.paths for s in p.steps}
+    n_cands = sum(len(sp.algorithms) for sp in steps.values())
+    timing = rank_timings(lambda b: pred.rank_paths(
+        backend=b, device=dev if b == "torch" else None))
+    ranked = session.rank_einsum_paths(expr, sizes,
+                                       memory_limit_bytes=CHAIN_LIMIT)
+    same_oracle = [r.name for r in pred.rank_paths_oracle(fresh=False)] \
+        == [r.name for r in ranked]
+    fresh = pred.rank_paths_oracle(fresh=True)
+    log(f"  {label}: {len(pred.paths)} of {n_all} paths within the limit "
+        f"(none through ijb,bkl), {len(steps)} distinct steps with "
+        f"{n_cands} candidates; rank on torch "
+        f"{timing['torch']['first_ms']:.2f} ms first / "
+        f"{timing['torch']['repeat_ms']:.2f} ms repeated, numpy "
+        f"{timing['numpy']['first_ms']:.2f} / "
+        f"{timing['numpy']['repeat_ms']:.2f} ms; orders agree "
+        f"{timing['orders_agree']}; rank_paths_oracle on the shared "
+        f"measurements identical {same_oracle}; fresh oracle winner "
+        f"{fresh[0].name} "
+        f"({'same' if fresh[0].name == ranked[0].name else 'different'})")
+    rng = np.random.default_rng(19)
+    ops = [torch.from_numpy(rng.standard_normal(
+        [sizes[i] for i in idx]).astype(np.float32)).to(dev)
+        for idx in chain.operands]
+
+    def run(r):
+        execute_chain(chain, r, ops, sizes, device=dev)   # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            execute_chain(chain, r, ops, sizes, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1]
+
+    measured, cut = execute_set(ranked, run)
+    best = next(r for r in ranked
+                if r.name == min(measured, key=measured.get))
+    err = rel_err(execute_chain(chain, best, ops, sizes, device=dev),
+                  execute_chain_reference(chain, [o.double() for o in ops],
+                                          device=dev))
+    res = score_case(label, ranked, measured, cut, suite_s, err)
+    return {"spec": expr, "sizes": sizes, "source": source,
+            "limit_bytes": CHAIN_LIMIT, "n_paths": len(pred.paths),
+            "n_paths_all": n_all, "n_steps": len(steps),
+            "n_candidates": n_cands, **rep,
+            "rank": timing, "oracle_identical": same_oracle,
+            "fresh_oracle_winner": fresh[0].name, **res}
+
+
+def contraction_path(dev) -> dict:
+    """Phase 9: the Ch. 6 predictor on the card through one torch-backend
+    session, for the three cases."""
+    from repro_torch.core.contractions import l2_cache_bytes
+    from repro_torch.tc import PredictorSession
+
+    session = PredictorSession(backend="torch", device=dev)
+    log(f"  cache capacity for the warm/cold classes: the card's L2, "
+        f"{l2_cache_bytes(dev) / 2 ** 20:.1f} MiB (read from the device)")
+    out = {"l2_bytes": l2_cache_bytes(dev)}
+    for label, expr, sizes, source in CONTRACTION_CASES:
+        out[label] = contraction_case(session, dev, label, expr, sizes,
+                                      source)
+    out[CHAIN_CASE[0]] = chain_case(session, dev, *CHAIN_CASE)
+    firsts = sorted(mb.first for mb in session.suite.results.values())
+    log(f"  first-call overheads over {len(firsts)} keys: max "
+        f"{firsts[-1] * 1e3:.3f} ms, median "
+        f"{firsts[len(firsts) // 2] * 1e3:.4f} ms")
+    out["first_call_s"] = {"max": firsts[-1],
+                           "median": firsts[len(firsts) // 2]}
+    return out
+
+
+def torch_engine_path(dev, models) -> dict:
+    """Phase 10: phase 3's potrf model set over its compiled (variant, b)
+    grid, on the torch engine on the card and on the numpy engine."""
+    import numpy as np
+    from repro_torch.core import PredictionEngine
+    from repro_torch.core.predict import compile_calls
+    from repro_torch.dla.tracers import CHOLESKY_TRACERS
+
+    compiled = compile_calls([tracer(N, b)
+                              for tracer in CHOLESKY_TRACERS.values()
+                              for b in BLOCK_SIZES])
+    out = {"n_configs": compiled.n_configs, "n_calls": compiled.n_calls}
+    results = {}
+    for backend in ("torch", "numpy"):
+        eng = PredictionEngine(models, backend=backend,
+                               device=dev if backend == "torch" else None)
+        t0 = time.perf_counter()
+        results[backend] = eng.predict_compiled(compiled)
+        first = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.predict_compiled(compiled)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[backend] = {"first_ms": first,
+                        "repeat_ms": sorted(times)[len(times) // 2]}
+    t, n = results["torch"], results["numpy"]
+    rel = float(np.max(np.abs(t - n) / np.maximum(np.abs(n), 1e-300)))
+    out["max_rel_diff"] = rel
+    log(f"  {compiled.n_configs} (variant, b) configs, {compiled.n_calls} "
+        f"calls: torch engine {out['torch']['first_ms']:.2f} ms first / "
+        f"{out['torch']['repeat_ms']:.3f} ms repeated, numpy "
+        f"{out['numpy']['first_ms']:.2f} / {out['numpy']['repeat_ms']:.3f} "
+        f"ms; max relative difference {rel:.3e} (bound {ENGINE_TOL:.0e})")
+    if not rel <= ENGINE_TOL:
+        raise AssertionError(f"torch engine disagrees with numpy: {rel}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -957,8 +1281,8 @@ def main() -> int:
     paper = counted("paper", "3", paper_path, dev)
     log("[4] tile path: CUDA matmul tiles for 4096^3")
     tuned = counted("tiles", "4", tune_tiles, dev)
-    paper["copy_share"] = transfer_shares(paper.pop("models"),
-                                          *tuned["transfer"])
+    paper_models = paper.pop("models")
+    paper["copy_share"] = transfer_shares(paper_models, *tuned["transfer"])
     tiles = phase("4 check", check_tiles, dev, tuned)
 
     bm, bn, bk = tiles["choice"]
@@ -996,6 +1320,13 @@ def main() -> int:
     ssd_res = phase("8 check", finish_ssd, ssd_tuned, the_card)
     session.device_suite().to_model_set().save(
         str(OUT / "device_models.json"))
+    log("[9] contraction path (Ch. 6): one torch-backend session, three "
+        "cases")
+    contraction = counted("contractions", "9", contraction_path, dev)
+    log(f"[10] torch prediction engine on the paper path: potrf n={N}, "
+        f"(variant, b) grid")
+    engine = counted("torch_engine", "10", torch_engine_path, dev,
+                     paper_models)
 
     regs = {}
     for name, keys in selected_ptxas_keys(
@@ -1057,7 +1388,8 @@ def main() -> int:
     (OUT / "result.json").write_text(json.dumps(
         {"paper": paper, "tiles": tiles, "wide_checks": wide,
          "attn_tiles": {**attn_tuned, **attn}, "ssd_chunks":
-         {**ssd_tuned, **ssd_res}, "phase_s": phase_s, **kernels},
+         {**ssd_tuned, **ssd_res}, "contractions": contraction,
+         "torch_engine": engine, "phase_s": phase_s, **kernels},
         indent=1, default=str))
     log(f"  phase host times (s): "
         + ", ".join(f"{k}: {v:.1f}" for k, v in phase_s.items()))

@@ -3,9 +3,11 @@
 The paper's pipeline (Peise 2017) on an NVIDIA H100: measure the
 BLAS/LAPACK-style kernels (:mod:`repro_torch.dla`), fit piecewise-polynomial
 performance models (:mod:`repro_torch.core`), predict blocked-algorithm
-runtimes and rank variants and block sizes — and, on the accelerator,
-measure and tune the tiles of a hand-written CUDA matmul
-(:mod:`repro_torch.kernels`, :mod:`repro_torch.tc.device`,
+runtimes and rank variants and block sizes; predict tensor contractions
+and einsum paths from cache-aware micro-benchmarks (Ch. 6,
+:mod:`repro_torch.core.contractions`, :mod:`repro_torch.tc`) — and, on
+the accelerator, measure and tune the tiles of the hand-written CUDA
+kernels (:mod:`repro_torch.kernels`, :mod:`repro_torch.tc.device`,
 :mod:`repro_torch.perf.tile_tuner`).
 
 The package mirrors ``repro``'s module layout and names so each counterpart

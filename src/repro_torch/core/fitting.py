@@ -97,6 +97,10 @@ class StackedPolynomials:
     Heterogeneous bases (e.g. a constant-only std polynomial next to full
     cost-bounded stat polynomials) fall into separate groups and still
     evaluate with one design matrix per group, not one per polynomial.
+
+    Besides the numpy path (``__call__``), :meth:`flattened` exports the
+    groups as dense per-row tensors — the form the prediction engine's
+    ``backend="torch"`` path pads and gathers per (kernel, case).
     """
 
     #: per group: (basis, scale, coeff matrix (M, k), output column indices)
@@ -112,6 +116,33 @@ class StackedPolynomials:
             X = _design_matrix(pts, basis, scale)
             out[:, cols] = X @ coeff_mat
         return out
+
+    def flattened(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All groups merged into per-row dense tensors for the torch path.
+
+        Returns ``(exps (M, d), scale (M, d), coeffs (M, n_out))`` where row
+        ``m`` contributes ``coeffs[m, j] * prod_d (x_d / scale[m, d]) **
+        exps[m, d]`` to output column ``j``.  Carrying the normalization per
+        row keeps the evaluation equivalent in structure to the grouped
+        numpy path, and zero-padded rows (exponent 0, coefficient 0)
+        contribute exactly nothing — so flattened tensors of different
+        stacks can be padded to a common width and batched together.
+        """
+        cached = self.__dict__.get("_flattened_cache")
+        if cached is None:
+            exps, scl, cof = [], [], []
+            for basis, scale, coeff_mat, cols in self.groups:
+                for r, e in enumerate(basis):
+                    exps.append(e)
+                    scl.append(scale)
+                    row = np.zeros(self.n_out, dtype=np.float64)
+                    row[list(cols)] = coeff_mat[r]
+                    cof.append(row)
+            cached = (np.asarray(exps, dtype=np.float64),
+                      np.asarray(scl, dtype=np.float64),
+                      np.stack(cof))
+            object.__setattr__(self, "_flattened_cache", cached)
+        return cached
 
 
 def stack_polynomials(polys: Sequence[Polynomial]) -> StackedPolynomials:

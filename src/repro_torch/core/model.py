@@ -135,6 +135,42 @@ class CaseModel:
                 out[rows] = piece.estimate_batch(pts[rows])
         return out
 
+    def padded_tensors(self):
+        """Per-piece flattened polynomials padded to one (P, M, ·) tensor.
+
+        Returns ``(lo (P, d), hi (P, d), exps (P, M, d), scl (P, M, d),
+        cof (P, M, S))`` — the case's whole piecewise model as dense
+        tensors.  Pieces with fewer monomial rows are zero-padded
+        (exponent 0, scale 1, coefficient 0 — an exact no-op row), so one
+        gather + contraction serves the whole case; the prediction engine
+        pads these further across (kernel, case) groups into its fused
+        torch program.  Memoized, and rebuilt whenever the piece list
+        changes (compared by identity: ``pieces`` is a public mutable
+        list, and a replaced piece must not serve stale tensors);
+        :meth:`PerformanceModel.finalize` emits them eagerly.
+        """
+        if not self.pieces:
+            raise KeyError("empty case model")
+        cached = getattr(self, "_tensor_cache", None)
+        if cached is not None and len(cached[0]) == len(self.pieces) \
+                and all(a is b for a, b in zip(cached[0], self.pieces)):
+            return cached[1]
+        flat = [p._stacked().flattened() for p in self.pieces]
+        m_max = max(e.shape[0] for e, _, _ in flat)
+        exps, scl, cof = [], [], []
+        for e, s, c in flat:
+            pad = m_max - e.shape[0]
+            exps.append(np.pad(e, ((0, pad), (0, 0))))
+            scl.append(np.pad(s, ((0, pad), (0, 0)), constant_values=1.0))
+            cof.append(np.pad(c, ((0, pad), (0, 0))))
+        tensors = (
+            np.asarray([p.domain.lo for p in self.pieces], dtype=np.float64),
+            np.asarray([p.domain.hi for p in self.pieces], dtype=np.float64),
+            np.stack(exps), np.stack(scl), np.stack(cof),
+        )
+        self._tensor_cache = (tuple(self.pieces), tensors)
+        return tensors
+
 
 @dataclass
 class PerformanceModel:
@@ -146,6 +182,14 @@ class PerformanceModel:
 
     def add_piece(self, case: Case, piece: Piece) -> None:
         self.cases.setdefault(tuple(case), CaseModel()).pieces.append(piece)
+
+    def finalize(self) -> "PerformanceModel":
+        """Emit every case's padded tensors eagerly (returns ``self``), so
+        the first fused prediction does not pay their derivation."""
+        for cm in self.cases.values():
+            if cm.pieces:
+                cm.padded_tensors()
+        return self
 
     def estimate(self, case: Case, sizes: Sequence[int],
                  *, extrapolate: bool = True) -> Dict[str, float]:
@@ -246,6 +290,13 @@ class ModelSet:
 
     def add(self, model: PerformanceModel) -> None:
         self.models[model.kernel] = model
+
+    def finalize(self) -> "ModelSet":
+        """:meth:`PerformanceModel.finalize` every model (returns
+        ``self``): all padded case tensors emitted up front."""
+        for model in self.models.values():
+            model.finalize()
+        return self
 
     def estimate(self, kernel: str, case: Case,
                  sizes: Sequence[int]) -> Dict[str, float]:

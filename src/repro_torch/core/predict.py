@@ -14,7 +14,9 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from .._device import DeviceLike, resolve_device
 from .model import ModelSet
 from .sampler import STATS, Stats
 
@@ -62,30 +64,103 @@ class CallGroup:
 
 
 @dataclass(frozen=True)
+class FusedBatch:
+    """Padded size tensors + scatter indices for one-program prediction.
+
+    The per-(kernel, case) groups of a :class:`CompiledCalls` batch, padded
+    to one rectangular ``(group, rows, dims)`` tensor so the whole batch
+    evaluates as a single torch program with no host round trips:
+
+    * ``sizes`` — ``(G, R, d_max)`` float64 size points.  Rows beyond a
+      group's true call count are all-zero (the engine's degenerate-call
+      mask turns them into exact-zero estimates), and dimensions beyond a
+      group's true size rank are a benign ``1.0`` (every monomial carries
+      exponent 0 there, so they contribute an exact factor of one);
+    * ``segments`` — ``(G * R,)`` int32 config index per padded row, in
+      row-major ``(group, row)`` order.  Padding rows map to the extra
+      segment ``n_configs``, which the segment sum drops — so padding can
+      never leak into a real config's total;
+    * ``flat_config`` — ``(n_calls,)`` intp config index per *real* call,
+      concatenated in group order: the precomputed scatter indices the
+      numpy backend accumulates all groups with in one ``np.add.at``;
+    * ``dims`` / ``rows`` — each group's true size rank and call count
+      (what the padding padded *from*).
+    """
+
+    sizes: np.ndarray
+    segments: np.ndarray
+    flat_config: np.ndarray
+    dims: Tuple[int, ...]
+    rows: Tuple[int, ...]
+
+
+def _fuse_batch(groups: Tuple[CallGroup, ...], n_configs: int,
+                pad_rows_to: Optional[int] = None) -> FusedBatch:
+    """Pad per-group size matrices into one rectangular batch tensor."""
+    if not groups:
+        return FusedBatch(sizes=np.zeros((0, 0, 0), dtype=np.float64),
+                          segments=np.zeros(0, dtype=np.int32),
+                          flat_config=np.zeros(0, dtype=np.intp),
+                          dims=(), rows=())
+    rows = tuple(g.sizes.shape[0] for g in groups)
+    dims = tuple(g.sizes.shape[1] for g in groups)
+    n_rows = max(max(rows), pad_rows_to or 0)
+    d_max = max(dims)
+    sizes = np.zeros((len(groups), n_rows, d_max), dtype=np.float64)
+    segments = np.full((len(groups), n_rows), n_configs, dtype=np.int32)
+    for gi, g in enumerate(groups):
+        k, d = g.sizes.shape
+        sizes[gi, :k, :d] = g.sizes
+        sizes[gi, :k, d:] = 1.0
+        segments[gi, :k] = g.config
+    return FusedBatch(sizes=sizes, segments=segments.reshape(-1),
+                      flat_config=np.concatenate([g.config for g in groups]),
+                      dims=dims, rows=rows)
+
+
+@dataclass(frozen=True)
 class CompiledCalls:
     """A batch of call sequences compiled to per-(kernel, case) matrices.
 
     This is the "compiled" form of §4.1's deterministic call sequences: the
     per-call Python structure is gone, and prediction reduces to one
-    polynomial evaluation per group plus a scatter-add back onto configs.
-    ``flat_config`` holds the config index of every call, concatenated in
-    group order: the precomputed scatter indices the engine accumulates
-    all groups with in one ``np.add.at``.
+    polynomial evaluation plus a scatter-add back onto configs.  Besides
+    the per-group matrices (kept for the per-group reference path and
+    introspection), the batch carries a :class:`FusedBatch` — the padded
+    ``(group, rows, dims)`` size tensor and the segment/config scatter
+    indices — emitted once by :func:`compile_calls` so no predict call
+    ever re-derives them.
     """
 
     n_configs: int
     groups: Tuple[CallGroup, ...]
-    flat_config: np.ndarray
+    fused: Optional[FusedBatch] = None
 
     @property
     def n_calls(self) -> int:
         return sum(g.sizes.shape[0] for g in self.groups)
 
+    def fused_batch(self) -> FusedBatch:
+        """The padded tensors + scatter indices (:class:`FusedBatch`).
 
-def compile_calls(calls_per_config: Sequence[Iterable[KernelCall]],
-                  ) -> CompiledCalls:
-    """Group a batch of call sequences into per-(kernel, case) size
-    matrices (one :class:`CallGroup` per distinct kernel and case)."""
+        :func:`compile_calls` emits them eagerly; hand-built instances
+        (``fused=None``) derive and memoize them on first use."""
+        if self.fused is None:
+            object.__setattr__(self, "fused",
+                               _fuse_batch(self.groups, self.n_configs))
+        return self.fused
+
+
+def compile_calls(calls_per_config: Sequence[Iterable[KernelCall]], *,
+                  pad_rows_to: Optional[int] = None) -> CompiledCalls:
+    """Group a batch of call sequences into per-(kernel, case) size matrices.
+
+    The returned :class:`CompiledCalls` also carries the padded
+    :class:`FusedBatch` tensors the fused prediction path consumes.
+    ``pad_rows_to`` forces the row axis to at least that width — results
+    are bit-identical under any padding (padding rows scatter into a
+    dropped segment).
+    """
     seqs = list(calls_per_config)
     buckets: Dict[Tuple[str, Tuple], Tuple[list, list]] = {}
     for i, calls in enumerate(seqs):
@@ -99,10 +174,8 @@ def compile_calls(calls_per_config: Sequence[Iterable[KernelCall]],
                   config=np.asarray(cfg, dtype=np.intp))
         for (kernel, case), (szs, cfg) in buckets.items()
     )
-    flat = (np.concatenate([g.config for g in groups]) if groups
-            else np.zeros(0, dtype=np.intp))
     return CompiledCalls(n_configs=len(seqs), groups=groups,
-                         flat_config=flat)
+                         fused=_fuse_batch(groups, len(seqs), pad_rows_to))
 
 
 Tracer = Callable[[int, int], List[KernelCall]]
@@ -176,8 +249,117 @@ class TraceCache:
 
 
 #: evaluation backends a PredictionEngine can run its stacked polynomial
-#: models on (the float64 torch program is a later part of the port)
-BACKENDS = ("numpy",)
+#: models on
+BACKENDS = ("numpy", "torch")
+
+
+# ------------------------------------------------------- fused evaluation --
+
+def _zero_case_tensors(d: int):
+    """An always-inside single piece evaluating to exactly zero — the
+    stand-in for a (kernel, case) whose every call is degenerate and which
+    therefore needs no model (Example 4.1 semantics)."""
+    return (np.zeros((1, d)), np.full((1, d), np.inf),
+            np.zeros((1, 1, d)), np.ones((1, 1, d)),
+            np.zeros((1, 1, len(STATS))))
+
+
+def _pad_model_tensors(per_case, fused: FusedBatch):
+    """Pad per-case piece tensors to one (G, P, M, ·) batch.
+
+    Padding *pieces* get ``lo=+inf, hi=-inf``: never inside, and at
+    infinite clamp distance, so the piece lookup can never select them.
+    Padding *monomials* are exact no-op rows (exponent 0, scale 1,
+    coefficient 0), and padding *dims* of real pieces are always-inside
+    (``lo=0, hi=+inf``) with exponent 0 — every pad contributes exactly
+    nothing.
+    """
+    d_max = fused.sizes.shape[2]
+    tensors = [t if t is not None else _zero_case_tensors(d)
+               for t, d in zip(per_case, fused.dims)]
+    p_max = max(t[0].shape[0] for t in tensors)
+    m_max = max(t[2].shape[1] for t in tensors)
+    g = len(tensors)
+    lo = np.full((g, p_max, d_max), np.inf)
+    hi = np.full((g, p_max, d_max), -np.inf)
+    exps = np.zeros((g, p_max, m_max, d_max))
+    scl = np.ones((g, p_max, m_max, d_max))
+    cof = np.zeros((g, p_max, m_max, len(STATS)))
+    for gi, ((tlo, thi, te, ts, tc), d) in enumerate(zip(tensors,
+                                                         fused.dims)):
+        p, m = te.shape[0], te.shape[1]
+        lo[gi, :p, :d] = tlo
+        lo[gi, :p, d:] = 0.0
+        hi[gi, :p, :d] = thi
+        hi[gi, :p, d:] = np.inf
+        exps[gi, :p, :m, :d] = te
+        scl[gi, :p, :m, :d] = ts
+        cof[gi, :p, :m, :] = tc
+    return lo, hi, exps, scl, cof
+
+
+def _segment_members(segments: np.ndarray, n_configs: int) -> np.ndarray:
+    """``(n_configs, K)`` flat row indices of each config's calls, in
+    row-major ``(group, row)`` order, padded with the index one past the
+    last row (an appended zero row).
+
+    The deterministic form of the config-wise segment sum: a gather and a
+    sum along one axis.  ``index_add_`` on a CUDA float64 tensor sums with
+    atomics, whose order — and so the last bits of every total — varies
+    from run to run; a gather-sum gives the same bits on every run.
+    """
+    n_rows = segments.shape[0]
+    order = np.argsort(segments, kind="stable")
+    seg_sorted = segments[order]
+    keep = seg_sorted < n_configs
+    rows, cfg = order[keep], seg_sorted[keep].astype(np.intp)
+    counts = np.bincount(cfg, minlength=n_configs)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.intp)
+    members = np.full((n_configs, max(int(counts.max(initial=0)), 1)),
+                      n_rows, dtype=np.int64)
+    members[cfg, np.arange(rows.size) - starts[cfg]] = rows
+    return members
+
+
+def _fused_predict_torch(pts, lo, hi, exps, scl, cof, members, *,
+                         std_col: int):
+    """The whole compiled batch as ONE float64 torch program.
+
+    ``pts (G, R, d)`` padded size points; ``lo/hi (G, P, d)`` piece
+    domains; ``exps/scl (G, P, M, d)`` and ``cof (G, P, M, S)`` padded
+    piece polynomials; ``members (C, K)`` each config's rows (see
+    :func:`_segment_members`).  Degenerate masking, the piece lookup, the
+    monomial design matrices, the ``nm,nms->ns`` contraction and the
+    config segment sum (std in quadrature) in one program on the tensors'
+    device; mirrors the per-group numpy path: first containing piece
+    wins, out-of-domain rows clamp to the smallest squared distance (first
+    on ties), estimates clip at 0, degenerate rows are exact zeros.
+    """
+    live = (pts > 0).all(dim=-1)                                # (G, R)
+    safe = torch.where(live[..., None], pts, torch.ones_like(pts))
+    x = safe[:, :, None, :]                                     # (G,R,1,d)
+    inside = ((x >= lo[:, None]) & (x <= hi[:, None])).all(dim=-1)
+    below = (lo[:, None] - x).clamp_min(0.0)
+    above = (x - hi[:, None]).clamp_min(0.0)
+    dist = (below ** 2).sum(dim=-1) + (above ** 2).sum(dim=-1)  # (G,R,P)
+    # argmax/argmin return the first extremum, as numpy's do
+    pidx = torch.where(inside.any(dim=-1),
+                       inside.to(torch.int8).argmax(dim=-1),
+                       dist.argmin(dim=-1))                     # (G, R)
+    g = torch.arange(pts.shape[0], device=pts.device)[:, None]
+    e, s, c = exps[g, pidx], scl[g, pidx], cof[g, pidx]         # (G,R,M,*)
+    xm = ((x / s) ** e).prod(dim=-1)                            # (G, R, M)
+    # multiply and sum, not a matmul: no fused multiply-adds, so each
+    # term rounds as in the numpy path's products
+    out = (xm[..., None] * c).sum(dim=-2).clamp_min(0.0)        # (G, R, S)
+    out = torch.where(live[..., None], out, torch.zeros_like(out))
+    w = out.reshape(-1, out.shape[-1])
+    w = torch.cat([w[:, :std_col], w[:, std_col:std_col + 1] ** 2,
+                   w[:, std_col + 1:]], dim=1)
+    w = torch.cat([w, w.new_zeros(1, w.shape[1])])              # pad row
+    tot = w[members].sum(dim=1)                                 # (C, S)
+    return torch.cat([tot[:, :std_col], tot[:, std_col:std_col + 1].sqrt(),
+                      tot[:, std_col + 1:]], dim=1)
 
 
 class PredictionEngine:
@@ -191,9 +373,15 @@ class PredictionEngine:
     Eq. 4.2/4.3: min/med/max/mean sum per config, std adds in quadrature.
     The scalar path remains the reference oracle; both agree to ~1e-10.
 
-    ``backend`` selects how the stacked polynomials are evaluated; the
-    port has the ``"numpy"`` path (per-group evaluation, all groups
-    accumulated with one precomputed scatter).  The per-group path
+    ``backend`` selects how the stacked polynomials are evaluated:
+    ``"numpy"`` (per-group evaluation, all groups accumulated with one
+    precomputed scatter) or ``"torch"`` — piece lookup, design matrices,
+    every group's products AND the config-wise segment sum in ONE float64
+    torch program over the batch's padded ``(group, rows, ...)`` tensors
+    on ``device`` (the CUDA card unless ``device="cpu"``; no card and no
+    CPU request raises).  The padded inputs are uploaded once per compiled
+    batch and kept on the device, so a repeated sweep re-uploads nothing.
+    ``device`` applies to the torch backend only.  The per-group path
     survives as :meth:`predict_compiled_grouped`, the equivalence oracle.
 
     Every engine owns a :class:`TraceCache` (pass ``cache=`` to share one
@@ -205,31 +393,45 @@ class PredictionEngine:
     """
 
     def __init__(self, models: ModelSet, *, backend: str = "numpy",
-                 cache: Optional[TraceCache] = None):
+                 cache: Optional[TraceCache] = None,
+                 device: DeviceLike = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"choose from {BACKENDS}")
+        if backend != "torch" and device is not None:
+            raise ValueError(f"device= applies to the torch backend, not "
+                             f"backend={backend!r}")
         self.models = models
         self.backend = backend
+        self.device = resolve_device(device) if backend == "torch" else None
         self.cache = cache if cache is not None else TraceCache()
 
     def predict_compiled(self, compiled: CompiledCalls) -> np.ndarray:
         """(n_configs, len(STATS)) runtime statistics for a compiled batch.
 
-        Groups are evaluated batch-wise and accumulated with a single
-        ``np.add.at`` over the precomputed ``flat_config`` scatter
-        indices: there is no per-group Python accumulation loop.
+        On ``backend="torch"`` the whole batch — every group's piece
+        lookup, design matrices and products plus the config segment sum
+        — runs as one torch program over the batch's :class:`FusedBatch`
+        tensors on the engine's device; on ``"numpy"`` groups are
+        evaluated batch-wise and accumulated with a single ``np.add.at``
+        over the precomputed ``flat_config`` scatter indices.  Either way
+        there is no per-group Python accumulation loop.
         """
         if not compiled.groups:
             return np.zeros((compiled.n_configs, len(STATS)),
                             dtype=np.float64)
+        fused = compiled.fused_batch()
+        if self.backend == "torch":
+            out = _fused_predict_torch(*self._fused_device_inputs(compiled),
+                                       std_col=_STD)
+            return out.cpu().numpy()
         est = np.concatenate(
             [np.asarray(self.models[g.kernel].estimate_batch(g.case,
                                                              g.sizes))
              for g in compiled.groups], axis=0)
         est[:, _STD] **= 2
         acc = np.zeros((compiled.n_configs, len(STATS)), dtype=np.float64)
-        np.add.at(acc, compiled.flat_config, est)
+        np.add.at(acc, fused.flat_config, est)
         acc[:, _STD] = np.sqrt(acc[:, _STD])
         return acc
 
@@ -237,7 +439,7 @@ class PredictionEngine:
         """The per-group reference path, kept as :meth:`predict_compiled`'s
         equivalence oracle.
 
-        One ``estimate_batch`` evaluation per (kernel, case) group,
+        One numpy ``estimate_batch`` evaluation per (kernel, case) group,
         accumulated host-side with per-stat ``np.bincount``; agrees with
         :meth:`predict_compiled` to rounding (the two paths associate the
         per-config additions differently).
@@ -252,6 +454,62 @@ class PredictionEngine:
                                          minlength=compiled.n_configs)
         acc[:, _STD] = np.sqrt(acc[:, _STD])
         return acc
+
+    def _fused_model_tensors(self, compiled: CompiledCalls):
+        """Padded (G, P, M, ·) model tensors for a compiled batch.
+
+        Built from each case's :meth:`~repro_torch.core.model.CaseModel.
+        padded_tensors` and memoized ON the batch (a single entry,
+        replaced whenever the model set or any per-case tensor identity
+        changes — so a mutated model never serves stale tensors).  A case
+        that is missing but whose every call is degenerate gets an
+        exact-zero stand-in — the same no-model-needed semantics as the
+        scalar path; a live call to a missing case raises ``KeyError``.
+        """
+        per_case = []
+        for g in compiled.groups:
+            model = self.models[g.kernel]
+            cm = model.cases.get(tuple(g.case))
+            if cm is not None and cm.pieces:
+                per_case.append(cm.padded_tensors())
+                continue
+            if np.any(np.all(g.sizes > 0, axis=1)):
+                if cm is not None:
+                    raise KeyError("empty case model")
+                raise KeyError(f"{g.kernel}: no model for case {g.case!r} "
+                               f"(have {list(model.cases)})")
+            per_case.append(None)
+        hit = compiled.__dict__.get("_fused_model_cache")
+        if hit is not None and hit[0] is self.models \
+                and len(hit[1]) == len(per_case) \
+                and all(a is b for a, b in zip(hit[1], per_case)):
+            return hit[2]
+        tensors = _pad_model_tensors(per_case, compiled.fused_batch())
+        object.__setattr__(compiled, "_fused_model_cache",
+                           (self.models, tuple(per_case), tensors))
+        return tensors
+
+    def _fused_device_inputs(self, compiled: CompiledCalls):
+        """Device-resident float64 inputs of the fused torch program.
+
+        The padded size/model tensors are immutable once built, so their
+        device copies are memoized on the batch (a single entry keyed by
+        the model tensors' identity, which :meth:`_fused_model_tensors`
+        revalidates against mutation, and by the device) — a repeated
+        sweep is one program with zero host-to-device transfers.
+        """
+        tensors = self._fused_model_tensors(compiled)
+        hit = compiled.__dict__.get("_fused_device_cache")
+        if hit is not None and hit[0] is tensors and hit[1] == self.device:
+            return hit[2]
+        fused = compiled.fused_batch()
+        members = _segment_members(fused.segments, compiled.n_configs)
+        inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+                           self.device)
+                       for a in (fused.sizes, *tensors, members))
+        object.__setattr__(compiled, "_fused_device_cache",
+                           (tensors, self.device, inputs))
+        return inputs
 
     def predict_batch(self,
                       calls_per_config: Sequence[Iterable[KernelCall]],

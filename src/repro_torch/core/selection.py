@@ -13,6 +13,12 @@ ops); pass ``batched=False`` to fall back to the scalar per-call reference
 path, which is kept as the equivalence oracle.  Passing a shared
 ``engine=`` lets repeated selections reuse its trace cache (traced call
 sequences and compiled sweep batches) instead of re-tracing.
+
+:func:`select_contraction_algorithm`, :func:`rank_einsum_paths` and
+:func:`select_einsum_path` extend the same selection interface to tensor
+contractions (paper Ch. 6) via :mod:`repro_torch.tc` — micro-benchmark
+based candidate models ranked through the identical batched engine, on a
+:class:`repro_torch.tc.PredictorSession`.
 """
 
 from __future__ import annotations
@@ -125,6 +131,53 @@ def optimize_algorithm_and_block_size(
             best = (name, b, t)
     assert best is not None
     return best
+
+
+# ------------------------------------------------- contractions (Ch. 6) --
+
+def _session(session):
+    if session is not None:
+        return session
+    from ..tc.session import PredictorSession  # lazy: tc builds on core
+    return PredictorSession()
+
+
+def select_contraction_algorithm(spec, sizes: Mapping[str, int], *,
+                                 stat: str = "med", session=None) -> str:
+    """Ch. 6 counterpart of :func:`select_algorithm`: the contraction
+    algorithm (traversal x kernel, batched kernels included) with the
+    fastest predicted total runtime.
+
+    Runs on ``session`` (a :class:`repro_torch.tc.PredictorSession`;
+    a default session when ``None``), whose suite measurements and
+    compiled batches repeated calls share.
+    """
+    return _session(session).select_contraction_algorithm(spec, sizes,
+                                                          stat=stat)
+
+
+def rank_einsum_paths(chain, sizes: Mapping[str, int], *,
+                      stat: str = "med", session=None):
+    """Rank every pairwise contraction path of an N-operand einsum.
+
+    The chain counterpart of :func:`rank_algorithms`: all candidate paths
+    (``chain`` is a :class:`repro_torch.tc.ChainSpec` or an expression
+    like ``"ij,jk,kl->il"``) are predicted through ``session``'s shared
+    deduplicated suite and batched engine and returned fastest-first as
+    :class:`repro_torch.tc.RankedChain` records, per-step winning
+    algorithms included.  The step-by-step per-algorithm oracle is the
+    chain predictor's :meth:`~repro_torch.tc.ChainPredictor.
+    rank_paths_oracle`; the size-sweep form is the session's
+    :meth:`~repro_torch.tc.PredictorSession.rank_einsum_sweep`.
+    """
+    return _session(session).rank_einsum_paths(chain, sizes, stat=stat)
+
+
+def select_einsum_path(chain, sizes: Mapping[str, int], *,
+                       stat: str = "med", session=None):
+    """The fastest-predicted contraction path of an N-operand einsum —
+    ``rank_einsum_paths(...)[0]``, same keywords."""
+    return rank_einsum_paths(chain, sizes, stat=stat, session=session)[0]
 
 
 def performance_yield(measured_runtime: Mapping[int, float], b_pred: int,

@@ -15,10 +15,12 @@ version, and drives every path of the port on the card:
    shapes and on a shape for each of its (bm, bn, bk) instantiations that
    the card can stage (float32 and bfloat16); a test shape whose tiles
    the kernel does not take must be refused;
-3. the paper's path at n = 4096: generate potf2/trsm/syrk/gemm models on
-   the card over the domains the Cholesky tracers call, rank the three
-   potrf variants and the block size without executing them, then execute
-   them through ``ExecEngine`` and compare predicted with measured times;
+3. the paper's path at n = 4096, b from 64 to 1024: generate
+   potf2/trsm/syrk/gemm models on the card over the domains the Cholesky
+   tracers call, rank the three potrf variants and the block size without
+   executing them, then execute them through ``ExecEngine`` and compare
+   predicted with measured times; the performance yield is read on the
+   whole grid and, on the same measurements, on the grid through 512;
 4. the matmul tile path: sweep every legal tile of the CUDA matmul on its
    proxy problem, fit the transfer models and select the tile for 4096^3;
    then run every legal tile at 4096^3, check each result against the
@@ -49,19 +51,32 @@ version, and drives every path of the port on the card:
 10. the torch prediction engine on phase 3's potrf model set and its
    (variant, b) grid against the numpy engine (relative 1e-12), with
    milliseconds per batch of both;
+11. the store path: phases 4, 7 and 8's session (the three kernel
+   families' measurements and models, the transfer models, and phase 3's
+   potrf model set) and phase 9's session saved to two stores under the
+   card's fingerprint; sessions warm-started from them, in this process
+   and in a second one under the strict fingerprint check, must take no
+   fresh micro-benchmark and no sweep and rank everything phases 4 and
+   7-10 ranked bit for bit; the kernels run at the stores' choices, which
+   must be phases 4, 7 and 8's, each held against its plain version; four
+   altered copies must be refused; a drift probe against the phase-9
+   store and a tournament on the reference's frozen workloads are
+   reported;
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9 and 10 and read just after
-(the paths 9 and 10 launch none of the three); the checks and timings of
-phases 2, 5 and 6, and those after each path, are not counted.
+just before each of the paths 3, 4, 7, 8, 9, 10 and 11 and read just
+after (the paths 9 and 10 launch none of the three); the checks and
+timings of phases 2, 5 and 6, and those after each path, are not
+counted.
 
 The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits nonzero and prints no result.  Long outputs (the compilers'
 reports, the fitted models, per-config times) go to
-``chiprun_out/chip_smoke/`` (phases 9 and 10 under ``contractions`` and
-``torch_engine`` in ``result.json``).
+``chiprun_out/chip_smoke/`` (phases 9, 10 and 11 under ``contractions``,
+``torch_engine`` and ``store`` in ``result.json``; the stores as
+``store_*.json``, the scoreboard as ``TOURNAMENT.json``).
 """
 
 from __future__ import annotations
@@ -76,7 +91,10 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
 
 N = 4096                                   # the paper path's problem size
-BLOCK_SIZES = (64, 96, 128, 192, 256, 384, 512)
+BLOCK_SIZES = (64, 96, 128, 192, 256, 384, 512, 768, 1024)
+#: the grid through PR 15, whose largest point was the measured optimum;
+#: its yield is read on the same measurements as a subset
+OLD_BLOCK_SIZES = BLOCK_SIZES[:7]
 #: benchmarks/common.py BENCH_GEN_CONFIG, the reference's generator setup
 GEN_CONFIG = dict(overfit=0, oversampling=2, repetitions=5,
                   error_bound=0.04, min_width=64, max_pieces=6)
@@ -406,6 +424,8 @@ def paper_path(dev) -> dict:
 
     best_name, b_pred, t_best = optimize_algorithm_and_block_size(
         CHOLESKY_TRACERS, models, N, list(BLOCK_SIZES))
+    old_name, old_b_pred, _ = optimize_algorithm_and_block_size(
+        CHOLESKY_TRACERS, models, N, list(OLD_BLOCK_SIZES))
     profiles = {name: optimize_block_size(tr, models, N,
                                           list(BLOCK_SIZES))[1]
                 for name, tr in CHOLESKY_TRACERS.items()}
@@ -438,6 +458,8 @@ def paper_path(dev) -> dict:
     measured = {}
     rows = [(name, b_pred) for name in CHOLESKY_TRACERS] + \
         [(best_name, b) for b in BLOCK_SIZES if b != b_pred]
+    rows += [(old_name, b) for b in OLD_BLOCK_SIZES
+             if (old_name, b) not in rows]
     factor = None
     for name, b in rows:
         t, f = execute(name, b)
@@ -452,7 +474,26 @@ def paper_path(dev) -> dict:
         {b: measured[(best_name, b)] for b in BLOCK_SIZES}, b_pred)
     log(f"  measured winner at b={b_pred}: {winner} "
         f"(predicted {best_name}); {best_name} measured optimum b={b_opt}, "
-        f"performance yield {yld:.4f}")
+        f"performance yield {yld:.4f} on b in {BLOCK_SIZES}")
+    old_b_opt, old_yld = performance_yield(
+        {b: measured[(old_name, b)] for b in OLD_BLOCK_SIZES}, old_b_pred)
+    log(f"  on the old grid b in {OLD_BLOCK_SIZES} (the same "
+        f"measurements): predicted {old_name} at b={old_b_pred}, measured "
+        f"optimum b={old_b_opt}, performance yield {old_yld:.4f}")
+    # the joint (variant, b) pick against the fastest measured row of the
+    # grid: the yield above is the paper's, per variant
+    joint = {}
+    for label, grid, pick in (("grid", BLOCK_SIZES, (best_name, b_pred)),
+                              ("old grid", OLD_BLOCK_SIZES,
+                               (old_name, old_b_pred))):
+        fastest = min((r for r in measured if r[1] in grid),
+                      key=measured.get)
+        joint[label] = {"fastest_measured": list(fastest),
+                        "ratio": measured[fastest] / measured[pick]}
+        log(f"  joint pick on the {label}: {pick[0]} b={pick[1]} measured "
+            f"{measured[pick] * 1e3:.2f} ms; fastest measured row "
+            f"{fastest[0]} b={fastest[1]} {measured[fastest] * 1e3:.2f} ms "
+            f"(ratio {joint[label]['ratio']:.4f})")
     L = torch.tril(torch.from_numpy(factor).to(dev, torch.float64))
     rel = float(torch.linalg.norm(L - L64) / torch.linalg.norm(L64))
     log(f"  factor vs float64 cholesky: normwise rel err {rel:.3e} "
@@ -462,7 +503,11 @@ def paper_path(dev) -> dict:
     return {"models": models, "n": N, "gen_s": gen_s,
             "predicted_best": best_name,
             "b_pred": b_pred, "measured_winner": winner, "b_opt": b_opt,
-            "yield": yld,
+            "yield": yld, "grid": list(BLOCK_SIZES),
+            "old_grid": {"grid": list(OLD_BLOCK_SIZES),
+                         "predicted_best": old_name, "b_pred": old_b_pred,
+                         "b_opt": old_b_opt, "yield": old_yld},
+            "joint": joint,
             "rows": [{"variant": nm, "b": b,
                       "pred_ms": profiles[nm][b] * 1e3,
                       "meas_ms": measured[(nm, b)] * 1e3}
@@ -492,7 +537,8 @@ def tune_tiles(dev) -> dict:
     ranked = session.rank_device_tiles(KERNEL, (N, N, N), legal)
     analytic = rank_tiles(N, N, N, session=session, analytic=True,
                           smem_limit=ds.smem_limit)[0]
-    return {"session": session, "legal": legal, "ranked": ranked,
+    return {"session": session, "kernel": KERNEL, "legal": legal,
+            "ranked": ranked,
             "transfer": (h2d, d2h),
             "choice": (choice.bm, choice.bn, choice.bk),
             "t_compute": choice.t_compute,
@@ -734,7 +780,8 @@ def tune_family(session, kernel: str, problem, legal) -> dict:
     log(f"  swept {len(legal)} legal configs of {kernel} on their proxy "
         f"problems in {sweep_s:.2f} s; selected {ranked[0].config} for "
         f"{problem} (predicted compute {ranked[0].t_compute * 1e3:.3f} ms)")
-    return {"legal": legal, "ranked": ranked, "sweep_s": sweep_s}
+    return {"kernel": kernel, "legal": legal, "ranked": ranked,
+            "sweep_s": sweep_s}
 
 
 def normwise_within(out, ref):
@@ -798,22 +845,41 @@ def check_family(kernel: str, tuned: dict, run, plain_for, label: str,
             "tau": tau, "n_legal": len(legal), "rows": rows}, meas, plains
 
 
-def attention_path(session) -> dict:
+def attention_legal(smem_limit: int) -> list:
+    """The attention tile path's legal (bq, bkv, 128) blocks."""
     from repro_torch.kernels.flash_attention import attn_tile_legal
-    ds = session.device_suite()
     d = ATTN_PROBLEM[4]
-    legal = [(bq, bkv, d) for bq in ATTN_BLOCKS for bkv in ATTN_BLOCKS
-             if attn_tile_legal(ATTN_PROBLEM[2], ATTN_PROBLEM[3], bq, bkv, d,
-                                ds.smem_limit)]
+    return [(bq, bkv, d) for bq in ATTN_BLOCKS for bkv in ATTN_BLOCKS
+            if attn_tile_legal(ATTN_PROBLEM[2], ATTN_PROBLEM[3], bq, bkv, d,
+                               smem_limit)]
+
+
+def ssd_legal(smem_limit: int) -> list:
+    """The SSD chunk path's legal (chunk, 64, 128) configs."""
+    from repro_torch.kernels.ssd import ssd_tile_legal
+    _, l, _, p, _, n = SSD_PROBLEM
+    return [(c, p, n) for c in SSD_CHUNKS
+            if ssd_tile_legal(l, c, p, n, smem_limit)]
+
+
+def tile_paths(smem_limit: int) -> list:
+    """(kernel, problem, legal configs) of the three tile paths."""
+    from repro_torch.perf.tile_tuner import KERNEL, legal_candidates
+    return [(KERNEL, (N, N, N), legal_candidates(N, N, N,
+                                                 smem_limit=smem_limit)),
+            ("cuda_flash_attention", ATTN_PROBLEM,
+             attention_legal(smem_limit)),
+            ("cuda_ssd", SSD_PROBLEM, ssd_legal(smem_limit))]
+
+
+def attention_path(session) -> dict:
+    legal = attention_legal(session.device_suite().smem_limit)
     return tune_family(session, "cuda_flash_attention", ATTN_PROBLEM, legal)
 
 
 def ssd_path(session) -> dict:
-    from repro_torch.kernels.ssd import ssd_tile_legal
-    ds = session.device_suite()
-    _, l, _, p, _, n = SSD_PROBLEM
-    legal = [(c, p, n) for c in SSD_CHUNKS
-             if ssd_tile_legal(l, c, p, n, ds.smem_limit)]
+    legal = ssd_legal(session.device_suite().smem_limit)
+    _, _, _, p, _, n = SSD_PROBLEM
     if (SSD_MODEL_CHUNK, p, n) not in legal:
         raise AssertionError(f"mamba2-2.7b's chunk {SSD_MODEL_CHUNK} is not "
                              f"legal for the SSD kernel: {legal}")
@@ -1173,7 +1239,17 @@ def contraction_path(dev) -> dict:
         f"{firsts[len(firsts) // 2] * 1e3:.4f} ms")
     out["first_call_s"] = {"max": firsts[-1],
                            "median": firsts[len(firsts) // 2]}
+    out["session"] = session
     return out
+
+
+def potrf_compiled():
+    """The potrf (variant, b) grid at n = N, traced and compiled."""
+    from repro_torch.core.predict import compile_calls
+    from repro_torch.dla.tracers import CHOLESKY_TRACERS
+    return compile_calls([tracer(N, b)
+                          for tracer in CHOLESKY_TRACERS.values()
+                          for b in BLOCK_SIZES])
 
 
 def torch_engine_path(dev, models) -> dict:
@@ -1181,12 +1257,8 @@ def torch_engine_path(dev, models) -> dict:
     grid, on the torch engine on the card and on the numpy engine."""
     import numpy as np
     from repro_torch.core import PredictionEngine
-    from repro_torch.core.predict import compile_calls
-    from repro_torch.dla.tracers import CHOLESKY_TRACERS
 
-    compiled = compile_calls([tracer(N, b)
-                              for tracer in CHOLESKY_TRACERS.values()
-                              for b in BLOCK_SIZES])
+    compiled = potrf_compiled()
     out = {"n_configs": compiled.n_configs, "n_calls": compiled.n_calls}
     results = {}
     for backend in ("torch", "numpy"):
@@ -1212,7 +1284,342 @@ def torch_engine_path(dev, models) -> dict:
         f"ms; max relative difference {rel:.3e} (bound {ENGINE_TOL:.0e})")
     if not rel <= ENGINE_TOL:
         raise AssertionError(f"torch engine disagrees with numpy: {rel}")
+    out["predictions"] = {b: results[b].tolist() for b in results}
     return out
+
+
+# ----------------------------------------------------------- phase 11 --
+#: the name phase 3's potrf model set is stored under
+POTRF_MODELS = "potrf_n4096"
+#: the second process: it loads the two stores under the strict
+#: fingerprint check and prints what :func:`warm_rankings` ranks as JSON.
+#: It imports this script's helpers and the port, nothing else.
+WARM_CHILD = ("import json, sys; sys.path[:0] = [sys.argv[1], "
+              "sys.argv[1] + '/src']; import chip_smoke; "
+              "from repro_torch import resolve_device; "
+              "print(json.dumps(chip_smoke.warm_rankings("
+              "resolve_device('cuda'), sys.argv[2], sys.argv[3])))")
+
+
+def ranking_rows(ranked) -> list:
+    """A contraction or chain ranking: [name, [min, med, max, mean, std]]
+    per candidate, in ranked order."""
+    return [[r.name, [r.runtime.min, r.runtime.med, r.runtime.max,
+                      r.runtime.mean, r.runtime.std]] for r in ranked]
+
+
+def tile_rows(ranked) -> list:
+    """A device tile ranking, every field of every entry, in order."""
+    return [[list(r.config), r.t_total, r.t_h2d, r.t_compute, r.t_d2h,
+             r.per_step_s, r.source] for r in ranked]
+
+
+def canonical(x):
+    """``x`` as JSON reads it back: tuples become lists, floats stay
+    exact (``repr`` round-trips), so == is bit-identity."""
+    return json.loads(json.dumps(x))
+
+
+def refuse_measurement(*args):
+    raise AssertionError("a warm-started session swept a tile config or "
+                         "probed the memcpy rates")
+
+
+def contraction_rankings(session) -> dict:
+    """Phase 9's three cases ranked through ``session``."""
+    out = {label: ranking_rows(session.rank_contraction_algorithms(
+        expr, sizes)) for label, expr, sizes, _ in CONTRACTION_CASES}
+    label, expr, sizes, _ = CHAIN_CASE
+    out[label] = ranking_rows(session.rank_einsum_paths(
+        expr, sizes, memory_limit_bytes=CHAIN_LIMIT))
+    return out
+
+
+def potrf_grid(models, dev) -> dict:
+    """``models``' predictions over the potrf (variant, b) grid on both
+    engines."""
+    from repro_torch.core import PredictionEngine
+    compiled = potrf_compiled()
+    return {b: PredictionEngine(models, backend=b,
+                                device=dev if b == "torch" else None
+                                ).predict_compiled(compiled).tolist()
+            for b in ("torch", "numpy")}
+
+
+def warm_rankings(dev, tile_path, contraction_path) -> dict:
+    """Load the two stores under the strict fingerprint check, warm-start
+    sessions from them and rank what phases 4 and 7-10 ranked: the three
+    contraction cases on both backends, the three tile paths (no sweep,
+    no memcpy probe: both refuse), and the stored potrf models' grid on
+    both engines.  ``measured`` counts fresh micro-benchmarks per
+    session."""
+    from repro_torch.store import ModelStore
+    from repro_torch.tc import PredictorSession
+
+    t0 = time.perf_counter()
+    tile_store = ModelStore.load(tile_path, device=dev)
+    contraction_store = ModelStore.load(contraction_path, device=dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = {"contractions": {}, "measured": {}}
+    for backend in ("torch", "numpy"):
+        warm = PredictorSession(store=contraction_store, backend=backend,
+                                device=dev)
+        out["contractions"][backend] = contraction_rankings(warm)
+        out["measured"][f"contractions_{backend}"] = \
+            warm.counters()["measured"]
+    tiles = PredictorSession(store=tile_store, device=dev)
+    ds = tiles.device_suite(device=dev, sweep_fn=refuse_measurement,
+                            transfer_measure_fn=refuse_measurement)
+    out["tiles"] = {kernel: tile_rows(tiles.rank_device_tiles(
+        kernel, problem, legal))
+        for kernel, problem, legal in tile_paths(ds.smem_limit)}
+    out["measured"]["tiles"] = tiles.counters()["measured"]
+    out["potrf"] = potrf_grid(tile_store.model_set(POTRF_MODELS), dev)
+    out["ms"] = {"load": load_ms,
+                 "warm_rank": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
+def compare_rankings(label: str, got: dict, want: dict) -> None:
+    """Fail unless ``got`` holds ``want``'s rankings bit for bit and its
+    sessions measured nothing."""
+    for part in ("contractions", "tiles", "potrf"):
+        if canonical(got[part]) != canonical(want[part]):
+            raise AssertionError(f"{label}: the warm-started {part} "
+                                 f"differ from the in-memory session's")
+    if any(got["measured"].values()):
+        raise AssertionError(f"{label}: a warm-started session measured "
+                             f"{got['measured']}")
+
+
+def expect_refusal(label: str, path, dev, **kw) -> str:
+    from repro_torch.store import ModelStore, StoreMismatchError
+    try:
+        ModelStore.load(path, device=dev, **kw)
+    except StoreMismatchError as exc:
+        log(f"  refused, {label}: {str(exc)[:150]}...")
+        return str(exc)
+    raise AssertionError(f"a store with {label} was loaded")
+
+
+def run_choices(dev, choices: dict) -> dict:
+    """Launch each kernel once at the config the warm-started session
+    chose, at its path's problem, and hold it against its plain version
+    at the tolerance of phases 4, 7 and 8."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+
+    rng = np.random.default_rng(23)
+    out = {}
+    bm, bn, bk = choices["cuda_matmul"]
+    x, y = (torch.from_numpy(rng.standard_normal((N, N)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    got = matmul(x, y, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    ref = matmul_plain(x, y, bm=N, bn=N, bk=bk)
+    err, limit = float((got - ref).abs().max()), \
+        BIG_TOL * float(ref.abs().max())
+    out["cuda_matmul"] = {"config": [bm, bn, bk], "max_abs_err": err,
+                          "bound": limit}
+    if not err <= limit:
+        raise AssertionError(f"matmul at the stored choice {(bm, bn, bk)}: "
+                             f"max_abs_err {err:.3e} above {limit:.3e}")
+    del x, y, got, ref
+    bq, bkv, _ = choices["cuda_flash_attention"]
+    b, h, sq, skv, d = ATTN_PROBLEM
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(dev) for sh in ((b, h, sq, d), (b, h, skv, d),
+                                        (b, h, skv, d)))
+    got = flash_attention(q, k, v, bq=bq, bkv=bkv)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, bkv=bkv)
+    out["cuda_flash_attention"] = {
+        "config": [bq, bkv, d], "normwise": rel_err(got, ref),
+        "max_abs_err": float((got - ref).abs().max()),
+        "bound": WIDE_TOL["float32"]}
+    del q, k, v, got, ref
+    chunk = choices["cuda_ssd"][0]
+    ops = ssd_inputs(SSD_PROBLEM, rng, model_like=False)
+    got = ssd(*ops, chunk=chunk)
+    torch.cuda.synchronize()
+    ref = ssd_plain(*ops, chunk=chunk)
+    out["cuda_ssd"] = {"config": list(choices["cuda_ssd"]),
+                       "normwise": rel_err(got, ref),
+                       "max_abs_err": float((got - ref).abs().max()),
+                       "bound": WIDE_TOL["float32"]}
+    for kernel in ("cuda_flash_attention", "cuda_ssd"):
+        if not out[kernel]["normwise"] <= WIDE_TOL["float32"]:
+            raise AssertionError(f"{kernel} at the stored choice disagrees "
+                                 f"with its plain version: {out[kernel]}")
+    for kernel, r in out.items():
+        log(f"  {kernel} at the stored choice {tuple(r['config'])}: "
+            + (f"normwise {r['normwise']:.3e}, " if "normwise" in r else "")
+            + f"max_abs_err {r['max_abs_err']:.3e} (bound "
+            + (f"{BIG_TOL} x max |plain| = {r['bound']:.3e}"
+               if kernel == "cuda_matmul" else
+               f"{r['bound']:.0e} normwise") + ")")
+    return out
+
+
+def store_path(dev, tile_session, contraction_session, paper_models,
+               in_memory: dict, phase_choices: dict) -> dict:
+    """Phase 11: save the tile and contraction sessions to two stores,
+    warm-start from them in this process and in a second one, run the
+    kernels at what the stores chose, check the refusals, probe for drift
+    and score a tournament."""
+    import numpy as np
+    from repro_torch.store import (DEVICE_MODEL_SET, SCHEMA_VERSION,
+                                   DriftProbe, Snapshot, current_fingerprint,
+                                   frozen_workloads, run_tournament)
+    from repro_torch.tc import PredictorSession
+
+    fp = current_fingerprint(device=dev)
+    log(f"  fingerprint: {fp.as_dict()}")
+    paths = {"tiles": OUT / "store_tiles.json",
+             "contractions": OUT / "store_contractions.json"}
+    t0 = time.perf_counter()
+    tile_store = tile_session.save_store()
+    tile_store.add_model_set(POTRF_MODELS, paper_models)
+    tile_store.save(paths["tiles"])
+    contraction_store = contraction_session.save_store(
+        paths["contractions"])
+    save_ms = (time.perf_counter() - t0) * 1e3
+    families = sorted(tile_store.device_model_set().models)
+    if not {"cuda_matmul", "cuda_flash_attention", "cuda_ssd", "memcpy_h2d",
+            "memcpy_d2h"} <= set(families):
+        raise AssertionError(f"the tile store's {DEVICE_MODEL_SET} models "
+                             f"lack a family: {families}")
+    sizes = {k: p.stat().st_size for k, p in paths.items()}
+    log(f"  saved in {save_ms:.1f} ms: tiles store {tile_store.n_keys} "
+        f"keys, model sets {sorted(tile_store.model_sets)} "
+        f"({sizes['tiles']} bytes); contractions store "
+        f"{contraction_store.n_keys} keys, "
+        f"{len(contraction_store.model_sets)} model sets "
+        f"({sizes['contractions']} bytes); cache_bytes "
+        f"{tile_store.suite_meta['cache_bytes']} / "
+        f"{contraction_store.suite_meta['cache_bytes']}")
+
+    inproc = warm_rankings(dev, paths["tiles"], paths["contractions"])
+    compare_rankings("in this process", inproc, in_memory)
+    log(f"  warm start in this process: load {inproc['ms']['load']:.1f} ms,"
+        f" warm rank {inproc['ms']['warm_rank']:.1f} ms; fresh "
+        f"micro-benchmarks {inproc['measured']}, no sweep, no memcpy "
+        f"probe; rankings of the three contraction cases (torch and "
+        f"numpy), the three tile paths and the potrf grid (both engines) "
+        f"bit-identical to the in-memory sessions'")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", WARM_CHILD, str(ROOT), str(paths["tiles"]),
+         str(paths["contractions"])], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the second process failed: "
+                             f"{child.stderr[-2000:]}")
+    second = json.loads(child.stdout.strip().splitlines()[-1])
+    compare_rankings("in a second process", second, in_memory)
+    log(f"  warm start in a second process ({child_s:.1f} s in all; load "
+        f"{second['ms']['load']:.1f} ms, warm rank "
+        f"{second['ms']['warm_rank']:.1f} ms): strict fingerprint check "
+        f"passed, fresh micro-benchmarks {second['measured']}, rankings "
+        f"bit-identical")
+
+    choices = {kernel: tuple(rows[0][0])
+               for kernel, rows in inproc["tiles"].items()}
+    if choices != phase_choices:
+        raise AssertionError(f"the stores chose {choices}, phases 4, 7 and "
+                             f"8 chose {phase_choices}")
+    log(f"  the stores' choices equal phases 4, 7 and 8's: {choices}")
+    runs = run_choices(dev, choices)
+
+    payload = json.loads(paths["contractions"].read_text())
+    fps = payload["fingerprint"]
+    copies = {
+        "device_kind changed": ({**payload, "fingerprint": {
+            **fps, "device_kind": fps["device_kind"] + " (another card)"}},
+            {}),
+        "cache_bytes changed": ({**payload, "suite": {
+            **payload["suite"],
+            "cache_bytes": payload["suite"]["cache_bytes"] // 2}}, {}),
+        "schema_version + 1, allow_mismatch=True": ({
+            **payload, "schema_version": SCHEMA_VERSION + 1},
+            {"allow_mismatch": True}),
+        "the reference's fingerprint fields": ({**payload, "fingerprint": {
+            "cpu": fps["cpu"], "cores": fps["cores"], "backend": "tpu",
+            "device_kind": "TPU v5 lite",
+            "libraries": f"numpy={np.__version__},jax=0.4.35",
+            "dtype": fps["dtype"], "repro_version": fps["repro_version"]}},
+            {}),
+    }
+    refusals = {}
+    for i, (label, (copy, kw)) in enumerate(copies.items()):
+        path = OUT / f"store_refused_{i}.json"
+        path.write_text(json.dumps(copy))
+        refusals[label] = expect_refusal(label, path, dev, **kw)
+
+    drift_session = PredictorSession(store=paths["contractions"],
+                                     device=dev)
+    # what check_drift runs, kept so its summary and threshold are the
+    # probe's own
+    probe = DriftProbe(drift_session.suite)
+    readings = probe.probe()
+    drift = dict(probe.report(), threshold=probe.threshold,
+                 readings=[{"equation": r.key.equation,
+                            "a_shape": list(r.key.a_shape),
+                            "b_shape": list(r.key.b_shape),
+                            "classes": list(r.key.classes),
+                            "stored_med": r.stored_med,
+                            "probed_med": r.probed_med, "ratio": r.ratio}
+                           for r in readings])
+    for r in readings:
+        log(f"    drift {r.key.equation} {r.key.a_shape}x{r.key.b_shape} "
+            f"{'/'.join(r.key.classes)}: stored {r.stored_med * 1e6:.1f} "
+            f"us, probed {r.probed_med * 1e6:.1f} us, ratio {r.ratio:.3f}")
+    log(f"  drift against the phase-9 store, back to back: probed "
+        f"{drift['probed']:.0f}, stale {drift['stale']:.0f} (threshold "
+        f"{probe.threshold}, reported, not gated), max ratio "
+        f"{drift['max_ratio']:.3f}, probe "
+        f"{drift['probe_cost_seconds']:.2f} s")
+
+    loads = frozen_workloads()
+    snaps = []
+    for name, reps in (("rep5", 5), ("rep1", 1)):
+        sess = PredictorSession(repetitions=reps, device=dev)
+        for load in loads:
+            load.rank(sess)
+        path = OUT / f"store_{name}.json"
+        sess.save_store(path)
+        snaps.append(Snapshot(name, path))
+    tourney = run_tournament(snaps, loads,
+                             oracle_session=PredictorSession(device=dev),
+                             device=dev)
+    tourney.save(OUT / "TOURNAMENT.json")
+    for line in tourney.describe().splitlines():
+        log(f"  {line}")
+    log(f"  oracle cost {tourney.oracle_cost_seconds:.2f} s")
+    fresh = next(s for s in tourney.scores if s.name == "rep5")
+    if fresh.new_benchmarks != 0:
+        raise AssertionError(f"the fresh snapshot needed "
+                             f"{fresh.new_benchmarks} new benchmarks")
+    return {"fingerprint": fp.as_dict(), "bytes": sizes,
+            "keys": {"tiles": tile_store.n_keys,
+                     "contractions": contraction_store.n_keys},
+            "model_sets": {"tiles": sorted(tile_store.model_sets),
+                           "contractions": sorted(
+                               contraction_store.model_sets)},
+            "save_ms": save_ms, "in_process": {
+                "ms": inproc["ms"], "measured": inproc["measured"]},
+            "second_process": {"ms": second["ms"],
+                               "measured": second["measured"],
+                               "seconds": child_s},
+            "choices": {k: list(v) for k, v in choices.items()},
+            "runs": runs, "refusals": refusals, "drift": drift,
+            "tournament": tourney.to_payload()}
 
 
 def main() -> int:
@@ -1328,6 +1735,27 @@ def main() -> int:
     engine = counted("torch_engine", "10", torch_engine_path, dev,
                      paper_models)
 
+    log("[11] store path: save the tile and contraction sessions, warm "
+        "start in this process and in a second one, run the stored "
+        "choices, refusals, drift, tournament")
+    from repro_torch.tc import PredictorSession
+    contraction_session = contraction.pop("session")
+    in_memory = {
+        "contractions": {
+            "torch": contraction_rankings(contraction_session),
+            "numpy": contraction_rankings(PredictorSession(
+                suite=contraction_session.suite,
+                cache=contraction_session.cache))},
+        "tiles": {t["kernel"]: tile_rows(t["ranked"])
+                  for t in (tuned, attn_tuned, ssd_tuned)},
+        "potrf": engine.pop("predictions")}
+    phase_choices = {"cuda_matmul": tuple(tiles["choice"]),
+                     "cuda_flash_attention": tuple(attn["choice"]),
+                     "cuda_ssd": tuple(ssd_res["choice"])}
+    store = counted("store", "11", store_path, dev, session,
+                    contraction_session, paper_models, in_memory,
+                    phase_choices)
+
     regs = {}
     for name, keys in selected_ptxas_keys(
             (bm, bn, bk), attn["choice"], ssd_res["choice"]).items():
@@ -1345,7 +1773,8 @@ def main() -> int:
                 f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
     for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
-                       ("ssd", "ssd_chunks")):
+                       ("ssd", "ssd_chunks"), ("matmul", "store"),
+                       ("flash_attention", "store"), ("ssd", "store")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -1389,7 +1818,8 @@ def main() -> int:
         {"paper": paper, "tiles": tiles, "wide_checks": wide,
          "attn_tiles": {**attn_tuned, **attn}, "ssd_chunks":
          {**ssd_tuned, **ssd_res}, "contractions": contraction,
-         "torch_engine": engine, "phase_s": phase_s, **kernels},
+         "torch_engine": engine, "store": store, "phase_s": phase_s,
+         **kernels},
         indent=1, default=str))
     log(f"  phase host times (s): "
         + ", ".join(f"{k}: {v:.1f}" for k, v in phase_s.items()))

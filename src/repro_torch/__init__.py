@@ -8,7 +8,9 @@ and einsum paths from cache-aware micro-benchmarks (Ch. 6,
 :mod:`repro_torch.core.contractions`, :mod:`repro_torch.tc`) — and, on
 the accelerator, measure and tune the tiles of the hand-written CUDA
 kernels (:mod:`repro_torch.kernels`, :mod:`repro_torch.tc.device`,
-:mod:`repro_torch.perf.tile_tuner`).
+:mod:`repro_torch.perf.tile_tuner`); persist what was measured under a
+fingerprint of the card, warm-start later sessions from it, probe it for
+drift and score predictor snapshots (:mod:`repro_torch.store`).
 
 The package mirrors ``repro``'s module layout and names so each counterpart
 is easy to find.  It imports ``torch`` and never ``jax`` or ``repro``.

@@ -11,13 +11,18 @@ loads in the other.
 Measurements carry across too: :func:`suite_from_reference` loads the
 reference suite's micro-benchmarks, given as plain records, into the
 port's :class:`~repro_torch.tc.suite.MicroBenchmarkSuite`, so both
-packages rank from the same measurements.
+packages rank from the same measurements; :func:`store_from_reference`
+reads a whole saved reference store (``repro.store.ModelStore``) as the
+port's :class:`~repro_torch.store.ModelStore`.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping
+import json
+from pathlib import Path
+from typing import Iterable, Mapping, Union
 
+from ._device import DeviceLike
 from .core.model import ModelSet
 from .core.sampler import Stats
 from .tc.suite import MicroBenchmark, MicroBenchmarkKey, MicroBenchmarkSuite
@@ -61,3 +66,32 @@ def suite_from_reference(records: Iterable[Mapping],
             key=key, stats=Stats(**rec["stats"]), first=rec["first"],
             seconds=rec["seconds"]))
     return suite
+
+
+def store_from_reference(payload_or_path: Union[Mapping, str, Path], *,
+                         allow_mismatch: bool = False, fingerprint=None,
+                         device: DeviceLike = None):
+    """The port's :class:`~repro_torch.store.ModelStore` from a store the
+    reference saved (its parsed JSON payload, or the file's path).
+
+    The measurements come across bit-exactly and every model set goes
+    through :func:`model_set_from_reference`.  The stored fingerprint is
+    kept as it was written: it describes the reference's platform (a JAX
+    backend and device kind, ``numpy=…,jax=…``), so the store passes the
+    port's gates only with ``allow_mismatch=True``, and a schema gap
+    refuses even then.  ``device`` and ``fingerprint`` are those of
+    :meth:`~repro_torch.store.ModelStore.load`.
+    """
+    from .store.modelstore import ModelStore
+    if isinstance(payload_or_path, Mapping):
+        payload, source = payload_or_path, "reference payload"
+    else:
+        with open(payload_or_path) as f:
+            payload = json.load(f)
+        source = str(payload_or_path)
+    store = ModelStore.from_payload(
+        {**payload, "model_sets": {}}, allow_mismatch=allow_mismatch,
+        fingerprint=fingerprint, device=device, source=source)
+    for name, ms in payload.get("model_sets", {}).items():
+        store.add_model_set(name, model_set_from_reference(ms))
+    return store

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -154,3 +154,11 @@ def select_tiles(m: int, n: int, k: int, *,
                       smem_limit=smem_limit, candidates=candidates,
                       stat=stat, transfer=transfer,
                       itemsize=itemsize)[0]
+
+
+def tile_table(shapes: Sequence[Tuple[int, int, int]],
+               **kw) -> Dict[Tuple[int, int, int], TileChoice]:
+    """:func:`select_tiles` over many shapes; one session's measurements
+    are shared across the whole table (proxy-problem keys depend only on
+    the tile config, not the problem size)."""
+    return {s: select_tiles(*s, **kw) for s in shapes}

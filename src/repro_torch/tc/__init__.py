@@ -20,7 +20,8 @@ from .chains import (MAX_OPERANDS, ChainPath, ChainPredictor, ChainSizeSweep,
                      execute_chain, execute_chain_reference,
                      execute_path_reference, rank_einsum_sweep,
                      validate_paths)
-from .device import DEVICE_KERNELS, DeviceRanked, DeviceSuite, device_key
+from .device import (DEVICE_KERNELS, RESIDENT, TIGHT, DeviceRanked,
+                     DeviceSuite, device_key, smem_class)
 from .kernels import (BATCH_SUFFIX, BATCHABLE_KERNELS, base_kernel,
                       generate_algorithms, generate_batched_algorithms,
                       is_batched_kernel, kernel_batch_dims, slice_call_bytes,
@@ -52,4 +53,5 @@ __all__ = [
     "cost_exponents", "key_at", "signature_dims", "signature_of",
     "size_point",
     "DEVICE_KERNELS", "DeviceRanked", "DeviceSuite", "device_key",
+    "smem_class", "RESIDENT", "TIGHT",
 ]

@@ -20,12 +20,16 @@ sessions can share measurements by passing one session's ``suite`` /
 ``cache`` into the other's constructor (e.g. a numpy and a torch session
 over one suite).
 
-The reference's store, drift and serving facets are not part of the port
-yet: the session takes no ``store=``.
+The store facets persist a session and warm-start another one from it
+(``store=``, :meth:`PredictorSession.save_store`), and probe a
+warm-started suite for drift (:meth:`PredictorSession.check_drift`);
+see :mod:`repro_torch.store`.  The reference's serving facets are not
+part of the port yet.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 from .._device import DeviceLike, resolve_device
@@ -62,6 +66,17 @@ class PredictorSession:
     with budgeted adaptive refinement (:meth:`refine_parametric`) and
     grid points inside a fitted domain are *predicted*, not measured.  A
     suite shared from another session brings its registry along.
+
+    ``store`` warm-starts the session from a
+    :class:`repro_torch.store.ModelStore` (an object, or a path loaded
+    under the fingerprint check of ``device``, which is then resolved:
+    the card unless ``device="cpu"``; ``allow_mismatch=True`` accepts
+    another platform's store).  The store's measurement protocol builds
+    the suite and every stored measurement is pre-loaded, so rankings the
+    store covers take zero new micro-benchmarks; stored parametric models
+    switch ``parametric`` on, and stored device models are pre-loaded
+    into :meth:`device_suite`.  ``store=`` and ``suite=`` exclude each
+    other.
     """
 
     def __init__(self, *, backend: str = "numpy",
@@ -69,6 +84,7 @@ class PredictorSession:
                  suite: Optional[MicroBenchmarkSuite] = None,
                  cache: Optional[TraceCache] = None,
                  repetitions: Optional[int] = None,
+                 store=None, allow_mismatch: bool = False,
                  parametric: bool = False,
                  parametric_error_bound: float = 0.05,
                  parametric_budget: Optional[int] = 32):
@@ -76,11 +92,28 @@ class PredictorSession:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"choose from {BACKENDS}")
         self.backend = backend
-        # the torch engine's device is resolved now, so a missing card
-        # raises here rather than at the first ranking
-        self.device = resolve_device(device) if backend == "torch" \
-            else device
-        if suite is not None:
+        # the torch engine's device (and a warm start's platform) is
+        # resolved now, so a missing card raises here rather than at the
+        # first ranking
+        self.device = resolve_device(device) \
+            if backend == "torch" or store is not None else device
+        param_sets = None
+        self._device_models = None
+        if store is not None:
+            if suite is not None:
+                raise ValueError(
+                    "pass store= or suite=, not both: a warm-started "
+                    "session builds its suite from the store")
+            from ..store.modelstore import ModelStore
+            if not isinstance(store, ModelStore):
+                store = ModelStore.load(store, allow_mismatch=allow_mismatch,
+                                        device=self.device)
+            self.suite = store.build_suite(repetitions=repetitions,
+                                           device=self.device)
+            param_sets = store.parametric_model_set()
+            parametric = parametric or param_sets is not None
+            self._device_models = store.device_model_set()
+        elif suite is not None:
             if repetitions is not None and repetitions != suite.repetitions:
                 raise ValueError(
                     f"repetitions={repetitions} conflicts with the supplied "
@@ -99,6 +132,8 @@ class PredictorSession:
         # a shared suite brings its registry along; the knobs were fixed
         # by whoever built it
         self.parametric = self.suite.parametric
+        if param_sets is not None:
+            self.parametric.load_model_set(param_sets)
         self._contraction: Dict[Tuple, ContractionPredictor] = {}
         self._chain: Dict[Tuple, ChainPredictor] = {}
         self._device = None
@@ -314,10 +349,15 @@ class PredictorSession:
         :class:`repro_torch.tc.device.DeviceSuite` over the shared suite,
         created on first use; ``kwargs`` configure that first
         construction (``device=``, ``passes=``, ``sweep_fn=``,
-        ``transfer_measure_fn=``, ...)."""
+        ``transfer_measure_fn=``, ...).  A store warm start that holds
+        device models (:data:`repro_torch.store.DEVICE_MODEL_SET`)
+        pre-loads them, so tile rankings take no memcpy probe, and
+        configs whose measurements the store holds take no sweep."""
         if self._device is None:
             from .device import DeviceSuite
             self._device = DeviceSuite(self.suite, **kwargs)
+            if self._device_models is not None:
+                self._device.load_model_set(self._device_models)
         elif kwargs:
             raise ValueError(
                 "the session's device suite is already built; its "
@@ -337,6 +377,70 @@ class PredictorSession:
         return self.device_suite().rank(kernel, problem, configs,
                                         stat=stat, transfer=transfer,
                                         itemsize=itemsize)
+
+    # ------------------------------------------------------------ store --
+    def save_store(self, path=None, *, fingerprint=None):
+        """Capture this session's measurements (and every prepared
+        per-contraction :class:`~repro_torch.core.model.ModelSet`) into a
+        :class:`repro_torch.store.ModelStore` for the suite's device;
+        write it to ``path`` if given.
+
+        A session in another process warm-starts from the file via
+        ``PredictorSession(store=path)`` and, measurements being the only
+        input to the per-signature models, produces bit-identical
+        rankings with zero new micro-benchmarks.  Fitted size-parametric
+        models and the device suite's kernel and transfer models ride
+        along under the store's reserved names.
+        """
+        from ..store.modelstore import ModelStore
+        store = ModelStore.from_suite(self.suite, fingerprint=fingerprint,
+                                      device=self.suite.device)
+        for key, pred in self._contraction.items():
+            if pred._models is None:
+                continue             # never ranked: nothing fitted to keep
+            spec, sizes = key[0], key[1]
+            name = f"{spec.einsum_expr()}|" + ",".join(
+                f"{k}={v}" for k, v in sizes)
+            store.add_model_set(name, pred.model_set)
+        if self.parametric is not None and self.parametric.models:
+            store.add_parametric_models(self.parametric)
+        if self._device is not None:
+            device_models = self._device.to_model_set()
+            if device_models.models:
+                store.add_device_models(device_models)
+        if path is not None:
+            store.save(path)
+        return store
+
+    def check_drift(self, *, max_keys: int = 8, threshold: float = 1.5,
+                    refresh: bool = False, measure_fn=None):
+        """Probe a deterministic subset of the suite's stored keys for
+        platform drift (see :class:`repro_torch.store.DriftProbe`).
+
+        Warns (:class:`UserWarning`) when any probed key drifted beyond
+        ``threshold``; with ``refresh=True`` the stale keys are
+        re-measured in place (the suite's ``refreshed`` counter records
+        the repairs).  Returns the probe's readings.
+        """
+        from ..store.drift import DriftProbe
+        probe = DriftProbe(self.suite, max_keys=max_keys,
+                           threshold=threshold, measure_fn=measure_fn)
+        readings = probe.probe()
+        stale = probe.stale()
+        if stale:
+            worst = max(stale, key=lambda r: max(r.ratio, 1 / r.ratio))
+            warnings.warn(
+                f"model drift: {len(stale)}/{len(readings)} probed "
+                f"micro-benchmarks moved beyond {threshold}x (worst "
+                f"ratio {worst.ratio:.2f} on {worst.key.equation} "
+                f"{worst.key.a_shape}x{worst.key.b_shape}); "
+                + ("stale keys refreshed in place" if refresh else
+                   "re-measure with refresh=True or re-generate the "
+                   "store"),
+                UserWarning, stacklevel=2)
+            if refresh:
+                probe.refresh()
+        return readings
 
     # ------------------------------------------------------------- cost --
     def counters(self) -> Dict[str, float]:

@@ -135,3 +135,86 @@ def test_block_size_argmins_identical(default_set, batched):
 def test_performance_yield():
     measured = {32: 2.0, 64: 1.0, 96: 1.25}
     assert performance_yield(measured, 96) == (64, 0.8)
+
+
+# -------------------------------------------------- perf.predictor batched --
+
+def _ref_random_model(rng, kernel):
+    """tests/test_batched_predict.py's ``_random_model`` (two dims, three
+    pieces, case ("C",)), built with the reference's classes."""
+    from repro.core import (Domain, PerformanceModel, Piece, fit_relative,
+                            monomial_basis)
+    m = PerformanceModel(kernel=kernel)
+    edges = np.sort(rng.integers(2, 64, size=2)) * 8
+    bounds = [8] + [int(e) + 8 for e in edges] + [600]
+    for i in range(3):
+        dom = Domain((bounds[i], 8), (bounds[i + 1], 512))
+        axes = [np.linspace(lo, hi, 5) for lo, hi in zip(dom.lo, dom.hi)]
+        pts = np.stack(np.meshgrid(*axes, indexing="ij"),
+                       axis=-1).reshape(-1, 2)
+        coef = rng.uniform(1e-10, 1e-8)
+        const = rng.uniform(1e-7, 1e-5)
+        vals = coef * np.prod(pts, axis=1) * pts[:, 0] + const
+        basis = monomial_basis([(2, 1)])
+        polys = {s: fit_relative(pts, vals * f, basis)
+                 for s, f in (("min", 0.95), ("med", 1.0), ("max", 1.1),
+                              ("mean", 1.01))}
+        polys["std"] = fit_relative(pts, np.full(len(pts), const * 0.05),
+                                    [(0, 0)])
+        m.add_piece(("C",), Piece(domain=dom, polys=polys))
+    return m
+
+
+def _tracer_for(call_cls, kernel):
+    """tests/test_batched_predict.py's ``_tracer_for`` on ``call_cls``."""
+    def tracer(n, b):
+        return [call_cls(kernel, ("C",), (b, max(n - (i + 1) * b, 0)))
+                for i in range(max(1, n // b)) for _ in range(3)]
+    return tracer
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_rank_traced_configs_matches_the_reference(backend):
+    """tests/test_batched_predict.py:224's inputs: the port's
+    ``rank_traced_configs`` against the reference's and against
+    ``rank_algorithms``."""
+    from repro.core import KernelCall as RefCall
+    from repro.perf import rank_traced_configs as ref_rank_traced
+    from repro_torch.core import KernelCall
+    from repro_torch.perf import RankedTracedConfig, rank_traced_configs
+
+    rng = np.random.default_rng(31)
+    ref_ms = RefModelSet({"k": _ref_random_model(rng, "k"),
+                          "k2": _ref_random_model(rng, "k2")})
+    mine_ms = model_set_from_reference(ref_ms.to_dict())
+    ref_tracers_ = {"a": _tracer_for(RefCall, "k"),
+                    "b": _tracer_for(RefCall, "k2")}
+    mine_tracers = {"a": _tracer_for(KernelCall, "k"),
+                    "b": _tracer_for(KernelCall, "k2")}
+    device = "cpu" if backend == "torch" else None
+    eng = PredictionEngine(mine_ms, backend=backend, device=device)
+    got = rank_traced_configs(mine_tracers, mine_ms, 512, 64, engine=eng)
+    want = ref_rank_traced(ref_tracers_, ref_ms, 512, 64)
+    assert all(isinstance(r, RankedTracedConfig) for r in got)
+    assert [r.name for r in got] == [r.name for r in want]
+    np.testing.assert_allclose([r.predicted_s for r in got],
+                               [r.predicted_s for r in want],
+                               rtol=1e-12, atol=0)
+    np.testing.assert_allclose([r.runtime.std for r in got],
+                               [r.runtime.std for r in want],
+                               rtol=1e-12, atol=0)
+    if backend == "numpy":
+        # no engine: ``resolve_engine`` builds the numpy one
+        assert [r.runtime for r in rank_traced_configs(
+            mine_tracers, mine_ms, 512, 64)] == [r.runtime for r in got]
+    ranked = rank_algorithms(mine_tracers, mine_ms, 512, 64)
+    assert [r.name for r in got] == [r.name for r in ranked]
+    # the engine's own backend named beside it is accepted; a
+    # contradicting backend raises
+    assert [r.runtime for r in rank_traced_configs(
+        mine_tracers, mine_ms, 512, 64, engine=eng, backend=backend)] == \
+        [r.runtime for r in got]
+    with pytest.raises(ValueError, match="backend"):
+        rank_traced_configs(mine_tracers, mine_ms, 512, 64, engine=eng,
+                            backend="numpy" if backend == "torch"
+                            else "torch")

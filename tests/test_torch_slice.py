@@ -39,7 +39,8 @@ from repro_torch.dla.kernels import KERNELS  # noqa: E402
 from repro_torch.perf.roofline import (H100_SXM, card, card_of,  # noqa: E402
                                        peak_flops)
 from repro_torch.perf.tile_tuner import (predict_tile_time,  # noqa: E402
-                                         rank_tiles, select_tiles)
+                                         rank_tiles, select_tiles,
+                                         tile_table)
 from repro_torch.tc import PredictorSession  # noqa: E402
 from repro_torch.tc.suite import MicroBenchmarkSuite  # noqa: E402
 
@@ -267,6 +268,42 @@ def test_rank_tiles_order_matches_reference_and_analytic_oracle():
     on_cpu = rank_tiles(4096, 4096, 4096, session=mine, analytic=True)
     assert [t.predicted_s for t in on_cpu] == \
         [t.predicted_s for t in analytic]
+
+
+def test_tile_table_is_select_tiles_per_shape_over_shared_measurements():
+    """``tile_table`` over three shapes equals ``select_tiles`` per shape,
+    and one session's sweep serves the whole table: the proxy keys depend
+    only on the tile config."""
+    import repro_torch.perf as perf
+    shapes = [(256, 256, 256), (128, 256, 512), (512, 128, 128)]
+    swept = []
+
+    def counting_sweep(kernel_name, configs):
+        swept.extend(configs)
+        return sweep(kernel_name, configs)
+
+    table_session = PredictorSession(repetitions=2)
+    table_session.device_suite(device="cpu", sweep_fn=counting_sweep,
+                               transfer_measure_fn=xfer, steps_per_dim=2)
+    table = tile_table(shapes, session=table_session, candidates=(64, 128))
+    assert perf.tile_table is tile_table
+    assert list(table) == shapes
+    n_keys = table_session.suite.n_benchmarks
+    assert n_keys == len(set(swept)) == len(swept)
+    per_shape, _ = _sessions()
+    for shape in shapes:
+        assert table[shape] == select_tiles(*shape, session=per_shape,
+                                            candidates=(64, 128))
+    # the per-shape session measured the same distinct keys, once each
+    assert per_shape.suite.n_benchmarks == n_keys
+    # a second table over the same shapes measures nothing new
+    assert tile_table(shapes, session=table_session,
+                      candidates=(64, 128)) == table
+    assert table_session.suite.n_benchmarks == n_keys
+    assert len(swept) == n_keys
+    # without a session the table is the analytic selection
+    assert tile_table(shapes[:1], candidates=(64, 128))[shapes[0]] == \
+        select_tiles(*shapes[0], candidates=(64, 128))
 
 
 def test_card_constants_are_keyed_by_device_name():

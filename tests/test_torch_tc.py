@@ -421,10 +421,28 @@ def test_dispatch_is_explicit():
             PredictionEngine(ModelSet(), backend=backend)
     with pytest.raises(ValueError, match="device"):
         PredictionEngine(ModelSet(), device="cpu")
-    with pytest.raises(TypeError, match="store"):
+    # a warm start fingerprints its platform: the card by default
+    with pytest.raises(RuntimeError, match="CUDA"):
         PredictorSession(store="store.json")
     with pytest.raises(ValueError, match="repetitions"):
         PredictorSession(suite=fake_suite(), repetitions=3)
+
+
+def test_shared_memory_class_names_are_re_exported():
+    """The counterparts of ``repro.tc``'s lazy ``vmem_class`` / ``RESIDENT``
+    / ``TIGHT``: the same objects as ``repro_torch.tc.device``'s."""
+    import repro.tc as ref_tc
+    import repro_torch.tc as tc
+    from repro_torch.tc import device
+    for name in ("smem_class", "RESIDENT", "TIGHT"):
+        assert getattr(tc, name) is getattr(device, name)
+        assert name in tc.__all__
+    assert (tc.RESIDENT, tc.TIGHT) != (None, None)
+    for name in ("vmem_class", "RESIDENT", "TIGHT"):
+        assert name in ref_tc.__all__
+    limit = device.H100_SMEM_OPTIN
+    assert tc.smem_class(limit // 2, limit) == tc.RESIDENT
+    assert tc.smem_class(limit // 2 + 1, limit) == tc.TIGHT
 
 
 # ---------------------------------------------------------------- on card --

@@ -62,11 +62,24 @@ version, and drives every path of the port on the card:
    altered copies must be refused; a drift probe against the phase-9
    store and a tournament on the reference's frozen workloads are
    reported;
+12. the models path: gemma2-27b at full width and depth (46 layers) in
+   bfloat16 prefills an 8192-token prompt, then decodes 16 greedy tokens
+   from the prefill's caches; mamba2-2.7b (64 layers, float32) the same at
+   batch 2 and 4096 tokens; parameters random from a seeded card
+   generator, through the port's ``init_params``, ``prefill`` and
+   ``decode_step``.  Every attention layer's prompt runs through the
+   flash-attention kernel and every Mamba layer's through the SSD kernel;
+   each kernel's share of the prefill is read with CUDA events around its
+   calls, and one more prefill runs under ``torch.profiler`` for the
+   device's busy share.  The checks (12c) cut both to 2 periods: the
+   kernel route against the plain route on the same parameters and
+   prompt, and prefill logits against a 256-token decode replay in
+   float32;
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9, 10 and 11 and read just
-after (the paths 9 and 10 launch none of the three); the checks and
+just before each of the paths 3, 4, 7, 8, 9, 10, 11 and 12 and read
+just after (the paths 9 and 10 launch none of the three); the checks and
 timings of phases 2, 5 and 6, and those after each path, are not
 counted.
 
@@ -161,6 +174,27 @@ EXEC_UNDER_S = 1.0           # execute every candidate predicted below this
 EXEC_BUDGET_S = 35.0         # per case: executions beyond it are cut
 CONTRACTION_TOL = 2e-4       # normwise, the executed winner vs the einsum
 ENGINE_TOL = 1e-12           # relative, torch engine vs numpy engine
+#: phase 12's models at full width and depth, random parameters from a
+#: seeded card generator: (arch, dtype, batch, prompt tokens).  gemma2-27b
+#: (src/repro/configs/gemma2_27b.py) in bfloat16: at 8192 tokens the 4096
+#: window masks in every local layer; mamba2-2.7b
+#: (src/repro/configs/mamba2_2_7b.py) in float32, the SSD kernel's type, at
+#: its chunk 256
+MODEL_RUNS = (("gemma2-27b", "bfloat16", 1, 8192),
+              ("mamba2-2.7b", "float32", 2, 4096))
+DECODE_STEPS = 16            # greedy decode steps after each prefill
+CHECK_PERIODS = 2            # depth of phase 12c's checks, in periods
+REPLAY_LEN = 256             # prompt of the prefill-vs-replay check
+#: phase 12c's normwise bounds, kernel route vs plain route on the same
+#: parameters and prompt.  float32: the two sum the same products in other
+#: orders (1e-5 a call, phase 6), over a few layers.  bfloat16: both round
+#: p and every activation to bfloat16, and a float32 logit that differs in
+#: its last bits flips one of those roundings (2^-9 relative) here and
+#: there; four layers of residual stream carry them to the logits.
+ROUTE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: prefill vs decode replay, elementwise as the reference's test
+#: (tests/test_cache_and_moe.py): chunked scans vs one-step recurrences
+REPLAY_TOL = 2e-3
 
 
 _T0 = time.perf_counter()
@@ -752,6 +786,28 @@ def check_ssd(card) -> dict:
     if not err <= WIDE_TOL["float32"]:
         raise AssertionError(f"ssd disagrees with its plain version at "
                              f"mamba2-2.7b width: normwise {err:.3e}")
+    # the state in and out that the models use: h0 as the initial carry,
+    # h_final after the last chunk; without h0, y is the same bits
+    b, _, h, p, _, n = SSD_PROBLEM
+    h0 = torch.from_numpy((rng.standard_normal((b, h, p, n)) * 0.5).astype(
+        np.float32)).to("cuda")
+    y_s, h_fin = ssd(*ops, chunk=chunk, return_state=True)
+    y_h, h_fin_h = ssd(*ops, chunk=chunk, h0=h0, return_state=True)
+    torch.cuda.synchronize()
+    same_bits = bool(torch.equal(y_s, out))
+    _, ref_fin = ssd_plain(*ops, chunk=chunk, return_state=True)
+    ref_y_h, ref_fin_h = ssd_plain(*ops, chunk=chunk, h0=h0,
+                                   return_state=True)
+    state_errs = {"h_final": rel_err(h_fin, ref_fin),
+                  "y_from_h0": rel_err(y_h, ref_y_h),
+                  "h_final_from_h0": rel_err(h_fin_h, ref_fin_h)}
+    log(f"  mamba2-2.7b SSD state in and out vs plain, normwise: " +
+        ", ".join(f"{k} {v:.3e}" for k, v in state_errs.items()) +
+        f" (bound {WIDE_TOL['float32']:.0e}); y without h0 the same bits "
+        f"with return_state: {same_bits}")
+    if not same_bits or not max(state_errs.values()) <= WIDE_TOL["float32"]:
+        raise AssertionError(f"ssd's state arguments disagree: bit-equal "
+                             f"{same_bits}, {state_errs}")
     ms = event_ms(lambda: ssd(*ops, chunk=chunk), 3)
     plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), 3)
     flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
@@ -763,6 +819,7 @@ def check_ssd(card) -> dict:
         f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
         f"({bd['bound_by']}, {flops / 1e9:.1f} GFLOP)")
     return {"mamba2_2_7b": {"chunk": chunk, "normwise": err,
+                            "state_normwise": state_errs,
                             "max_abs_err": max_abs, "kernel_ms": ms,
                             "plain_ms": plain_ms, **bd}}
 
@@ -997,7 +1054,6 @@ def finish_ssd(tuned: dict, card) -> dict:
     return res
 
 
-# ---------------------------------------------------------------- main --
 # ------------------------------------------------------- phases 9, 10 --
 def rank_timings(rank) -> dict:
     """ms of the first and of a repeated ``rank(backend)`` on each
@@ -1622,6 +1678,282 @@ def store_path(dev, tile_session, contraction_session, paper_models,
             "tournament": tourney.to_payload()}
 
 
+# ----------------------------------------------------------- phase 12 --
+def model_inputs(cfg, batch: int, s: int, gen):
+    """A prompt of ``s`` tokens per row, drawn on the card from ``gen``."""
+    import torch
+    return torch.randint(0, cfg.vocab, (batch, s), generator=gen,
+                         device=gen.device)
+
+
+def kernel_class(name: str) -> str:
+    """The class of a device kernel by its name, for phase 12's breakdown."""
+    low = name.lower()
+    if "attn_kernel" in low:
+        return "flash_attention"
+    if "ssd_" in low:
+        return "ssd"
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                              "matmul")):
+        return "library matmul"
+    return "other"
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel
+    class and by name (the six longest), and the device's busy share of
+    the call's wall time (kernels on one stream do not overlap, so their
+    sum is the busy time).  Returns ``{"measured": False}`` when the trace
+    holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class, by_name, n = {}, {}, 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = (evt.time_range.end - evt.time_range.start) / 1e3
+        cls = kernel_class(evt.name)
+        by_class[cls] = by_class.get(cls, 0.0) + dur
+        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + dur
+        n += 1
+    busy = sum(by_class.values())
+    if not busy:
+        return {"measured": False, "wall_ms": wall_ms}
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    return {"measured": True, "wall_ms": wall_ms, "device_events": n,
+            "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "by_class_ms": by_class, "top_kernels_ms": top}
+
+
+def log_profile(what: str, prof: dict) -> None:
+    if not prof["measured"]:
+        log(f"  {what} under torch.profiler: the trace holds no device "
+            f"time; busy share and kernel time by name not measured")
+        return
+    log(f"  {what} under torch.profiler: wall {prof['wall_ms']:.1f} ms, "
+        f"device busy {prof['busy_ms']:.1f} ms ({prof['device_events']} "
+        f"device events), idle share {100 * prof['idle_share']:.1f} %; by "
+        f"kernel class: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in sorted(
+                prof["by_class_ms"].items(), key=lambda kv: -kv[1])))
+    log(f"    longest kernels: " + "; ".join(
+        f"{k} {v:.2f} ms" for k, v in prof["top_kernels_ms"].items()))
+
+
+def drive_model(dev, card, arch, dtype_name, batch, s, seed) -> dict:
+    """Phase 12a/b, one model: random parameters from a card generator at
+    full width and depth, a prompt of ``s`` tokens prefilled three times
+    (first, timed, profiled), then ``DECODE_STEPS`` greedy decode steps
+    from the timed prefill's caches and one more under the profiler.  The
+    kernel's time is its device time by name in the profiled prefill, its
+    share that over the timed prefill's wall time."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config(arch)
+    dtype = getattr(torch, dtype_name)
+    kernel = "flash_attention" if cfg.family != "ssm" else "ssd"
+    wrapper = getattr(kernels, kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dtype, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    toks = model_inputs(cfg, batch, s, gen)
+
+    def run():
+        return prefill(cfg, params, toks)
+
+    t0 = time.perf_counter()
+    logits, caches = run()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del logits, caches
+    calls = wrapper.launches
+    t0 = time.perf_counter()
+    logits, caches = run()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    calls = wrapper.launches - calls
+    if not torch.isfinite(logits.float()).all() or \
+            tuple(logits.shape) != (batch, 1, cfg.vocab):
+        raise AssertionError(f"{arch} prefill logits {tuple(logits.shape)} "
+                             f"are not finite (batch, 1, vocab)")
+    token = logits.argmax(-1)
+    step_ms = []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits_d, caches = decode_step(cfg, params, caches, token, s + i)
+        token = logits_d.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(logits_d.float()).all():
+        raise AssertionError(f"{arch} decode logits are not finite")
+    decode_prof = profile_call(lambda: decode_step(
+        cfg, params, caches, token, s + DECODE_STEPS))
+    del logits, caches, logits_d
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = profile_call(run)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_ms = sorted(step_ms)[len(step_ms) // 2]
+    kernel_ms = prof["by_class_ms"].get(kernel, 0.0) if prof["measured"] \
+        else None
+    share = None if kernel_ms is None else kernel_ms / prefill_ms
+    out = {"arch": arch, "dtype": dtype_name, "batch": batch, "prompt": s,
+           "layers": cfg.n_layers, "params": n_params,
+           "weight_bytes": weight_bytes, "init_s": init_s,
+           "prefill_first_ms": first_ms, "prefill_ms": prefill_ms,
+           "kernel": kernel, "kernel_calls": calls,
+           "kernel_ms": kernel_ms, "kernel_share": share,
+           "decode_steps_ms": step_ms, "decode_ms": decode_ms,
+           "decode_tokens_per_s": batch * 1e3 / decode_ms,
+           "decode_weight_bound_ms":
+               weight_bytes / card.hbm_bytes_per_s * 1e3,
+           "peak_bytes": peak, "profile": prof,
+           "decode_profile": decode_prof}
+    log(f"  {arch} {dtype_name}, {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.2f} B parameters ({weight_bytes / 1e9:.1f} GB, "
+        f"init {init_s:.1f} s), batch {batch} x {s} tokens: prefill "
+        f"{prefill_ms:.1f} ms (first call {first_ms:.1f}); {kernel} kernel "
+        f"in {calls} calls: " + (
+            "device time not measured (the trace holds none)"
+            if kernel_ms is None else
+            f"{kernel_ms:.1f} ms of device time in the profiled prefill = "
+            f"{100 * share:.1f} % of the timed one"))
+    log(f"  {arch} decode: {DECODE_STEPS} greedy steps from the prefill's "
+        f"caches, median {decode_ms:.2f} ms a step (min "
+        f"{min(step_ms):.2f}, first {step_ms[0]:.2f}), "
+        f"{batch * 1e3 / decode_ms:.1f} tokens/s; weights over HBM "
+        f"{out['decode_weight_bound_ms']:.2f} ms a step; peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    log_profile(f"{arch} prefill", prof)
+    log_profile(f"{arch} decode step {s + DECODE_STEPS}", decode_prof)
+    return out
+
+
+def models_path(dev, card) -> dict:
+    """Phase 12a/b: gemma2-27b and mamba2-2.7b through the port's entry
+    points (``init_params``, ``prefill``, ``decode_step``)."""
+    import torch
+    log(f"  memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    return {arch: drive_model(dev, card, arch, dtype, batch, s, seed)
+            for seed, (arch, dtype, batch, s) in enumerate(MODEL_RUNS)}
+
+
+def caches_err(got: list, want: list) -> float:
+    """The largest normwise error over the layers' prefill caches."""
+    return max(rel_err(a, b) for g, w in zip(got, want)
+               for a, b in (zip(g, w) if isinstance(g, tuple) else
+                            ((g, w),)))
+
+
+def check_models(dev) -> dict:
+    """Phase 12c, at full width cut to ``CHECK_PERIODS`` periods: the
+    kernel route against the plain route (``use_kernel=False``) on the
+    same parameters and prompt as 12a/b, and prefill logits against a
+    token-by-token decode replay of a ``REPLAY_LEN``-token prompt in
+    float32.  Any miss raises."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_decode_state,
+                                    init_params, prefill)
+    res = {}
+    for seed, (arch, dtype_name, batch, s) in enumerate(MODEL_RUNS):
+        base = get_config(arch)
+        cfg = dataclasses.replace(
+            base, n_layers=CHECK_PERIODS * len(base.block_pattern))
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(100 + seed)
+        params = init_params(cfg, gen, dtype, dev)
+        toks = model_inputs(cfg, batch, s, gen)
+        got, got_c = prefill(cfg, params, toks)
+        want, want_c = prefill(cfg, params, toks, use_kernel=False)
+        torch.cuda.synchronize()
+        # every layer's cache (an attention layer's (k, v), an SSM layer's
+        # state): past the first layer each depends on every query row of
+        # the attention before it, not only the last token's
+        errs = {"logits": rel_err(got, want),
+                "caches": caches_err(got_c, want_c)}
+        tol = ROUTE_TOL[dtype_name]
+        log(f"  {arch} {dtype_name} at {cfg.n_layers} layers, batch {batch} "
+            f"x {s}: kernel route vs plain route, normwise " +
+            ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
+            f" (bound {tol:.0e})")
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"{arch}: the kernel route disagrees with "
+                                 f"the plain route: {errs}")
+        witness = {}
+        if dtype != torch.float32:
+            # a float32 witness: the plain route in float32 on the same
+            # parameters; if rounding alone parts the two bfloat16 routes,
+            # each lies about as far from it as they lie from each other
+            ref, ref_c = prefill(cfg, params.float(), toks,
+                                 use_kernel=False)
+            witness = {route: {"logits": rel_err(lg, ref),
+                               "caches": caches_err(cs_, ref_c)}
+                       for route, lg, cs_ in (("kernel", got, got_c),
+                                              ("plain", want, want_c))}
+            log(f"  {arch} float32 witness (plain route in float32, same "
+                f"parameters and prompt), normwise: " + "; ".join(
+                    f"{dtype_name} {route} route logits {w['logits']:.3e}, "
+                    f"caches {w['caches']:.3e}"
+                    for route, w in witness.items()) + " (not gated)")
+            del ref, ref_c
+        del params, got, got_c, want, want_c
+        gc.collect()
+        torch.cuda.empty_cache()
+        # prefill against the token-by-token replay, in float32
+        gen = torch.Generator(device=dev).manual_seed(200 + seed)
+        params = init_params(cfg, gen, torch.float32, dev)
+        toks = model_inputs(cfg, 1, REPLAY_LEN, gen)
+        logits, _ = prefill(cfg, params, toks)
+        caches = init_decode_state(cfg, 1, REPLAY_LEN, torch.float32, dev)
+        for i in range(REPLAY_LEN):
+            last, caches = decode_step(cfg, params, caches,
+                                       toks[:, i:i + 1], i)
+        diff = (logits.float() - last.float()).abs()
+        ratio = float((diff / (REPLAY_TOL + REPLAY_TOL *
+                               last.float().abs())).max())
+        log(f"  {arch} float32 at {cfg.n_layers} layers: prefill of "
+            f"{REPLAY_LEN} tokens vs decode replay, max_abs_err "
+            f"{float(diff.max()):.3e}, max |diff| / ({REPLAY_TOL} + "
+            f"{REPLAY_TOL} |replay|) {ratio:.3f} (bound 1)")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{arch}: prefill disagrees with its decode "
+                                 f"replay ({ratio:.3f})")
+        res[arch] = {"layers": cfg.n_layers, "route_normwise": errs,
+                     "route_tol": tol, "float32_witness": witness,
+                     "replay_max_abs_err": float(diff.max()),
+                     "replay_ratio": ratio}
+        del params, caches, logits, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------- main --
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1756,6 +2088,14 @@ def main() -> int:
                     contraction_session, paper_models, in_memory,
                     phase_choices)
 
+    runs = ", ".join(f"{a} ({d}, {b} x {n} tokens)"
+                     for a, d, b, n in MODEL_RUNS)
+    log(f"[12] models path: {runs}, prefill and {DECODE_STEPS} greedy "
+        f"decode steps through the port's entry points, then the checks at "
+        f"{CHECK_PERIODS} periods")
+    model_runs = counted("models", "12", models_path, dev, the_card)
+    model_checks = phase("12 check", check_models, dev)
+
     regs = {}
     for name, keys in selected_ptxas_keys(
             (bm, bn, bk), attn["choice"], ssd_res["choice"]).items():
@@ -1774,7 +2114,8 @@ def main() -> int:
     log(f"  launches on the main path, per kernel and path: {launches}")
     for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
                        ("ssd", "ssd_chunks"), ("matmul", "store"),
-                       ("flash_attention", "store"), ("ssd", "store")):
+                       ("flash_attention", "store"), ("ssd", "store"),
+                       ("flash_attention", "models"), ("ssd", "models")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -1790,6 +2131,12 @@ def main() -> int:
                 "library_ms": res["library_ms"], **registers, **extra}
 
     csrc = "src/repro_torch/kernels/csrc"
+
+    def in_prefill(kernel):
+        run = next(r for r in model_runs.values() if r["kernel"] == kernel)
+        return {"models_prefill": {k: run[k] for k in (
+            "arch", "dtype", "batch", "prompt", "prefill_ms", "kernel_ms",
+            "kernel_calls", "kernel_share")}}
     kernels = {"kernels": [
         entry("matmul", f"{csrc}/matmul.cu",
               "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
@@ -1803,13 +2150,14 @@ def main() -> int:
               library="torch.nn.functional.scaled_dot_product_attention"
               " (is_causal=True, float32, TF32 off)",
               shape=list(ATTN_PROBLEM), dtype="float32",
-              config=list(attn["choice"])),
+              config=list(attn["choice"]), **in_prefill("flash_attention")),
         entry("ssd", f"{csrc}/ssd.cu",
               "src/repro/kernels/ssd.py:30 (_ssd_kernel)", ssd_res,
               regs["ssd"]["chunk_scan"], library="none",
               shape=list(SSD_PROBLEM), dtype="float32",
               config=list(ssd_res["choice"]),
-              passes_ms=ssd_res["passes_ms"], passes_registers=regs["ssd"]),
+              passes_ms=ssd_res["passes_ms"], passes_registers=regs["ssd"],
+              **in_prefill("ssd")),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):
@@ -1818,7 +2166,9 @@ def main() -> int:
         {"paper": paper, "tiles": tiles, "wide_checks": wide,
          "attn_tiles": {**attn_tuned, **attn}, "ssd_chunks":
          {**ssd_tuned, **ssd_res}, "contractions": contraction,
-         "torch_engine": engine, "store": store, "phase_s": phase_s,
+         "torch_engine": engine, "store": store,
+         "models": {"runs": model_runs, "checks": model_checks},
+         "phase_s": phase_s,
          **kernels},
         indent=1, default=str))
     log(f"  phase host times (s): "

@@ -1,6 +1,6 @@
 """Carry parameters across from the reference package.
 
-Here the parameters are fitted performance models.  ``repro`` and the port
+Most parameters here are fitted performance models.  ``repro`` and the port
 serialize a :class:`~repro_torch.core.model.ModelSet` in one dict form
 (``ModelSet.to_dict()``: a ``"models"`` list of ``PerformanceModel.
 to_dict()`` entries — kernel, setup, and per case its pieces' domains and
@@ -8,7 +8,11 @@ per-statistic polynomials).  Kernel models, device-suite model sets and
 transfer models all use it, so a JSON file written by either package
 loads in the other.
 
-Measurements carry across too: :func:`suite_from_reference` loads the
+Model weights carry across too: :func:`model_params_from_reference`
+builds the port's model (:mod:`repro_torch.models`) from the reference's
+``init_params`` tree, its periods unstacked into one module per layer.
+
+Measurements carry across as well: :func:`suite_from_reference` loads the
 reference suite's micro-benchmarks, given as plain records, into the
 port's :class:`~repro_torch.tc.suite.MicroBenchmarkSuite`, so both
 packages rank from the same measurements; :func:`store_from_reference`
@@ -22,7 +26,10 @@ import json
 from pathlib import Path
 from typing import Iterable, Mapping, Union
 
-from ._device import DeviceLike
+import numpy as np
+import torch
+
+from ._device import DeviceLike, resolve_device
 from .core.model import ModelSet
 from .core.sampler import Stats
 from .tc.suite import MicroBenchmark, MicroBenchmarkKey, MicroBenchmarkSuite
@@ -95,3 +102,57 @@ def store_from_reference(payload_or_path: Union[Mapping, str, Path], *,
     for name, ms in payload.get("model_sets", {}).items():
         store.add_model_set(name, model_set_from_reference(ms))
     return store
+
+
+#: the SSM fields the reference keeps in float32 whatever the model's dtype
+_FLOAT32_FIELDS = {"a_log", "d_skip", "dt_bias"}
+
+
+def model_params_from_reference(cfg, params: Mapping,
+                                device: DeviceLike = None, dtype=None):
+    """The port's :class:`~repro_torch.models.transformer.Model` holding
+    the reference's parameters.
+
+    ``params`` is the reference's ``init_params(cfg, ...)`` tree with numpy
+    leaves (``jax.tree_util.tree_map(np.asarray, params)``).  Each block
+    leaf's leading ``n_periods`` axis is unstacked: period ``per``'s
+    position ``pi`` becomes layer ``per * len(cfg.block_pattern) + pi``.
+    ``AttnParams``, ``MambaParams``, ``MoEParams`` and the ``mlp`` dict map
+    by field name; ``embed``, ``frontend_proj``, ``head`` and
+    ``final_norm`` as they are.  ``dtype`` (a torch dtype) casts every
+    leaf but the SSM's ``a_log``, ``d_skip`` and ``dt_bias``, which the
+    reference keeps in float32; None keeps each leaf's own type.  The
+    model lands on ``device``: the card unless the CPU is asked for.
+    """
+    from .models.attention import AttnParams
+    from .models.mamba import MambaParams
+    from .models.moe import MoEParams
+    from .models.transformer import Block, Mlp, Model, n_periods
+    device = resolve_device(device)
+
+    def tensor(a, name: str = "") -> torch.Tensor:
+        t = torch.from_numpy(np.array(a))                # a writable copy
+        keep = dtype is None or name in _FLOAT32_FIELDS
+        return t.to(device=device, dtype=None if keep else dtype)
+
+    classes = {"attn": AttnParams, "ssm": MambaParams, "moe": MoEParams,
+               "mlp": Mlp}
+    period = len(cfg.block_pattern)
+    blocks = [None] * cfg.n_layers
+    for pi, spec in enumerate(cfg.block_pattern):
+        tree = params["blocks"][f"p{pi}"]
+        for per in range(n_periods(cfg)):
+            kw = {}
+            for group, leaf in tree.items():
+                if group in classes:
+                    fields = leaf._asdict() if hasattr(leaf, "_asdict") \
+                        else leaf                      # the mlp dict
+                    kw[group] = classes[group](**{
+                        name: tensor(a[per], name)
+                        for name, a in fields.items()})
+                else:                                  # ln1, ln2
+                    kw[group] = tensor(leaf[per])
+            blocks[per * period + pi] = Block(spec, **kw)
+    top = {name: tensor(params[name])
+           for name in ("embed", "frontend_proj", "head") if name in params}
+    return Model(blocks, tensor(params["final_norm"]), **top)

@@ -38,9 +38,12 @@
 //     threads need three loads for 32.
 //  2. ssd_state_pass_kernel, one thread per four state elements of a
 //     (b, h): walks the chunks in order, writes h_in[c] = h over S_c in
-//     place and updates h = exp(s_Q of chunk c) h + S_c (h_in[0] = 0).
-//     Elementwise, 16-byte loads prefetched one chunk ahead: bound by
-//     bytes (it reads and writes the scratch once).
+//     place and updates h = exp(s_Q of chunk c) h + S_c.  h starts at the
+//     caller's h0 (B, H, P, N) where one is given, else at 0, and the h
+//     after the last chunk goes to h_final (B, H, P, N) where one is asked
+//     for: a model's prefill continues from the one and leaves the other
+//     as its decode state.  Elementwise, 16-byte loads prefetched one
+//     chunk ahead: bound by bytes (it reads and writes the scratch once).
 //  3. ssd_chunk_scan_kernel, one block per (b, h, chunk, R-row query
 //     tile), R = min(chunk, 64): y = sum over key slabs of (C B^T o decay
 //     o dt^T) X, plus exp(s) o (C h_in[c]^T).  Bound by operations.
@@ -336,7 +339,9 @@ ssd_chunk_state_kernel(const float* __restrict__ x,
 // ---------------------------------------------------------------- pass 2 --
 __global__ void __launch_bounds__(kPassThreads)
 ssd_state_pass_kernel(float* __restrict__ states,
-                      const float* __restrict__ s, int L, int H, int chunk,
+                      const float* __restrict__ s,
+                      const float* __restrict__ h0,
+                      float* __restrict__ h_final, int L, int H, int chunk,
                       int pn4) {
   const int e = blockIdx.x * kPassThreads + threadIdx.x;
   if (e >= pn4) return;
@@ -344,7 +349,8 @@ ssd_state_pass_kernel(float* __restrict__ states,
   const int nc = L / chunk;
   float4* st = reinterpret_cast<float4*>(states) + bh * nc * pn4 + e;
   const float* s_last = s + bh * L + chunk - 1;  // chunk c at + c chunk
-  float4 hv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 hv = h0 ? reinterpret_cast<const float4*>(h0)[bh * pn4 + e]
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 next = st[0];
   float s_next = s_last[0];
   for (int c = 0; c < nc; ++c) {
@@ -358,6 +364,7 @@ ssd_state_pass_kernel(float* __restrict__ states,
     hv = make_float4(fmaf(d, hv.x, cur.x), fmaf(d, hv.y, cur.y),
                      fmaf(d, hv.z, cur.z), fmaf(d, hv.w, cur.w));
   }
+  if (h_final) reinterpret_cast<float4*>(h_final)[bh * pn4 + e] = hv;
 }
 
 // ---------------------------------------------------------------- pass 3 --
@@ -658,9 +665,12 @@ int repro_ssd_chunk_state(const void* x, const void* dt, const void* a_log,
   });
 }
 
-// pass 2: states[c] = S_c becomes h_in[c], the state entering chunk c
-int repro_ssd_state_pass(void* states, const void* s, int B, int L, int H,
-                         int p, int n, int chunk, void* stream) {
+// pass 2: states[c] = S_c becomes h_in[c], the state entering chunk c.
+// h0 and h_final, (B, H, P, N) float32, 16-byte aligned, may each be null:
+// the carry then starts at 0, and the final state is not written.
+int repro_ssd_state_pass(void* states, const void* s, const void* h0,
+                         void* h_final, int B, int L, int H, int p, int n,
+                         int chunk, void* stream) {
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr,
                const_cast<float*>(static_cast<const float*>(s)),
                static_cast<float*>(states), nullptr, B, L, H, 1, p, n, chunk,
@@ -670,7 +680,8 @@ int repro_ssd_state_pass(void* states, const void* s, int B, int L, int H,
   const int pn4 = p * n / 4;
   const dim3 grid((pn4 + kPassThreads - 1) / kPassThreads, H, B);
   ssd_state_pass_kernel<<<grid, kPassThreads, 0, a.stream>>>(
-      a.states, a.s, L, H, chunk, pn4);
+      a.states, a.s, static_cast<const float*>(h0),
+      static_cast<float*>(h_final), L, H, chunk, pn4);
   return static_cast<int>(cudaGetLastError());
 }
 

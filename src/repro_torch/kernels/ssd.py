@@ -8,7 +8,9 @@ The counterpart of ``repro/kernels/ssd.py``.  The kernels are
    chunk's cumulative log-decay ``s`` and its own state contribution
    ``S_c = X^T (B * w)``, both written to scratch;
 2. ``ssd_state_pass_kernel``: the short scan over chunks, turning each
-   ``S_c`` in place into ``h_in[c]``, the state entering chunk ``c``;
+   ``S_c`` in place into ``h_in[c]``, the state entering chunk ``c``,
+   from an initial state ``h0`` (zero unless given), and writing the
+   state after the last chunk where it is asked for;
 3. ``ssd_chunk_scan_kernel``, one block per (batch, head, chunk, query
    tile): the outputs from the key slabs on and below the diagonal and
    from ``h_in[c]``.
@@ -27,7 +29,7 @@ three passes in plain PyTorch — the counterpart of Pallas
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -154,20 +156,22 @@ def _chunked(t: torch.Tensor, chunk: int, rep: int = 1) -> torch.Tensor:
     return t.repeat_interleave(rep, dim=1) if rep > 1 else t
 
 
-def _states(xc, dtc, bc, a_log) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Passes 1 and 2 on chunked operands: s (B, H, C, Q) and h_in
-    (B, H, C, P, N)."""
+def _states(xc, dtc, bc, a_log, h0: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Passes 1 and 2 on chunked operands: s (B, H, C, Q), h_in
+    (B, H, C, P, N) from the initial state ``h0`` (B, H, P, N; zero when
+    None), and the state after the last chunk (B, H, P, N)."""
     a = -torch.exp(a_log.float())                             # (H,)
     s = torch.cumsum(a[:, None, None] * dtc, dim=-1)
     w = dtc * torch.exp(s[..., -1:] - s)
     states = xc.transpose(-1, -2) @ (bc * w[..., None])       # (B,H,C,P,N)
     decay = torch.exp(s[..., -1])                             # (B,H,C)
     h_in = torch.empty_like(states)
-    carry = torch.zeros_like(states[:, :, 0])
+    carry = torch.zeros_like(states[:, :, 0]) if h0 is None else h0.float()
     for ci in range(states.shape[2]):
         h_in[:, :, ci] = carry
         carry = decay[:, :, ci, None, None] * carry + states[:, :, ci]
-    return s, h_in
+    return s, h_in, carry
 
 
 def ssd_chunk_states_plain(x: torch.Tensor, dt: torch.Tensor,
@@ -182,32 +186,36 @@ def ssd_chunk_states_plain(x: torch.Tensor, dt: torch.Tensor,
     scan over chunks, ``h_in[c] = h``, ``h = exp(s_Q) h + S_c``."""
     bsz, l, h, _ = x.shape
     dtc = _chunked(dt[..., None], chunk)[..., 0]
-    s, h_in = _states(_chunked(x, chunk), dtc,
-                      _chunked(b, chunk, h // b.shape[2]), a_log)
+    s, h_in, _ = _states(_chunked(x, chunk), dtc,
+                         _chunked(b, chunk, h // b.shape[2]), a_log)
     return s.reshape(bsz, h, l), h_in
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-              b: torch.Tensor, c: torch.Tensor, *,
-              chunk: int) -> torch.Tensor:
+              b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+              h0: Optional[torch.Tensor] = None, return_state: bool = False):
     """The kernels' three passes in plain PyTorch, vectorised over
-    batches, heads and chunks: :func:`ssd_chunk_states_plain`, then per
-    chunk ``G = (C B^T) * decay * dt`` with the decay exponentiated only on
-    and below the diagonal, ``y = G X + exp(s) C h_in^T``."""
+    batches, heads and chunks: :func:`ssd_chunk_states_plain` (its carry
+    starting at ``h0`` where one is given), then per chunk
+    ``G = (C B^T) * decay * dt`` with the decay exponentiated only on and
+    below the diagonal, ``y = G X + exp(s) C h_in^T``.  With
+    ``return_state`` it returns ``(y, h_final)``, the state after the last
+    chunk in float32."""
     bsz, l, h, p = x.shape
     rep = h // b.shape[2]
     xc = _chunked(x, chunk)                                   # (B,H,C,Q,P)
     dtc = _chunked(dt[..., None], chunk)[..., 0]              # (B,H,C,Q)
     bc = _chunked(b, chunk, rep)                              # (B,H,C,Q,N)
     cc = _chunked(c, chunk, rep)
-    s, h_in = _states(xc, dtc, bc, a_log)
+    s, h_in, h_final = _states(xc, dtc, bc, a_log, h0)
     lower = torch.ones((chunk, chunk), dtype=torch.bool,
                        device=x.device).tril()
     seg = s[..., :, None] - s[..., None, :]
     decay = torch.exp(torch.where(lower, seg, -torch.inf))
     gm = (cc @ bc.transpose(-1, -2)) * decay * dtc[..., None, :]
     y = gm @ xc + torch.exp(s)[..., None] * (cc @ h_in.transpose(-1, -2))
-    return y.movedim(1, 3).reshape(bsz, l, h, p).to(x.dtype)
+    y = y.movedim(1, 3).reshape(bsz, l, h, p).to(x.dtype)
+    return (y, h_final) if return_state else y
 
 
 # ------------------------------------------------------------ launchers --
@@ -226,9 +234,12 @@ def _fn(name: str, n_ptr: int, n_int: int):
 
 
 def _call(name: str, what: str, ptrs, ints, device) -> None:
+    """Launch ``name`` on ``device``'s current stream; a ``None`` among
+    ``ptrs`` passes a null pointer."""
     lib, fn = _fn(name, len(ptrs), len(ints))
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
+    err = fn(*(None if t is None else t.data_ptr() for t in ptrs), *ints,
+             stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"ssd {what} launch failed for {ints}: {msg} "
@@ -254,11 +265,13 @@ def _launch_chunk_state(x, dt, a_log, b, s, states, chunk: int) -> None:
           (bsz, l, h, b.shape[2], p, b.shape[3], chunk), x.device)
 
 
-def _launch_state_pass(s, states, chunk: int) -> None:
+def _launch_state_pass(s, states, chunk: int, h0=None,
+                       h_final=None) -> None:
     """Pass 2: ``states`` from each chunk's ``S_c`` to ``h_in``, in
-    place."""
+    place, the carry starting at ``h0`` (zero when None); the state after
+    the last chunk goes to ``h_final`` when one is given."""
     bsz, h, _, p, n = states.shape
-    _call("repro_ssd_state_pass", "state pass", (states, s),
+    _call("repro_ssd_state_pass", "state pass", (states, s, h0, h_final),
           (bsz, s.shape[2], h, p, n, chunk), s.device)
 
 
@@ -271,10 +284,14 @@ def _launch_chunk_scan(x, dt, b, c, s, states, y, chunk: int) -> None:
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-        b: torch.Tensor, c: torch.Tensor, *,
-        chunk: int = 128) -> torch.Tensor:
+        b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+        h0: Optional[torch.Tensor] = None, return_state: bool = False):
     """Chunked SSD scan.  x: (B, L, H, P); dt: (B, L, H); a_log: (H,);
-    b, c: (B, L, G, N) with H % G == 0.  Returns (B, L, H, P).
+    b, c: (B, L, G, N) with H % G == 0.  Returns y (B, L, H, P), or
+    ``(y, h_final)`` with ``return_state``: the (B, H, P, N) float32 state
+    after the last step, which a model's decode continues from.  ``h0``
+    (B, H, P, N) is the state before the first step (zero when None), as
+    ``h0`` of the reference model's ``_ssd_chunked``.
 
     The chunk is clamped to L and must divide it, as in the reference.
     CUDA tensors launch the three hand-written kernels on the current
@@ -288,16 +305,24 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     chunk = min(chunk, l)
     if l <= 0 or l % chunk:
         raise ValueError(f"chunk {chunk} must divide L = {l}")
+    state_shape = (x.shape[0], x.shape[2], p, n)
+    if h0 is not None and (tuple(h0.shape) != state_shape or
+                           h0.device != x.device):
+        raise ValueError(f"h0 must be {state_shape} on {x.device}, got "
+                         f"{tuple(h0.shape)} on {h0.device}")
     if x.device.type == "cpu":
-        return ssd_plain(x, dt, a_log, b, c, chunk=chunk)
+        return ssd_plain(x, dt, a_log, b, c, chunk=chunk, h0=h0,
+                         return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on CUDA or the CPU, not {x.device}")
-    ops = (x, dt, a_log, b, c)
+    ops = (x, dt, a_log, b, c) + (() if h0 is None else (h0,))
     if any(t.dtype != torch.float32 for t in ops):
         raise TypeError("the ssd kernel takes float32 operands, got "
                         f"{[str(t.dtype) for t in ops]}")
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("the ssd kernel takes contiguous operands")
+    if not all(t.is_contiguous() for t in ops) or \
+            (h0 is not None and h0.data_ptr() % 16):
+        raise ValueError("the ssd kernel takes contiguous operands and a "
+                         "16-byte aligned h0")
     limit = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
     if not ssd_tile_legal(l, chunk, p, n, limit):
@@ -308,11 +333,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             f"{ssd_smem_bytes(chunk, p, n)} B must fit {limit} B")
     s, states = ssd_scratch(x, b, chunk)
     y = torch.empty_like(x)
+    h_final = torch.empty(state_shape, dtype=torch.float32,
+                          device=x.device) if return_state else None
     _launch_chunk_state(x, dt, a_log, b, s, states, chunk)
-    _launch_state_pass(s, states, chunk)
+    _launch_state_pass(s, states, chunk, h0, h_final)
     _launch_chunk_scan(x, dt, b, c, s, states, y, chunk)
     ssd.launches += 1
-    return y
+    return (y, h_final) if return_state else y
 
 
 ssd.launches = 0

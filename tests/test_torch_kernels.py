@@ -162,6 +162,10 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "walked = {m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')}\n"
+        "assert {'repro_torch.configs', 'repro_torch.models', "
+        "'repro_torch.models.transformer'} <= walked, walked\n"
         "print(len(list(pkgutil.walk_packages(repro_torch.__path__))))\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

@@ -111,6 +111,50 @@ def test_long_chunks_stay_finite():
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("l,h,p,g,n,chunk", CASES)
+def test_state_in_and_out_match_the_models_chunked_scan(l, h, p, g, n,
+                                                        chunk):
+    """``h0`` and ``return_state`` against the reference model's
+    ``_ssd_chunked`` (``repro/models/mamba.py``), which takes ``h0`` and
+    returns the final state: y and h_final from a nonzero h0, and h_final
+    from zero, at the file's tolerance."""
+    from repro.models.mamba import _ssd_chunked
+    arrays = _inputs(l, h, p, g, n, seed=11)
+    x, dt, a_log, bb, cc = arrays
+    h0 = np.random.default_rng(12).standard_normal(
+        (2, h, p, n)).astype(np.float32)
+    a = -jnp.exp(jnp.asarray(a_log))
+    ops_ = [torch.from_numpy(t) for t in arrays]
+    for start in (None, h0):
+        jy, jh = _ssd_chunked(jnp.asarray(x), jnp.asarray(dt), a,
+                              jnp.asarray(bb), jnp.asarray(cc), chunk,
+                              h0=None if start is None else jnp.asarray(start))
+        y, hT = ssd(*ops_, chunk=chunk, return_state=True,
+                    h0=None if start is None else torch.from_numpy(start))
+        assert hT.shape == (2, h, p, n) and hT.dtype == torch.float32
+        np.testing.assert_allclose(hT.numpy(), np.asarray(jh),
+                                   rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy),
+                                   rtol=TOL, atol=TOL)
+    with pytest.raises(ValueError, match="h0 must be"):
+        ssd(*ops_, chunk=chunk, h0=torch.from_numpy(h0[:1]))
+
+
+@pytest.mark.parametrize("l,h,p,g,n,chunk", CASES)
+def test_state_arguments_leave_the_output_bit_for_bit(l, h, p, g, n, chunk):
+    """Without ``h0`` the output is the scan from zero whatever
+    ``return_state`` says, bit for bit, through ``ssd``, ``ssd_plain`` and
+    ``ops.ssd``, and equal to the scan from an explicit zero state."""
+    ops_ = [torch.from_numpy(a) for a in _inputs(l, h, p, g, n, seed=13)]
+    y = ssd(*ops_, chunk=chunk)
+    zero = torch.zeros((2, h, p, n))
+    for other in (ssd(*ops_, chunk=chunk, return_state=True)[0],
+                  ssd(*ops_, chunk=chunk, h0=zero),
+                  ssd_plain(*ops_, chunk=chunk),
+                  ops.ssd(*ops_, chunk=chunk)):
+        np.testing.assert_array_equal(other.numpy(), y.numpy())
+
+
 def _recurrence_states(x, dt, a_log, bb, chunk):
     """The state entering each chunk by the recurrence h_t = h_{t-1}
     exp(a dt_t) + dt_t x_t (x) b_t, one step at a time (float64)."""
@@ -330,6 +374,22 @@ def card():
         pytest.skip("needs a CUDA card: the hand-written kernel runs only "
                     "there (chip_smoke.py checks it on the H100)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,h,p,g,n,chunk,b", CARD_CASES)
+def test_kernel_state_in_and_out_match_plain_on_the_card(card, l, h, p, g, n,
+                                                         chunk, b):
+    ops_ = [torch.from_numpy(a).to(card)
+            for a in _inputs(l, h, p, g, n, b=b)]
+    h0 = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (b, h, p, n)).astype(np.float32)).to(card)
+    y, hT = ssd(*ops_, chunk=chunk, h0=h0, return_state=True)
+    torch.cuda.synchronize()
+    want_y, want_h = ssd_plain(*ops_, chunk=chunk, h0=h0, return_state=True)
+    for got, want in ((y, want_y), (hT, want_h)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=TOL, atol=TOL)
 
 
 @pytest.mark.cuda

@@ -75,10 +75,28 @@ version, and drives every path of the port on the card:
    kernel route against the plain route on the same parameters and
    prompt, and prefill logits against a 256-token decode replay in
    float32;
+13. the serve path: gemma2-27b (bfloat16) and mamba2-2.7b (float32) at
+   full width and depth served through the port's ``ServeEngine`` (4
+   slots, 4096-token context) under FIFO over an open-loop smoke trace of
+   101 requests (prompts of 16-256 tokens, 4 new tokens each, Poisson
+   arrivals 0.25 s apart on average).  Each blocking admission runs its
+   prompt's longest kernel-legal head in batched passes over every slot
+   (the attention or SSD kernel in every layer) and replays the tail
+   through ``decode_step``; every admission and decode tick is timed.
+   Three prompts of 300-2000 tokens are then admitted one at a time, and
+   the head of the longest runs under ``torch.profiler`` for the
+   kernel's share.  13c builds gemma2-27b's step-cost model through a
+   session measuring on the card and sets its predicted tick beside the
+   measured one; 13d runs FIFO and the model-guided scheduler over one
+   short trace (8 requests, prompts of 16-64 tokens, 16 new, gaps of 0.2
+   s).  The checks at 2 periods, on 256-slot rings and at the timed
+   path's shape: two admissions' caches against a hand-driven decode
+   replay (float32), the kernel route against the plain route, and the
+   same tokens from both routes on a FIFO trace;
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9, 10, 11 and 12 and read
+just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12 and 13 and read
 just after (the paths 9 and 10 launch none of the three); the checks and
 timings of phases 2, 5 and 6, and those after each path, are not
 counted.
@@ -87,8 +105,9 @@ The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits nonzero and prints no result.  Long outputs (the compilers'
 reports, the fitted models, per-config times) go to
-``chiprun_out/chip_smoke/`` (phases 9, 10 and 11 under ``contractions``,
-``torch_engine`` and ``store`` in ``result.json``; the stores as
+``chiprun_out/chip_smoke/`` (phases 9, 10, 11, 12 and 13 under
+``contractions``, ``torch_engine``, ``store``, ``models`` and ``serve`` in
+``result.json``; the stores as
 ``store_*.json``, the scoreboard as ``TOURNAMENT.json``).
 """
 
@@ -195,6 +214,35 @@ ROUTE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: prefill vs decode replay, elementwise as the reference's test
 #: (tests/test_cache_and_moe.py): chunked scans vs one-step recurrences
 REPLAY_TOL = 2e-3
+#: phase 13's served models at full width and depth, random parameters
+#: from a seeded card generator: (arch, dtype), the same two as phase 12.
+#: 4 slots at a 4096-token context, gemma2-27b's local window, so its
+#: local and global rings are both 4096 long
+SERVE_RUNS = (("gemma2-27b", "bfloat16"), ("mamba2-2.7b", "float32"))
+SERVE_SLOTS, SERVE_CTX = 4, 4096
+#: 13a/b's served trace, (requests, shortest and longest prompt, new
+#: tokens, mean Poisson gap in s).  A smoke mix: the repo holds no
+#: published serving workload, and nothing is concluded from its mix.  101
+#: requests, so that p99 (numpy's linear percentile) is the second slowest
+#: request and not the slowest; prompts drawn uniformly and not rounded, so
+#: most admissions have a tail; arrivals faster than either model serves,
+#: so the run measures capacity and its latencies include the backlog.
+#: 13d's trace is short, one trace for both policies
+SERVE_TRACE = (101, 16, 256, 4, 0.25)
+GUIDED_TRACE = (8, 16, 64, 16, 0.2)
+#: 13a/b's admission sample: (prompts, shortest, longest), admitted one at
+#: a time after the trace, each timed by head passes and tail; the head of
+#: the longest is admitted once more and profiled
+ADMIT_SAMPLE = (3, 300, 2000)
+#: 13 check, at CHECK_PERIODS periods: an admission of a second prompt
+#: while the first is live, twice: on rings of SERVE_CHECK_CTX (shorter
+#: than the second prompt, so its head's write rolls; a head of 304, so
+#: attention at (16, 16) blocks and a second SSD pass at chunk 16), and at
+#: the timed path's shape (SERVE_CTX, the admission sample's longest
+#: prompt); and a FIFO trace on both routes in float32
+SERVE_CHECK_PROMPTS = (100, 304)
+SERVE_CHECK_CTX = 256
+SERVE_CHECK_TRACE = (4, 100, 300, 8, 0.0)
 
 
 _T0 = time.perf_counter()
@@ -1951,6 +1999,423 @@ def check_models(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 13 --
+def serve_trace(cfg, seed: int, n: int, lo: int, hi: int, new: int,
+                gap_s: float) -> list:
+    """An open-loop trace from ``seed``: ``n`` prompts of ``lo``..``hi``
+    tokens (uniform), ``new`` tokens each, Poisson arrivals ``gap_s``
+    apart on average, the first at 0 (as ``benchmarks/bench_serving.py``
+    makes its trace)."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    gaps = rng.exponential(gap_s, n) if gap_s else np.zeros(n)
+    arrivals = np.concatenate([[0.0], np.cumsum(gaps[:-1])])
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(lens[i])
+                                               ).astype(np.int32),
+                    max_new_tokens=new, arrival_s=float(arrivals[i]))
+            for i in range(n)]
+
+
+def instrument(engine) -> dict:
+    """Record each blocking admission (its ms as ``stats.prefill_s`` bills
+    it, its head H and tail, its head passes' own ms between two syncs)
+    and each decode tick's ms, by wrapping the engine's hooks."""
+    import torch
+    rec = {"admissions": [], "ticks_ms": []}
+    add, one_pass, advance = (engine.add_request, engine._admission_pass,
+                              engine.advance)
+    stats = engine.stats
+
+    def pass_timed(tokens, slot, chunk):
+        torch.cuda.synchronize(engine.device)
+        t0 = time.perf_counter()
+        one_pass(tokens, slot, chunk)
+        torch.cuda.synchronize(engine.device)
+        row = rec["admissions"][-1]
+        row["head_ms"] += (time.perf_counter() - t0) * 1e3
+        row["passes"].append([len(tokens), chunk])
+
+    def add_timed(req):
+        before = (stats.prefill_s, stats.tail_tokens)
+        rec["admissions"].append({"uid": req.uid, "prompt": len(req.prompt),
+                                  "head_ms": 0.0, "passes": []})
+        if not add(req):
+            rec["admissions"].pop()
+            return False
+        row = rec["admissions"][-1]
+        row["tail"] = stats.tail_tokens - before[1]
+        row["head"] = row["prompt"] - row["tail"]
+        row["ms"] = (stats.prefill_s - before[0]) * 1e3
+        return True
+
+    def advance_timed():
+        before = (stats.decode_steps, stats.decode_s)
+        out = advance()
+        if stats.decode_steps > before[0]:
+            rec["ticks_ms"].append((stats.decode_s - before[1]) * 1e3)
+        return out
+
+    engine._admission_pass = pass_timed
+    engine.add_request = add_timed
+    engine.advance = advance_timed
+    return rec
+
+
+def serve_summary(stats, reqs, wall_s: float) -> dict:
+    """A run's end-to-end figures from its stats."""
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    return {"requests": len(reqs), "wall_s": wall_s, "tokens_out": tokens,
+            "goodput_tok_s": tokens / wall_s,
+            "decode_tokens_per_s": stats.tokens_per_s,
+            "p50_ms": stats.latency_ms(50), "p99_ms": stats.latency_ms(99),
+            "max_ms": 1e3 * max(stats.latencies_s),
+            "ticks": stats.ticks, "decode_steps": stats.decode_steps,
+            "tick_overhead_ms": stats.tick_overhead_ms,
+            "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+            "kernel_admissions": stats.kernel_admissions,
+            "tail_tokens": stats.tail_tokens}
+
+
+def check_served(cfg, engine, reqs) -> None:
+    """What a serving run gives out: every request done with its tokens,
+    each a vocabulary index, and every cache finite."""
+    import torch
+    for r in reqs:
+        if not (r.done and len(r.out_tokens) == r.max_new_tokens and
+                all(0 <= t < cfg.vocab for t in r.out_tokens)):
+            raise AssertionError(f"{cfg.name}: request {r.uid} came out "
+                                 f"wrong: {r.out_tokens}")
+    for c in engine.caches:
+        for t in (c if isinstance(c, tuple) else (c,)):
+            if not torch.isfinite(t.float()).all():
+                raise AssertionError(f"{cfg.name}: a cache is not finite")
+
+
+def admission_lengths(seed: int) -> list:
+    """The admission sample's prompt lengths for ``seed``."""
+    import numpy as np
+    n, lo, hi = ADMIT_SAMPLE
+    return [int(x) for x in np.random.default_rng(900 + seed).integers(
+        lo, hi + 1, n)]
+
+
+def log_admission(arch: str, row: dict) -> None:
+    log(f"  {arch} admission of {row['prompt']} tokens = head "
+        f"{row['head']} (passes {row['passes']}) + tail {row['tail']}: "
+        f"{row['ms']:.1f} ms (head passes {row['head_ms']:.1f} ms)")
+
+
+def serve_model(dev, arch, dtype_name, seed, keep=False) -> tuple:
+    """Phase 13a/b, one model: ``SERVE_TRACE`` under FIFO through the
+    port's ``ServeEngine``, every admission and decode tick timed; then
+    the prompts of ``ADMIT_SAMPLE`` admitted one at a time, timed, and the
+    head of the longest once more timed and once under ``torch.profiler``
+    for the kernel's device time and share.  Returns (figures, the
+    parameters when ``keep``)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import FifoScheduler, Request, ServeEngine
+    from repro_torch.serve.engine import admission_head
+    cfg = get_config(arch)
+    dtype = getattr(torch, dtype_name)
+    kernel = "flash_attention" if cfg.family != "ssm" else "ssd"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(400 + seed)
+    params = init_params(cfg, gen, dtype, dev)
+    engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                         ctx_len=SERVE_CTX, dtype=dtype, device=dev)
+    rec = instrument(engine)
+    reqs = serve_trace(cfg, 500 + seed, *SERVE_TRACE)
+    t0 = time.perf_counter()
+    stats = engine.run(reqs, scheduler=FifoScheduler())
+    wall = time.perf_counter() - t0
+    check_served(cfg, engine, reqs)
+    out = {"arch": arch, "dtype": dtype_name, "layers": cfg.n_layers,
+           "slots": SERVE_SLOTS, "ctx": SERVE_CTX,
+           "trace": dict(zip(("requests", "prompt_lo", "prompt_hi", "new",
+                              "gap_s"), SERVE_TRACE)),
+           **serve_summary(stats, reqs, wall)}
+    ticks = sorted(rec["ticks_ms"])
+    out["tick_ms_median"] = ticks[len(ticks) // 2]
+    out["tick_ms_min"] = ticks[0]
+    adm = out["admissions"] = list(rec["admissions"])
+    ms = sorted(r["ms"] for r in adm)
+    head_ms = sum(r["head_ms"] for r in adm)
+    out["admission_ms_median"] = ms[len(ms) // 2]
+    out["head_passes_ms"] = head_ms
+    out["tail_ms"] = 1e3 * stats.prefill_s - head_ms
+    log(f"  {arch} {dtype_name}, {cfg.n_layers} layers, {SERVE_SLOTS} "
+        f"slots x {SERVE_CTX}: {len(reqs)} requests served in "
+        f"{wall:.2f} s; {len(adm)} admissions ({out['kernel_admissions']} "
+        f"through the kernels) took {stats.prefill_s:.2f} s, median "
+        f"{out['admission_ms_median']:.1f} ms: head passes "
+        f"{head_ms / 1e3:.2f} s, {out['tail_tokens']} tail tokens replayed "
+        f"{out['tail_ms'] / 1e3:.2f} s; decode {stats.decode_s:.2f} s over "
+        f"{stats.decode_steps} ticks, median {out['tick_ms_median']:.2f} ms "
+        f"(min {ticks[0]:.2f}), {stats.tokens_per_s:.1f} tokens/s over "
+        f"decode, goodput {out['goodput_tok_s']:.1f} tokens/s; latency "
+        f"p50 {out['p50_ms']:.0f} ms, p99 {out['p99_ms']:.0f} ms (slowest "
+        f"{out['max_ms']:.0f})")
+    # the admission sample: long prompts, one at a time
+    lens = admission_lengths(seed)
+    rng = np.random.default_rng(910 + seed)
+    sample = [Request(uid=-1 - i, prompt=rng.integers(0, cfg.vocab, n
+                                                      ).astype(np.int32),
+                      max_new_tokens=1) for i, n in enumerate(lens)]
+    n_before = len(rec["admissions"])
+    for req in sample:
+        engine.add_request(req)
+        engine.active.clear()
+    out["admission_sample"] = rec["admissions"][n_before:]
+    for row in out["admission_sample"]:
+        log_admission(arch, row)
+    # the longest prompt's head once more (no tail, so the trace holds
+    # batched passes and no replay ticks): timed, then profiled
+    longest = max(sample, key=lambda r: len(r.prompt))
+    head = admission_head(cfg, len(longest.prompt))
+    again = Request(uid=-9, prompt=longest.prompt[:head], max_new_tokens=1)
+    n_before = len(rec["admissions"])
+    engine.add_request(again)
+    engine.active.clear()
+    timed = rec["admissions"][n_before]
+    prof = profile_call(lambda: engine.add_request(again))
+    engine.active.clear()
+    kernel_ms = prof["by_class_ms"].get(kernel, 0.0) \
+        if prof["measured"] else None
+    out["profiled_admission"] = {
+        **timed, "kernel": kernel, "kernel_ms": kernel_ms,
+        "kernel_share": None if kernel_ms is None else
+        kernel_ms / timed["ms"], "profile": prof}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"  {arch} peak memory {out['peak_bytes'] / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    log(f"  {arch} head of {timed['prompt']} tokens (passes "
+        f"{timed['passes']}, tail {timed['tail']}): {timed['ms']:.1f} ms, "
+        f"head passes {timed['head_ms']:.1f} ms; {kernel}: " + (
+            "device time not measured (the trace holds none)"
+            if kernel_ms is None else
+            f"{kernel_ms:.1f} ms of device time in the profiled admission "
+            f"= {100 * kernel_ms / timed['ms']:.1f} % of the timed one, "
+            f"{100 * kernel_ms / timed['head_ms']:.1f} % of its head passes"))
+    log_profile(f"{arch} admission", prof)
+    del engine
+    if not keep:
+        del params
+        params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def step_cost(dev, cfg, measured_tick_ms: float) -> tuple:
+    """Phase 13c: the step-cost model of ``cfg`` at ``SERVE_SLOTS`` slots,
+    built through a session measuring on the card, beside the measured
+    median decode tick."""
+    from repro_torch.tc import PredictorSession
+    from repro_torch.tc.suite import COLD, WARM
+    session = PredictorSession(device=dev)
+    model = session.step_cost_model(cfg, slots=SERVE_SLOTS)
+    warm = model.tick_cost(SERVE_SLOTS, WARM) * 1e3
+    cold = model.tick_cost(SERVE_SLOTS, COLD) * 1e3
+    out = {"build_s": model.build_seconds, "n_benchmarks": model.n_benchmarks,
+           "predicted_tick_ms": warm, "predicted_cold_tick_ms": cold,
+           "measured_tick_ms": measured_tick_ms,
+           "measured_over_predicted": measured_tick_ms / warm}
+    log(f"  step-cost model of {cfg.name} at {SERVE_SLOTS} slots: built in "
+        f"{model.build_seconds:.2f} s from {model.n_benchmarks} "
+        f"micro-benchmarks; predicted tick {warm:.2f} ms (cold "
+        f"{cold:.2f}) against the measured median {measured_tick_ms:.2f} "
+        f"ms: measured / predicted {out['measured_over_predicted']:.2f}")
+    return out, model
+
+
+def fifo_vs_guided(dev, cfg, params, model, seed) -> dict:
+    """Phase 13d: one identical ``GUIDED_TRACE`` under FIFO and under the
+    model-guided scheduler on 13c's model, each on a fresh engine."""
+    import gc
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.serve import (FifoScheduler, ModelGuidedScheduler,
+                                   ServeEngine)
+    out = {"trace": dict(zip(("requests", "prompt_lo", "prompt_hi", "new",
+                              "gap_s"), GUIDED_TRACE))}
+    for name, sched in (("fifo", FifoScheduler()),
+                        ("guided", ModelGuidedScheduler(model))):
+        engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                             ctx_len=SERVE_CTX, dtype=params.embed.dtype,
+                             device=dev)
+        reqs = serve_trace(cfg, 600 + seed, *GUIDED_TRACE)
+        before = flash_attention.launches + ssd.launches
+        t0 = time.perf_counter()
+        stats = engine.run(reqs, scheduler=sched)
+        wall = time.perf_counter() - t0
+        check_served(cfg, engine, reqs)
+        res = out[name] = {**serve_summary(stats, reqs, wall),
+                           "kernel_launches":
+                           flash_attention.launches + ssd.launches - before}
+        log(f"  {cfg.name} {name}: {len(reqs)} requests in {wall:.2f} s, "
+            f"p50 {res['p50_ms']:.0f} ms, p99 {res['p99_ms']:.0f} ms, "
+            f"goodput {res['goodput_tok_s']:.1f} tokens/s, "
+            f"{res['ticks']} ticks, tick_overhead_ms "
+            f"{res['tick_overhead_ms']:.3f}, {res['kernel_admissions']} "
+            f"kernel admissions, {res['kernel_launches']} kernel launches")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["guided"]["kernel_launches"]:
+        raise AssertionError("the guided scheduler admits interleaved lanes "
+                             "only, yet its run launched a kernel")
+    return out
+
+
+def serve_path(dev) -> dict:
+    """Phase 13a-d: gemma2-27b and mamba2-2.7b served through the port's
+    ``ServeEngine``; gemma2's step-cost model and the two policies."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    log(f"  memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    res = {}
+    (arch, dtype), other = SERVE_RUNS[0], SERVE_RUNS[1:]
+    log(f"[13a] {arch} served")
+    res[arch], params = serve_model(dev, arch, dtype, 0, keep=True)
+    cfg = get_config(arch)
+    log(f"[13c] step-cost model of {arch}")
+    res["step_cost"], model = step_cost(dev, cfg,
+                                        res[arch]["tick_ms_median"])
+    log(f"[13d] {arch}: FIFO against guided")
+    res["fifo_vs_guided"] = fifo_vs_guided(dev, cfg, params, model, 0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for seed, (arch, dtype) in enumerate(other, 1):
+        log(f"[13b] {arch} served")
+        res[arch], _ = serve_model(dev, arch, dtype, seed)
+    return res
+
+
+def check_serve(dev) -> dict:
+    """Phase 13 check, at full width cut to ``CHECK_PERIODS`` periods, in
+    two cases: rings of ``SERVE_CHECK_CTX`` with ``SERVE_CHECK_PROMPTS``
+    (the head's write rolls), and the timed path's shape (``SERVE_CTX``,
+    a first prompt then the admission sample's longest).  In each, the
+    second admission's caches against a replay through ``decode_step``
+    driven by hand, as the reference's ``add_request`` loops (float32,
+    normwise ``REPLAY_TOL``), and the kernel route against
+    ``use_kernel=False`` on the same admissions in the model's dtype
+    (``ROUTE_TOL``).  Then the same tokens from both routes on a FIFO trace
+    in float32.  Any miss raises."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.serve import FifoScheduler, Request, ServeEngine
+    res = {}
+
+    def admit_two(cfg, params, dtype, use_kernel, ctx, prompts):
+        engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                             ctx_len=ctx, dtype=dtype,
+                             use_kernel=use_kernel, device=dev)
+        engine.add_request(Request(uid=0, prompt=prompts[0]))
+        live = [tuple(t.clone() for t in c) if isinstance(c, tuple)
+                else c.clone() for c in engine.caches]
+        engine.add_request(Request(uid=1, prompt=prompts[1]))
+        return engine, live
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for seed, (arch, dtype_name) in enumerate(SERVE_RUNS):
+        base = get_config(arch)
+        cfg = dataclasses.replace(
+            base, n_layers=CHECK_PERIODS * len(base.block_pattern))
+        dtype, tol = getattr(torch, dtype_name), ROUTE_TOL[dtype_name]
+        gen = torch.Generator(device=dev).manual_seed(700 + seed)
+        cases = {"ring": (SERVE_CHECK_CTX, SERVE_CHECK_PROMPTS),
+                 "timed": (SERVE_CTX, (SERVE_CHECK_PROMPTS[0],
+                                       max(admission_lengths(seed))))}
+        prompts = {case: [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                                        device=dev).cpu().numpy()
+                          for n in lens]
+                   for case, (_, lens) in cases.items()}
+        res[arch] = {"layers": cfg.n_layers, "replay_tol": REPLAY_TOL,
+                     "route_tol": tol}
+        # each admission against the reference's replay, in float32
+        params = init_params(cfg, gen, torch.float32, dev)
+        for case, (ctx, lens) in cases.items():
+            engine, caches = admit_two(cfg, params, torch.float32, True, ctx,
+                                       prompts[case])
+            heads = engine.stats.kernel_admissions
+            token = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64,
+                                device=dev)
+            for i, tok in enumerate(prompts[case][1]):
+                token[1, 0] = int(tok)
+                _, caches = decode_step(cfg, params, caches, token, i)
+            res[arch][case] = {
+                "ctx": ctx, "prompts": list(lens), "kernel_admissions": heads,
+                "tail_tokens": engine.stats.tail_tokens,
+                "replay_normwise": caches_err(engine.caches, caches)}
+            del engine, caches
+            free()
+        # the same tokens from both routes on a FIFO trace
+        tokens = {}
+        for use_kernel in (True, False):
+            engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                                 ctx_len=SERVE_CHECK_CTX,
+                                 dtype=torch.float32, use_kernel=use_kernel,
+                                 device=dev)
+            reqs = serve_trace(cfg, 800 + seed, *SERVE_CHECK_TRACE)
+            engine.run(reqs, scheduler=FifoScheduler())
+            tokens[use_kernel] = [r.out_tokens for r in reqs]
+            del engine
+        res[arch]["trace_tokens"] = tokens[True]
+        del params
+        free()
+        # the kernel route against the plain route, in the model's dtype
+        params = init_params(cfg, gen, dtype, dev)
+        for case, (ctx, _) in cases.items():
+            got, _ = admit_two(cfg, params, dtype, True, ctx, prompts[case])
+            want, _ = admit_two(cfg, params, dtype, False, ctx,
+                                prompts[case])
+            res[arch][case]["route_normwise"] = caches_err(got.caches,
+                                                           want.caches)
+            del got, want
+            free()
+        del params
+        free()
+        for case, r in ((c, res[arch][c]) for c in cases):
+            log(f"  {arch} at {cfg.n_layers} layers, {case}: rings of "
+                f"{r['ctx']}, admissions of {r['prompts'][0]} then "
+                f"{r['prompts'][1]} tokens ({r['kernel_admissions']} through "
+                f"the kernels, {r['tail_tokens']} tail tokens): caches vs a "
+                f"hand-driven decode replay (float32) normwise "
+                f"{r['replay_normwise']:.3e} (bound {REPLAY_TOL}); kernel "
+                f"route vs plain route ({dtype_name}) "
+                f"{r['route_normwise']:.3e} (bound {tol:.0e})")
+        log(f"  {arch}: FIFO trace of {SERVE_CHECK_TRACE[0]} requests "
+            f"(float32): tokens of both routes "
+            f"{'equal' if tokens[True] == tokens[False] else 'DIFFER'}")
+        bad = [c for c in cases if res[arch][c]["kernel_admissions"] != 2 or
+               not res[arch][c]["replay_normwise"] <= REPLAY_TOL or
+               not res[arch][c]["route_normwise"] <= tol]
+        if bad or tokens[True] != tokens[False]:
+            raise AssertionError(f"{arch}: the serve check failed in "
+                                 f"{bad or 'the trace'}: {res[arch]}, "
+                                 f"tokens {tokens}")
+    return res
+
+
 # ---------------------------------------------------------------- main --
 
 
@@ -2096,6 +2561,13 @@ def main() -> int:
     model_runs = counted("models", "12", models_path, dev, the_card)
     model_checks = phase("12 check", check_models, dev)
 
+    log(f"[13] serve path: {', '.join(a for a, _ in SERVE_RUNS)} served "
+        f"through the port's ServeEngine ({SERVE_SLOTS} slots x "
+        f"{SERVE_CTX}), the step-cost model, FIFO against guided, then the "
+        f"checks at {CHECK_PERIODS} periods")
+    serving = counted("serve", "13", serve_path, dev)
+    serve_checks = phase("13 check", check_serve, dev)
+
     regs = {}
     for name, keys in selected_ptxas_keys(
             (bm, bn, bk), attn["choice"], ssd_res["choice"]).items():
@@ -2115,7 +2587,8 @@ def main() -> int:
     for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
                        ("ssd", "ssd_chunks"), ("matmul", "store"),
                        ("flash_attention", "store"), ("ssd", "store"),
-                       ("flash_attention", "models"), ("ssd", "models")):
+                       ("flash_attention", "models"), ("ssd", "models"),
+                       ("flash_attention", "serve"), ("ssd", "serve")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -2137,6 +2610,16 @@ def main() -> int:
         return {"models_prefill": {k: run[k] for k in (
             "arch", "dtype", "batch", "prompt", "prefill_ms", "kernel_ms",
             "kernel_calls", "kernel_share")}}
+    def in_admission(kernel):
+        run = next(r for r in serving.values()
+                   if r.get("profiled_admission", {}).get("kernel") == kernel)
+        adm = run["profiled_admission"]
+        return {"serve_admission": {
+            "arch": run["arch"], "dtype": run["dtype"],
+            "slots": run["slots"], "prompt": adm["prompt"],
+            "head": adm["head"], "admission_ms": adm["ms"],
+            "head_ms": adm["head_ms"], "kernel_ms": adm["kernel_ms"],
+            "kernel_share": adm["kernel_share"]}}
     kernels = {"kernels": [
         entry("matmul", f"{csrc}/matmul.cu",
               "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
@@ -2150,14 +2633,15 @@ def main() -> int:
               library="torch.nn.functional.scaled_dot_product_attention"
               " (is_causal=True, float32, TF32 off)",
               shape=list(ATTN_PROBLEM), dtype="float32",
-              config=list(attn["choice"]), **in_prefill("flash_attention")),
+              config=list(attn["choice"]), **in_prefill("flash_attention"),
+              **in_admission("flash_attention")),
         entry("ssd", f"{csrc}/ssd.cu",
               "src/repro/kernels/ssd.py:30 (_ssd_kernel)", ssd_res,
               regs["ssd"]["chunk_scan"], library="none",
               shape=list(SSD_PROBLEM), dtype="float32",
               config=list(ssd_res["choice"]),
               passes_ms=ssd_res["passes_ms"], passes_registers=regs["ssd"],
-              **in_prefill("ssd")),
+              **in_prefill("ssd"), **in_admission("ssd")),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):
@@ -2168,6 +2652,7 @@ def main() -> int:
          {**ssd_tuned, **ssd_res}, "contractions": contraction,
          "torch_engine": engine, "store": store,
          "models": {"runs": model_runs, "checks": model_checks},
+         "serve": {"runs": serving, "checks": serve_checks},
          "phase_s": phase_s,
          **kernels},
         indent=1, default=str))

@@ -10,7 +10,12 @@ the accelerator, measure and tune the tiles of the hand-written CUDA
 kernels (:mod:`repro_torch.kernels`, :mod:`repro_torch.tc.device`,
 :mod:`repro_torch.perf.tile_tuner`); persist what was measured under a
 fingerprint of the card, warm-start later sessions from it, probe it for
-drift and score predictor snapshots (:mod:`repro_torch.store`).
+drift and score predictor snapshots (:mod:`repro_torch.store`); run the
+model pool's configs and models with attention and the Mamba-2 scan
+through the hand-written kernels (:mod:`repro_torch.configs`,
+:mod:`repro_torch.models`) and serve them, a blocking admission being one
+batched pass through those kernels, under the FIFO or the model-guided
+scheduler (:mod:`repro_torch.serve`).
 
 The package mirrors ``repro``'s module layout and names so each counterpart
 is easy to find.  It imports ``torch`` and never ``jax`` or ``repro``.

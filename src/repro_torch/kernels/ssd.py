@@ -62,6 +62,14 @@ def ssd_smem_bytes(chunk: int, p: int, n: int) -> int:
     return 4 * max(scan, state)
 
 
+def ssd_chunk_legal(l: int, chunk: int) -> bool:
+    """The length rule of :func:`ssd_tile_legal` alone: ``chunk`` divides
+    ``l`` and is 16, 32 or a multiple of 64."""
+    if min(l, chunk) <= 0 or l % chunk:
+        return False
+    return _rows(chunk) in (16, 32, 64) and chunk % _rows(chunk) == 0
+
+
 def ssd_tile_legal(l: int, chunk: int, p: int, n: int,
                    smem_limit: int = H100_SMEM_OPTIN) -> bool:
     """Can the kernel scan ``l`` steps in chunks of ``chunk`` at head dim
@@ -69,9 +77,7 @@ def ssd_tile_legal(l: int, chunk: int, p: int, n: int,
     multiple of 64 (the kernel's row tiles), ``(p, n)`` must be
     instantiated, and the staging must fit ``smem_limit`` — the card's
     opt-in shared memory per block."""
-    if min(l, chunk, p, n) <= 0 or l % chunk:
-        return False
-    if _rows(chunk) not in (16, 32, 64) or chunk % _rows(chunk):
+    if min(p, n) <= 0 or not ssd_chunk_legal(l, chunk):
         return False
     if p not in KERNEL_HEAD_DIMS or n not in KERNEL_STATES:
         return False

@@ -68,24 +68,28 @@ def _route(logits: torch.Tensor, k: int, e: int, cap: int):
 
 
 def moe_forward(cfg: ArchConfig, p: MoEParams, x: torch.Tensor,
-                capacity_factor: float = None) -> torch.Tensor:
+                capacity_factor: float = None,
+                groups: int = 1) -> torch.Tensor:
     """Default MoE forward: shard-local scatter dispatch.
 
     Tokens are viewed as (D, t_local, d) with D = ``cfg.moe_data_shards``;
     routing, capacity positions and the dispatch scatter are local to a
-    shard (pure reshape semantics, as in the reference).  ``cfg.moe_impl
-    == "einsum"`` takes :func:`moe_forward_einsum`.
+    shard (pure reshape semantics, as in the reference).  ``groups`` > 1
+    routes each of that many runs of consecutive tokens as a call of its
+    own would, each split into its own shards.  ``cfg.moe_impl ==
+    "einsum"`` takes :func:`moe_forward_einsum`.
     """
     if cfg.moe_impl == "einsum":
-        return moe_forward_einsum(cfg, p, x, capacity_factor)
+        return moe_forward_einsum(cfg, p, x, capacity_factor, groups)
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
     D = max(1, cfg.moe_data_shards)
-    if t % D:
+    if t // groups % D:
         D = 1
+    D *= groups
     tl = t // D
     xt = x.reshape(D, tl, d)
     cap = max(1, int(math.ceil(capacity_factor * k * tl / e)))
@@ -112,31 +116,34 @@ def moe_forward(cfg: ArchConfig, p: MoEParams, x: torch.Tensor,
 
 
 def moe_forward_einsum(cfg: ArchConfig, p: MoEParams, x: torch.Tensor,
-                       capacity_factor: float = None) -> torch.Tensor:
-    """Classic one-hot dispatch/combine einsum MoE (baseline)."""
+                       capacity_factor: float = None,
+                       groups: int = 1) -> torch.Tensor:
+    """Classic one-hot dispatch/combine einsum MoE (baseline); ``groups``
+    as in :func:`moe_forward`."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    xt = x.reshape(t, d)
-    capacity = max(1, int(math.ceil(capacity_factor * k * t / e)))
+    tg = t // groups
+    xt = x.reshape(groups, tg, d)
+    capacity = max(1, int(math.ceil(capacity_factor * k * tg / e)))
     gate_vals, experts, pos, keep = _route(xt @ p.router, k, e, capacity)
 
-    # dispatch tensor: (t, k, e, c) one-hot -> combine weights
+    # dispatch tensor: (G, t, k, e, c) one-hot -> combine weights
     dispatch = (F.one_hot(experts, e).to(x.dtype)[..., None] *
                 F.one_hot(torch.clamp_max(pos, capacity), capacity + 1)
                 [..., None, :capacity].to(x.dtype))
     dispatch = dispatch * keep[..., None, None].to(x.dtype)
     combine = dispatch * gate_vals[..., None, None].to(x.dtype)
-    dispatch = dispatch.sum(dim=1)                          # (t, e, c)
-    combine = combine.sum(dim=1)                            # (t, e, c)
+    dispatch = dispatch.sum(dim=2)                          # (G, t, e, c)
+    combine = combine.sum(dim=2)                            # (G, t, e, c)
 
-    xe = torch.einsum("td,tec->ecd", xt, dispatch)          # (e, c, d)
-    g = torch.einsum("ecd,edf->ecf", xe, p.w_gate)
-    u = torch.einsum("ecd,edf->ecf", xe, p.w_up)
-    ye = torch.einsum("ecf,efd->ecd", F.silu(g) * u, p.w_down)
-    yt = torch.einsum("ecd,tec->td", ye, combine)
+    xe = torch.einsum("Gtd,Gtec->Gecd", xt, dispatch)       # (G, e, c, d)
+    g = torch.einsum("Gecd,edf->Gecf", xe, p.w_gate)
+    u = torch.einsum("Gecd,edf->Gecf", xe, p.w_up)
+    ye = torch.einsum("Gecf,efd->Gecd", F.silu(g) * u, p.w_down)
+    yt = torch.einsum("Gecd,Gtec->Gtd", ye, combine)
     return yt.reshape(b, s, d)
 
 

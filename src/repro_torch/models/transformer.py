@@ -136,8 +136,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 # ---------------------------------------------------------------- forward --
 
-def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
-    """The residual FFN half of a block."""
+def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor,
+         route_by_position: bool = False) -> torch.Tensor:
+    """The residual FFN half of a block.  ``route_by_position`` routes the
+    MoE tokens of each position (one a row) as a call of their own, as a
+    decode step of the batch routes them."""
     spec = blk.spec
     if spec.ffn == "none":
         return x
@@ -146,16 +149,21 @@ def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
     if spec.ffn in ("dense", "moe+dense"):
         y = y + swiglu(h, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down)
     if spec.ffn in ("moe", "moe+dense"):
-        y = y + moe_forward(cfg, blk.moe, h)
+        if route_by_position:
+            y = y + moe_forward(cfg, blk.moe, h.transpose(0, 1),
+                                groups=h.shape[1]).transpose(0, 1)
+        else:
+            y = y + moe_forward(cfg, blk.moe, h)
     return x + y
 
 
 def _block_forward(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
                    window: int, cache=None, cache_index=None, positions=None,
-                   mask_offset=None, use_kernel: bool = True):
+                   mask_offset=None, use_kernel: bool = True,
+                   route_by_position: bool = False):
     """One block; returns (x, cache): the attention layer's (K, V) — the
     updated ring with a cache given, else the call's own — or the SSM
-    layer's state."""
+    layer's state.  ``route_by_position`` as in :func:`_ffn`."""
     h = rmsnorm(x, blk.ln1)
     if blk.spec.mixer == "attn":
         y, new_cache = attn_forward(cfg, blk.attn, h, window=window,
@@ -167,7 +175,7 @@ def _block_forward(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
         y, new_cache = mamba_forward(cfg, blk.ssm, h, state=cache,
                                      return_state=True,
                                      use_kernel=use_kernel)
-    return _ffn(cfg, blk, x + y), new_cache
+    return _ffn(cfg, blk, x + y, route_by_position), new_cache
 
 
 def _embed(cfg: ArchConfig, params: Model,

@@ -23,8 +23,10 @@ over one suite).
 The store facets persist a session and warm-start another one from it
 (``store=``, :meth:`PredictorSession.save_store`), and probe a
 warm-started suite for drift (:meth:`PredictorSession.check_drift`);
-see :mod:`repro_torch.store`.  The reference's serving facets are not
-part of the port yet.
+see :mod:`repro_torch.store`.  The serving facets build the serve
+engine's step-cost model and its model-guided scheduler from the session's
+measurements (:meth:`PredictorSession.step_cost_model`,
+:meth:`PredictorSession.guided_scheduler`; :mod:`repro_torch.serve`).
 """
 
 from __future__ import annotations
@@ -377,6 +379,26 @@ class PredictorSession:
         return self.device_suite().rank(kernel, problem, configs,
                                         stat=stat, transfer=transfer,
                                         itemsize=itemsize)
+
+    # ---------------------------------------------------------- serving --
+    def step_cost_model(self, cfg, *, slots: int):
+        """Measured per-tick cost model of a serve engine's step kernels.
+
+        Lazy import: serving builds ON the prediction stack (the same
+        direction every other layer reaches), the session merely fronts
+        it.  See :func:`repro_torch.serve.scheduler.build_step_cost_model`.
+        """
+        from ..serve.scheduler import build_step_cost_model
+        return build_step_cost_model(self, cfg, slots=slots)
+
+    def guided_scheduler(self, cfg, *, slots: int, **kwargs):
+        """A :class:`repro_torch.serve.scheduler.ModelGuidedScheduler`
+        driven by this session's measured step-cost model (``kwargs``
+        forward to the scheduler constructor: ``window=``, ``max_defer=``,
+        ...)."""
+        from ..serve.scheduler import ModelGuidedScheduler
+        return ModelGuidedScheduler(self.step_cost_model(cfg, slots=slots),
+                                    **kwargs)
 
     # ------------------------------------------------------------ store --
     def save_store(self, path=None, *, fingerprint=None):

@@ -93,21 +93,37 @@ version, and drives every path of the port on the card:
    path's shape: two admissions' caches against a hand-driven decode
    replay (float32), the kernel route against the plain route, and the
    same tokens from both routes on a FIFO trace;
+14. the train path: (14a) the flash-attention backward kernels (delta,
+   dK/dV, dQ) against their plain version on the kernel forward's output
+   and row log-sum-exp, at every instantiated (block, head dim) in both
+   dtypes and two masks, and at gemma2-27b's widths over 4096 tokens, then
+   timed at (1, 32, 4096, 4096, 128) causal float32 beside the plain
+   backward, its bound and the backward of PyTorch's SDPA; (14b) every
+   parameter's gradient of ``loss_fn`` at gemma2-27b's full width cut to
+   one period (batch 1 x 512), kernel route against plain route, in both
+   dtypes; (14c) gemma2-27b at full width cut to 2 periods (4 layers,
+   3.44 B parameters, bfloat16, float32 AdamW moments) trained for 8 steps
+   on batch 1 x 4096 tokens through the port's ``train`` (per-period
+   remat, chunked cross entropy), then one step under ``torch.profiler``
+   (attention forward and backward, products, AdamW, idle); (14d) a small
+   config trained on the card, checkpointed asynchronously and resumed in
+   a fresh ``train``, its losses equal to an uninterrupted run's bit for
+   bit;
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12 and 13 and read
-just after (the paths 9 and 10 launch none of the three); the checks and
-timings of phases 2, 5 and 6, and those after each path, are not
-counted.
+just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13 and 14c and
+read just after (the paths 9 and 10 launch none of the kernels); the
+checks and timings of phases 2, 5, 6, 14a, 14b and 14d, and those after
+each path, are not counted.
 
 The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits nonzero and prints no result.  Long outputs (the compilers'
 reports, the fitted models, per-config times) go to
-``chiprun_out/chip_smoke/`` (phases 9, 10, 11, 12 and 13 under
-``contractions``, ``torch_engine``, ``store``, ``models`` and ``serve`` in
-``result.json``; the stores as
+``chiprun_out/chip_smoke/`` (phases 9, 10, 11, 12, 13 and 14 under
+``contractions``, ``torch_engine``, ``store``, ``models``, ``serve`` and
+``train`` in ``result.json``; the stores as
 ``store_*.json``, the scoreboard as ``TOURNAMENT.json``).
 """
 
@@ -1737,6 +1753,8 @@ def model_inputs(cfg, batch: int, s: int, gen):
 def kernel_class(name: str) -> str:
     """The class of a device kernel by its name, for phase 12's breakdown."""
     low = name.lower()
+    if "attn_bwd" in low:
+        return "flash_attention_bwd"
     if "attn_kernel" in low:
         return "flash_attention"
     if "ssd_" in low:
@@ -2416,6 +2434,465 @@ def check_serve(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 14 --
+#: phase 14's training run: gemma2-27b at full width cut to TRAIN_PERIODS
+#: periods (one local, one global layer each), train_4k's sequence at batch
+#: 1, bfloat16 parameters and gradients, float32 AdamW moments,
+#: TRAIN_STEPS steps with per-period remat and chunked cross entropy
+TRAIN_ARCH = "gemma2-27b"
+TRAIN_PERIODS = 2
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+#: 14b: one period at full width, batch 1 x GRAD_SEQ tokens; normwise bound
+#: per gradient leaf, kernel route against plain route.  float32: the
+#: kernels' sums in other orders (1e-5 a call, phase 6) through a layer's
+#: forward and backward; bfloat16: both routes round every product and
+#: activation, the kernels p at another place (ROUTE_TOL's reasoning)
+GRAD_SEQ = 512
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: 14d: a small config trained on the card, saved at step RESUME_AT
+RESUME_AT = 2
+RESUME_STEPS = 4
+
+
+def attn_bwd_work(b, hq, hkv, s, d, causal, window, itemsize):
+    """(flops, bytes) the attention backward needs: five products of 2 d
+    flops a kept pair (s, dP, dV, dK, dQ: 2.5 times attn_work's), q, k, v,
+    o, dO and lse read once and dq, dk, dv written once."""
+    flops = 2.5 * attn_work(b, hq, hkv, s, d, causal, window, itemsize)[0]
+    nbytes = float(itemsize) * b * s * d * (4 * hq + 4 * hkv) + \
+        4.0 * b * hq * s
+    return flops, nbytes
+
+
+def grads_err(got, want) -> dict:
+    """Normwise error of each gradient, by the pair's index."""
+    return {i: rel_err(g, w) for i, (g, w) in enumerate(zip(got, want))}
+
+
+def check_attention_bwd(card) -> dict:
+    """Phase 14a: the backward kernels against the plain backward on the
+    same forward output and row statistics (the kernel forward's, whose
+    lse is held against the plain forward's first): at every instantiated
+    (block, D), two masks, both dtypes, on a small shape; at gemma2-27b's
+    widths over train_4k's 4096 tokens (local and global layer, softcap
+    50, both dtypes); then timed at ATTN_PROBLEM causal float32 beside its
+    plain version, its bound and SDPA's backward."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        BWD_BLOCKS, KERNEL_HEAD_DIMS, attn_bwd_blocks, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain)
+    from repro_torch.perf.roofline import peak_flops
+
+    rng = np.random.default_rng(19)
+
+    def operands(b, hq, hkv, s, d, dtype):
+        return [torch.from_numpy(rng.standard_normal(sh).astype(
+            np.float32)).to("cuda", dtype)
+            for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                       (b, hq, s, d))]
+
+    def check(label, q, k, v, do, blk, kw):
+        name = str(q.dtype)[6:]
+        o, lse = flash_attention_fwd(q, k, v, bq=blk, bkv=blk, **kw)
+        torch.cuda.synchronize()
+        _, plain_lse = flash_attention_plain(q, k, v, bkv=blk, bq=blk,
+                                             return_lse=True, **kw)
+        lse_ratio = float(((lse - plain_lse).abs() /
+                           (1e-5 + 1e-5 * plain_lse.abs())).max())
+        got = flash_attention_bwd(q, k, v, o, lse, do, blk=blk, **kw)
+        torch.cuda.synchronize()           # a fault surfaces here
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk, **kw)
+        errs = dict(zip(("dq", "dk", "dv"), grads_err(got, want).values()))
+        max_abs = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+        if not (lse_ratio <= 1.0 and max(errs.values()) <= WIDE_TOL[name]):
+            raise AssertionError(
+                f"flash_attention_bwd disagrees with its plain version at "
+                f"{label}: lse ratio {lse_ratio:.3f} (bound 1), normwise "
+                f"{errs} (bound {WIDE_TOL[name]:.3e})")
+        return errs, max_abs, lse_ratio
+
+    small = []
+    for blk in BWD_BLOCKS:
+        for d in KERNEL_HEAD_DIMS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for kw in (dict(causal=True, window=blk + blk // 2,
+                                softcap=50.0),
+                           dict(causal=False, window=0, softcap=0.0)):
+                    ops = operands(2, 4, 2, 4 * blk, d, dtype)
+                    errs, max_abs, lse_ratio = check(
+                        f"block {blk}, d {d}", *ops, blk, kw)
+                    small.append({"blk": blk, "d": d,
+                                  "dtype": str(dtype)[6:], **kw,
+                                  "normwise": errs, "max_abs_err": max_abs,
+                                  "lse_ratio": lse_ratio})
+    worst = max(small, key=lambda r: max(r["normwise"].values()))
+    log(f"  backward kernels at all {len(small)} (block, d, dtype, mask) "
+        f"cases of (2, 4, 2, 4 x block, d): within WIDE_TOL normwise "
+        f"(float32 {WIDE_TOL['float32']:.0e}, bfloat16 "
+        f"{WIDE_TOL['bfloat16']:.3e}) and lse within 1e-5 (1 + |plain|); "
+        f"worst {max(worst['normwise'].values()):.3e} at block "
+        f"{worst['blk']}, d {worst['d']}, {worst['dtype']}")
+
+    wide = []
+    hq, hkv, d, cap = GEMMA["hq"], GEMMA["hkv"], GEMMA["d"], GEMMA["softcap"]
+    blk = attn_bwd_blocks(TRAIN_SEQ)
+    for dtype in (torch.float32, torch.bfloat16):
+        ops = operands(1, hq, hkv, TRAIN_SEQ, d, dtype)
+        name = str(dtype)[6:]
+        for window in GEMMA["windows"]:
+            kw = dict(causal=True, window=window, softcap=cap)
+            layer = "local" if window else "global"
+            errs, max_abs, lse_ratio = check(
+                f"gemma2-27b's {layer} layer ({name})", *ops, blk, kw)
+            q, k, v, do = ops
+            o, lse = flash_attention_fwd(q, k, v, **kw)
+            ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                      **kw), 3)
+            flops, nbytes = attn_bwd_work(1, hq, hkv, TRAIN_SEQ, d, True,
+                                          window, q.element_size())
+            bd = bound(flops, nbytes, peak_flops(card, dtype), card)
+            log(f"  gemma2-27b {layer} layer backward, s={TRAIN_SEQ}, {name}"
+                f", block {blk}: normwise dq {errs['dq']:.3e}, dk "
+                f"{errs['dk']:.3e}, dv {errs['dv']:.3e} (bound "
+                f"{WIDE_TOL[name]:.3e}), lse ratio {lse_ratio:.3f}; kernel "
+                f"{ms:.3f} ms (three launches), bound {bd['bound_ms']:.3f} ms"
+                f" ({bd['bound_by']}, {flops / 1e9:.1f} GFLOP at "
+                f"{peak_flops(card, dtype) / 1e12:.0f} TFLOP/s)")
+            wide.append({"layer": layer, "window": window, "dtype": name,
+                         "s": TRAIN_SEQ, "blk": blk, "normwise": errs,
+                         "max_abs_err": max_abs, "lse_ratio": lse_ratio,
+                         "kernel_ms": ms, **bd})
+            del o, lse
+        del ops, q, k, v, do
+
+    b, h, s, _, d = ATTN_PROBLEM
+    q, k, v, do = operands(b, h, h, s, d, torch.float32)
+    o, lse = flash_attention_fwd(q, k, v)
+    errs, max_abs, _ = check(f"{ATTN_PROBLEM} causal f32", q, k, v, do,
+                             attn_bwd_blocks(s), {})
+    kernel_ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
+                         TIME_REPS)
+    plain_ms = event_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, bq=attn_bwd_blocks(s)), 3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True)
+    library_ms = event_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, do, retain_graph=True), TIME_REPS)
+    lib_err = max(grads_err(torch.autograd.grad(sdpa_out, leaves, do),
+                            flash_attention_bwd_plain(q, k, v, o, lse,
+                                                      do)).values())
+    flops, nbytes = attn_bwd_work(b, h, h, s, d, True, 0, 4)
+    bd = bound(flops, nbytes, card.fp32_flops, card)
+    log(f"  attention backward {ATTN_PROBLEM} causal f32, block "
+        f"{attn_bwd_blocks(s)}: normwise {max(errs.values()):.3e}; "
+        f"kernel_ms {kernel_ms:.3f} (delta, dK/dV and dQ together), "
+        f"plain_ms {plain_ms:.3f}, library_ms {library_ms:.3f} (the "
+        f"backward of scaled_dot_product_attention, is_causal=True, TF32 "
+        f"off; normwise {lib_err:.1e} from the plain backward), bound_ms "
+        f"{bd['bound_ms']:.3f} ({bd['bound_by']}, {flops / 1e9:.1f} GFLOP);"
+        f" {flops / kernel_ms / 1e9:.1f} TFLOP/s on the kept pairs' five "
+        f"products")
+    return {"small": small, "gemma2_27b": wide, "err": max_abs,
+            "normwise": errs, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_normwise": lib_err,
+            "blk": attn_bwd_blocks(s), **bd}
+
+
+def check_train_grads(dev) -> dict:
+    """Phase 14b: every parameter's gradient of ``loss_fn`` through the
+    kernels (forward with lse and the backward kernels) against the plain
+    route (``use_kernel=False``, autograd through the plain attention), at
+    gemma2-27b's full width cut to one period, batch 1 x GRAD_SEQ tokens,
+    in float32 and bfloat16.  Also shows what the kernel's bare launch
+    gives a gradient: a tensor with no ``grad_fn`` (the path the wrapper
+    took before the backward existed)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.data import DataConfig, batch_at, to_device
+    base = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(base, n_layers=len(base.block_pattern))
+    res = {}
+    for seed, dtype_name in enumerate(("float32", "bfloat16")):
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            300 + seed), dtype, dev)
+        for p in params.parameters():
+            p.requires_grad_(True)
+        names = [n for n, _ in params.named_parameters()]
+        leaves = list(params.parameters())
+        batch = to_device(batch_at(DataConfig(
+            vocab=cfg.vocab, seq_len=GRAD_SEQ, global_batch=1,
+            seed=300 + seed), 0), dev)
+        fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+        loss_k = loss_fn(cfg, params, batch["inputs"], batch["labels"])
+        got = torch.autograd.grad(loss_k, leaves)
+        torch.cuda.synchronize()
+        fwd, bwd = flash_attention.launches - fwd, \
+            flash_attention_bwd.launches - bwd
+        loss_p = loss_fn(cfg, params, batch["inputs"], batch["labels"],
+                         use_kernel=False)
+        want = torch.autograd.grad(loss_p, leaves)
+        errs = {names[i]: e for i, e in grads_err(got, want).items()}
+        tol = GRAD_TOL[dtype_name]
+        worst = max(errs, key=errs.get)
+        log(f"  {TRAIN_ARCH} {dtype_name} at {cfg.n_layers} layers, batch 1 x"
+            f" {GRAD_SEQ}: loss kernel route {float(loss_k.detach()):.6f}, "
+            f"plain {float(loss_p.detach()):.6f}; {len(errs)} gradient "
+            f"leaves, kernel route vs plain route normwise worst "
+            f"{errs[worst]:.3e} ({worst}), "
+            f"wq " + ", ".join(f"{errs[n]:.3e}" for n in names
+                               if n.endswith("attn.wq")) +
+            f" (bound {tol:.0e}); {fwd} forward and {bwd} backward attention"
+            f" launches (remat runs each layer's forward twice)")
+        if not (max(errs.values()) <= tol and bwd == cfg.n_layers and
+                fwd == 2 * cfg.n_layers):
+            raise AssertionError(f"{TRAIN_ARCH} {dtype_name}: the kernel "
+                                 f"route's gradients disagree or the "
+                                 f"kernels were not launched: {errs}, "
+                                 f"{fwd} / {bwd} launches")
+        res[dtype_name] = {"layers": cfg.n_layers, "tokens": GRAD_SEQ,
+                           "loss_kernel": float(loss_k.detach()),
+                           "loss_plain": float(loss_p.detach()), "tol": tol,
+                           "normwise": errs, "forward_launches": fwd,
+                           "backward_launches": bwd}
+        del got, want, loss_k, loss_p
+        if dtype == torch.float32:
+            # the bare launch, as the wrapper ran before FlashAttentionFn:
+            # its output records no gradient, so wq got none through it
+            blk = params.blocks[0]
+            x = params.embed[batch["inputs"]]
+            q = (x @ blk.attn.wq).reshape(1, GRAD_SEQ, cfg.n_heads, -1) \
+                .transpose(1, 2).contiguous()
+            kv = (x @ blk.attn.wk).reshape(1, GRAD_SEQ, cfg.n_kv_heads, -1) \
+                .transpose(1, 2).contiguous()
+            # _forward without the Function: the launch into a fresh
+            # torch.empty output that flash_attention made before
+            bare, _ = _forward(q, kv, kv, 128, 128, True, 0, 50.0, False)
+            res["bare_launch_requires_grad"] = bare.requires_grad
+            log(f"  the kernel's bare launch on a q that requires grad "
+                f"(q.requires_grad={q.requires_grad}) returns "
+                f"requires_grad={bare.requires_grad}, grad_fn="
+                f"{bare.grad_fn}: before the backward existed, wq, wk, wv "
+                f"and the layers before them got no attention gradient")
+            if bare.requires_grad:
+                raise AssertionError("the bare launch recorded a gradient")
+            del x, q, kv, bare
+        del params, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_flops(cfg, tokens: int) -> float:
+    """The products of one training step with per-period remat and
+    chunked cross entropy: each layer's projections and the head run
+    forward twice (remat, the cross entropy's checkpoint) and backward
+    once (two products each): 8 tokens (layer weights + vocab x d)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    per_layer = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + \
+        3 * d * cfg.d_ff
+    return 8.0 * tokens * (cfg.n_layers * per_layer + cfg.vocab * d)
+
+
+def profile_train_step(fn) -> dict:
+    """One train step under ``torch.profiler``: device time by class,
+    with AdamW's kernels told apart by time (the step reads the loss on
+    the host before the update, so every kernel that starts after the
+    update's ``record_function`` range opens is the optimizer's), and the
+    device's idle share of the step's wall time.  The range's own event on
+    the device timeline (a span over the optimizer's kernels, not a
+    kernel) is left out of the sums."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    marks = [e.time_range.start for e in events if e.name == "adamw"]
+    t_opt = min(marks) if marks else None
+    by_class, spans = {}, 0
+    for evt in events:
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.name == "adamw":
+            spans += 1
+            continue
+        cls = kernel_class(evt.name)
+        if t_opt is not None and evt.time_range.start >= t_opt:
+            cls = "adamw"
+        dur = (evt.time_range.end - evt.time_range.start) / 1e3
+        by_class[cls] = by_class.get(cls, 0.0) + dur
+    busy = sum(by_class.values())
+    if not busy:
+        return {"measured": False, "wall_ms": wall_ms}
+    return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "by_class_ms": by_class,
+            "shares": {k: v / wall_ms for k, v in by_class.items()},
+            "optimizer_marked": t_opt is not None,
+            "device_spans_left_out": spans}
+
+
+def train_path(dev, card) -> dict:
+    """Phase 14c: gemma2-27b at full width, TRAIN_PERIODS periods, trained
+    for TRAIN_STEPS AdamW steps on train_4k's sequence at batch 1 through
+    the port's ``train`` (random bfloat16 parameters from a seeded card
+    generator, float32 moments, per-period remat, chunked cross entropy),
+    then one more step under the profiler."""
+    import dataclasses
+    import gc
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.data import DataConfig, batch_at, to_device
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    class MarkedAdamW(AdamW):
+        """AdamW whose update opens a ``record_function`` range, so the
+        profile can tell the optimizer's kernels apart."""
+        __slots__ = ()
+
+        def update(self, *args, **kwargs):
+            with torch.profiler.record_function("adamw"):
+                return super().update(*args, **kwargs)
+
+    base = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=TRAIN_PERIODS * len(base.block_pattern))
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=1, seed=0)
+    log(f"  memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = MarkedAdamW(lr=TRAIN_LR)
+    t0 = time.perf_counter()
+    params, opt_state, report = train(
+        cfg, data_cfg, TrainConfig(steps=TRAIN_STEPS), opt=opt,
+        dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    losses = report.losses
+    ln_v = math.log(cfg.vocab)
+    if len(losses) != TRAIN_STEPS or report.skipped_nan_steps or \
+            not all(math.isfinite(x) for x in losses) or \
+            not abs(losses[0] - ln_v) <= 2.0:
+        raise AssertionError(f"{TRAIN_ARCH} training went wrong: losses "
+                             f"{losses}, skipped {report.skipped_nan_steps}"
+                             f" (the first should be near ln V = "
+                             f"{ln_v:.3f})")
+    steps_ms = [t * 1e3 for t in report.step_times]
+    later = steps_ms[1:]
+    step_ms = statistics.median(later)
+    flops = train_flops(cfg, TRAIN_SEQ)
+    step_fn = make_train_step(cfg, opt)
+    batch = to_device(batch_at(data_cfg, TRAIN_STEPS), dev)
+    prof = profile_train_step(lambda: step_fn(params, opt_state, batch))
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "params": n_params,
+           "tokens": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "steps_ms": steps_ms, "step_ms_median": step_ms,
+           "step_ms_min": min(later), "first_step_ms": steps_ms[0],
+           "tokens_per_s": TRAIN_SEQ * 1e3 / step_ms, "peak_bytes": peak,
+           "wall_s": wall_s, "products_tflop": flops / 1e12,
+           "stragglers": report.straggler_steps, "profile": prof}
+    log(f"  {TRAIN_ARCH} at full width, {cfg.n_layers} layers "
+        f"({n_params / 1e9:.2f} B parameters, bfloat16; AdamW float32), "
+        f"batch 1 x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps in {wall_s:.1f}"
+        f" s: losses " + ", ".join(f"{x:.4f}" for x in losses) +
+        f" (ln V = {ln_v:.4f})")
+    log(f"  step ms after the first: median {step_ms:.1f}, min "
+        f"{min(later):.1f} (first {steps_ms[0]:.1f}); "
+        f"{res['tokens_per_s']:.0f} tokens/s; products "
+        f"{flops / 1e12:.1f} TFLOP a step; peak memory {peak / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    if prof["measured"]:
+        log(f"  one profiled step: wall {prof['wall_ms']:.1f} ms, device busy"
+            f" {prof['busy_ms']:.1f} ms, idle share "
+            f"{100 * prof['idle_share']:.1f} %; by class: " + ", ".join(
+                f"{k} {v:.1f} ms ({100 * prof['shares'][k]:.1f} %)"
+                for k, v in sorted(prof["by_class_ms"].items(),
+                                   key=lambda kv: -kv[1])) +
+            ("" if prof["optimizer_marked"] else
+             " (the optimizer's range was not found: adamw not split out)") +
+            f"; {prof['device_spans_left_out']} device-side span of the "
+            f"range left out")
+        mm = prof["by_class_ms"].get("library matmul")
+        if mm:
+            log(f"  bf16 products {flops / mm / 1e9:.0f} TFLOP/s over their "
+                f"device time")
+    else:
+        log("  the profiled step's trace holds no device time: shares not "
+            "measured")
+    return res
+
+
+def check_resume(dev) -> dict:
+    """Phase 14d: a small config trained on the card, saved asynchronously
+    after step RESUME_AT and restored in a fresh ``train``: the resumed
+    steps' losses must equal an uninterrupted run's bit for bit."""
+    import shutil
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.train_loop import TrainConfig, train
+    cfg = reduced(get_config(TRAIN_ARCH), n_layers=2, d_model=128, d_ff=256,
+                  vocab=512)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=5)
+    _, _, whole = train(cfg, dc, TrainConfig(steps=RESUME_STEPS), device=dev)
+    ckpt = OUT / "resume_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        _, _, first = train(cfg, dc, TrainConfig(
+            steps=RESUME_AT, ckpt_dir=str(ckpt), ckpt_every=RESUME_AT),
+            device=dev)
+        saved = ck.latest_step(str(ckpt))
+        _, _, rest = train(cfg, dc, TrainConfig(steps=RESUME_STEPS,
+                                                ckpt_dir=str(ckpt)),
+                           device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    ok = (saved == RESUME_AT - 1 and rest.resumed_from == RESUME_AT - 1 and
+          first.losses == whole.losses[:RESUME_AT] and
+          rest.losses == whole.losses[RESUME_AT:])
+    log(f"  {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, head "
+        f"dim {cfg.head_dim_}), batch 2 x 64 on the card: saved "
+        f"asynchronously after step {RESUME_AT}, resumed from step index "
+        f"{rest.resumed_from}; resumed losses " +
+        ", ".join(repr(x) for x in rest.losses) + " vs uninterrupted " +
+        ", ".join(repr(x) for x in whole.losses[RESUME_AT:]) +
+        f": {'equal bit for bit' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError(f"resume: saved {saved}, resumed from "
+                             f"{rest.resumed_from}, losses {first.losses} + "
+                             f"{rest.losses} against {whole.losses}")
+    return {"arch": cfg.name, "losses": whole.losses,
+            "resumed_losses": rest.losses, "saved_step": saved}
+
+
 # ---------------------------------------------------------------- main --
 
 
@@ -2428,7 +2905,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import resolve_device
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.matmul import matmul, matmul_plain
     from repro_torch.kernels.ssd import ssd
     from repro_torch.perf.roofline import card_of
@@ -2439,8 +2917,9 @@ def main() -> int:
     log(f"[1] card: {line}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    libs = _build.build_all(["matmul", "flash_attention", "ssd"])
-    log(f"    kernel build (three nvcc at once) "
+    libs = _build.build_all(["matmul", "flash_attention",
+                             "flash_attention_bwd", "ssd"])
+    log(f"    kernel build (four nvcc at once) "
         f"{time.perf_counter() - t0:.1f} s -> " +
         ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     ptxas = {}
@@ -2470,7 +2949,7 @@ def main() -> int:
     # the main path: each of its paths runs with every kernel's count set
     # to 0 just before it and read just after
     wrappers = {"matmul": matmul, "flash_attention": flash_attention,
-                "ssd": ssd}
+                "flash_attention_bwd": flash_attention_bwd, "ssd": ssd}
     launches = {name: {} for name in wrappers}
 
     def counted(path, label, fn, *args):
@@ -2568,6 +3047,20 @@ def main() -> int:
     serving = counted("serve", "13", serve_path, dev)
     serve_checks = phase("13 check", check_serve, dev)
 
+    log(f"[14] train path: the attention backward kernels, {TRAIN_ARCH}'s "
+        f"gradients at full width, {TRAIN_STEPS} AdamW steps at full width "
+        f"({TRAIN_PERIODS} periods, 1 x {TRAIN_SEQ} tokens, bfloat16), "
+        f"resume")
+    log("[14a] attention backward kernels vs their plain version")
+    attn_bwd = phase("14a", check_attention_bwd, the_card)
+    log(f"[14b] {TRAIN_ARCH} gradients at full width: kernel route vs plain "
+        f"route")
+    train_grads = phase("14b", check_train_grads, dev)
+    log(f"[14c] {TRAIN_ARCH} trained at full width through train()")
+    training = counted("train", "14c", train_path, dev, the_card)
+    log("[14d] resume after an asynchronous checkpoint, on the card")
+    resume = phase("14d", check_resume, dev)
+
     regs = {}
     for name, keys in selected_ptxas_keys(
             (bm, bn, bk), attn["choice"], ssd_res["choice"]).items():
@@ -2588,7 +3081,9 @@ def main() -> int:
                        ("ssd", "ssd_chunks"), ("matmul", "store"),
                        ("flash_attention", "store"), ("ssd", "store"),
                        ("flash_attention", "models"), ("ssd", "models"),
-                       ("flash_attention", "serve"), ("ssd", "serve")):
+                       ("flash_attention", "serve"), ("ssd", "serve"),
+                       ("flash_attention", "train"),
+                       ("flash_attention_bwd", "train")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -2620,6 +3115,29 @@ def main() -> int:
             "head": adm["head"], "admission_ms": adm["ms"],
             "head_ms": adm["head_ms"], "kernel_ms": adm["kernel_ms"],
             "kernel_share": adm["kernel_share"]}}
+    bwd_regs = {}
+    for what, key in (("dkdv", ("attn_bwd_dkdv_kernel", "float32", (4, 8))),
+                      ("dq", ("attn_bwd_dq_kernel", "float32", (4, 8))),
+                      ("delta", ("attn_bwd_delta_kernel", "float32", ()))):
+        if key not in ptxas:
+            raise AssertionError(f"no ptxas report for the backward's {key}")
+        bwd_regs[what] = dict(zip(("registers", "spill_store_bytes",
+                                   "spill_load_bytes"), ptxas[key]))
+        log(f"  flash_attention_bwd at block 64, d 128: {key[0]} uses "
+            f"{bwd_regs[what]['registers']} registers, spills "
+            f"{bwd_regs[what]['spill_store_bytes']} B stored / "
+            f"{bwd_regs[what]['spill_load_bytes']} B loaded (ptxas)")
+
+    def in_train_step(kernel):
+        prof = training["profile"]
+        if not prof["measured"]:
+            return {"train_step": {"measured": False}}
+        ms = prof["by_class_ms"].get(kernel, 0.0)
+        return {"train_step": {
+            "arch": training["arch"], "layers": training["layers"],
+            "tokens": training["tokens"], "dtype": "bfloat16",
+            "step_wall_ms": prof["wall_ms"], "kernel_ms": ms,
+            "kernel_share": ms / prof["wall_ms"]}}
     kernels = {"kernels": [
         entry("matmul", f"{csrc}/matmul.cu",
               "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
@@ -2634,7 +3152,20 @@ def main() -> int:
               " (is_causal=True, float32, TF32 off)",
               shape=list(ATTN_PROBLEM), dtype="float32",
               config=list(attn["choice"]), **in_prefill("flash_attention"),
-              **in_admission("flash_attention")),
+              **in_admission("flash_attention"),
+              **in_train_step("flash_attention")),
+        entry("flash_attention_bwd", f"{csrc}/flash_attention_bwd.cu",
+              "none: no Pallas body. The backward of "
+              "src/repro/kernels/flash_attention.py:37 (_attn_kernel), which "
+              "the reference differentiates in XLA through "
+              "src/repro/models/attention.py:24 (chunked_attention)",
+              attn_bwd, bwd_regs["dkdv"],
+              library="the backward of torch.nn.functional."
+              "scaled_dot_product_attention (is_causal=True, float32, TF32 "
+              "off)", shape=list(ATTN_PROBLEM), dtype="float32",
+              config=[attn_bwd["blk"], attn_bwd["blk"], ATTN_PROBLEM[4]],
+              passes_registers=bwd_regs, **in_train_step(
+                  "flash_attention_bwd")),
         entry("ssd", f"{csrc}/ssd.cu",
               "src/repro/kernels/ssd.py:30 (_ssd_kernel)", ssd_res,
               regs["ssd"]["chunk_scan"], library="none",
@@ -2653,6 +3184,8 @@ def main() -> int:
          "torch_engine": engine, "store": store,
          "models": {"runs": model_runs, "checks": model_checks},
          "serve": {"runs": serving, "checks": serve_checks},
+         "train": {"attention_bwd": attn_bwd, "grads": train_grads,
+                   "run": training, "resume": resume},
          "phase_s": phase_s,
          **kernels},
         indent=1, default=str))

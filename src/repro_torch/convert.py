@@ -10,7 +10,9 @@ loads in the other.
 
 Model weights carry across too: :func:`model_params_from_reference`
 builds the port's model (:mod:`repro_torch.models`) from the reference's
-``init_params`` tree, its periods unstacked into one module per layer.
+``init_params`` tree, its periods unstacked into one module per layer, and
+:func:`model_params_to_reference` goes back (for the model's parameters,
+or for tensors in their order such as their gradients).
 
 Measurements carry across as well: :func:`suite_from_reference` loads the
 reference suite's micro-benchmarks, given as plain records, into the
@@ -29,7 +31,7 @@ from typing import Iterable, Mapping, Union
 import numpy as np
 import torch
 
-from ._device import DeviceLike, resolve_device
+from ._device import DeviceLike, resolve_device, to_numpy
 from .core.model import ModelSet
 from .core.sampler import Stats
 from .tc.suite import MicroBenchmark, MicroBenchmarkKey, MicroBenchmarkSuite
@@ -156,3 +158,46 @@ def model_params_from_reference(cfg, params: Mapping,
     top = {name: tensor(params[name])
            for name in ("embed", "frontend_proj", "head") if name in params}
     return Model(blocks, tensor(params["final_norm"]), **top)
+
+
+def model_params_to_reference(cfg, model, tensors=None) -> dict:
+    """The reference's ``init_params`` tree with numpy leaves from the
+    port's model: the inverse of :func:`model_params_from_reference`.
+
+    Each layer's leaves are stacked back over a leading ``n_periods``
+    axis; ``embed``, ``frontend_proj``, ``head`` and ``final_norm`` come
+    as they are.  The reference's ``AttnParams``, ``MambaParams`` and
+    ``MoEParams`` come as dicts keyed by their field names (``mlp`` is a
+    dict there too).  ``tensors``, in ``model.named_parameters()`` order,
+    are converted in the parameters' place (their gradients, for
+    instance).  bfloat16 leaves widen to float32, exactly.
+    """
+    from .models.transformer import n_periods
+    named = list(model.named_parameters())
+    values = dict(zip((n for n, _ in named),
+                      (p for _, p in named) if tensors is None else tensors))
+    if len(values) != len(named):
+        raise ValueError(f"{len(named)} parameters, {len(values)} tensors")
+    period, nper = len(cfg.block_pattern), n_periods(cfg)
+
+    def stacked(pi: int, suffix: str) -> np.ndarray:
+        return np.stack([to_numpy(values[f"blocks.{per * period + pi}."
+                                         f"{suffix}"])
+                         for per in range(nper)])
+
+    out = {name: to_numpy(values[name])
+           for name in ("embed", "frontend_proj", "head", "final_norm")
+           if name in values}
+    out["blocks"] = {}
+    for pi in range(period):
+        first, tree = model.blocks[pi], {}
+        for group in ("ln1", "ln2"):
+            if getattr(first, group) is not None:
+                tree[group] = stacked(pi, group)
+        for group in ("attn", "ssm", "mlp", "moe"):
+            mod = getattr(first, group)
+            if mod is not None:
+                tree[group] = {field: stacked(pi, f"{group}.{field}")
+                               for field, _ in mod.named_parameters()}
+        out["blocks"][f"p{pi}"] = tree
+    return out

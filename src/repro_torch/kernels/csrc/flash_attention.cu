@@ -13,7 +13,12 @@
 //   s = mask ? s : -1e30                       causal q >= k, window q - k < w
 //   m' = max(m, rowmax s); p = exp(s - m'); alpha = exp(m - m')
 //   l = l * alpha + rowsum p;  acc = acc * alpha + round(p) v
-// and out = acc / max(l, 1e-30), cast to the input dtype.  round(p) is p
+// and out = acc / max(l, 1e-30), cast to the input dtype.  When the caller
+// passes a row-statistics buffer, each row's log-sum-exp m + log(max(l,
+// 1e-30)) after its last kv block is written there in float32 (B, Hq, Sq):
+// the backward (flash_attention_bwd.cu) recomputes p = exp(s - lse) from
+// it.  A null buffer writes nothing, so prefill and serve are unchanged.
+// round(p) is p
 // rounded to the value dtype (a no-op for float32), as the TPU kernel's
 // p.astype(v.dtype); the denominator sums the unrounded p.  Masked logits
 // take the finite sentinel -1e30, never -inf.
@@ -178,7 +183,8 @@ __device__ __forceinline__ int out_col(int tx, int c) {
 template <typename T, int TM, int TN, int TD>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ out, int nb, int hq,
+            const T* __restrict__ v, T* __restrict__ out,
+            float* __restrict__ lse, int nb, int hq,
             int hkv, int sq, int skv, float scale, int causal, int window,
             float softcap) {
   constexpr int BQ = kSide * TM;
@@ -370,12 +376,19 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < TD; ++c)
       orow[out_col<TD>(tx, c)] = from_float<T>(acc[i][c] / denom);
   }
+  if (lse != nullptr && tx == 0) {
+    // the 16 threads of a row hold the same m and l (xor-shuffled)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      lse[(static_cast<size_t>(b) * hq + h) * sq + q0 + ty + kSide * i] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
 }
 
 template <typename T, int TM, int TN, int TD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hq, int hkv, int sq, int skv, float scale, int causal,
-           int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int hq, int hkv, int sq, int skv, float scale,
+           int causal, int window, float softcap, cudaStream_t stream) {
   constexpr int BQ = kSide * TM;
   constexpr int BKV = kSide * TN;
   constexpr int D = kSide * TD;
@@ -392,19 +405,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), b, hq, hkv, sq, skv,
-      scale, causal, window, softcap);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, b, hq, hkv, sq,
+      skv, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int TD>
 int dispatch_tiles(const void* q, const void* k, const void* v, void* out,
-                   int b, int hq, int hkv, int sq, int skv, int bq, int bkv,
-                   float scale, int causal, int window, float softcap,
-                   cudaStream_t s) {
+                   float* lse, int b, int hq, int hkv, int sq, int skv,
+                   int bq, int bkv, float scale, int causal, int window,
+                   float softcap, cudaStream_t s) {
 #define REPRO_TILE(TM_, TN_)                                              \
   if (bq == kSide * (TM_) && bkv == kSide * (TN_))                        \
-    return launch<T, TM_, TN_, TD>(q, k, v, out, b, hq, hkv, sq, skv,     \
+    return launch<T, TM_, TN_, TD>(q, k, v, out, lse, b, hq, hkv, sq, skv,\
                                    scale, causal, window, softcap, s);
   REPRO_TILE(1, 1) REPRO_TILE(1, 2) REPRO_TILE(1, 4) REPRO_TILE(1, 8)
   REPRO_TILE(2, 1) REPRO_TILE(2, 2) REPRO_TILE(2, 4) REPRO_TILE(2, 8)
@@ -415,23 +428,27 @@ int dispatch_tiles(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int b,
-             int hq, int hkv, int sq, int skv, int d, int bq, int bkv,
-             float scale, int causal, int window, float softcap,
-             cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int b, int hq, int hkv, int sq, int skv, int d,
+             int bq, int bkv, float scale, int causal, int window,
+             float softcap, cudaStream_t s) {
   switch (d) {
     case 16:
-      return dispatch_tiles<T, 1>(q, k, v, out, b, hq, hkv, sq, skv, bq, bkv,
-                                  scale, causal, window, softcap, s);
+      return dispatch_tiles<T, 1>(q, k, v, out, lse, b, hq, hkv, sq, skv,
+                                  bq, bkv, scale, causal, window,
+                                  softcap, s);
     case 32:
-      return dispatch_tiles<T, 2>(q, k, v, out, b, hq, hkv, sq, skv, bq, bkv,
-                                  scale, causal, window, softcap, s);
+      return dispatch_tiles<T, 2>(q, k, v, out, lse, b, hq, hkv, sq, skv,
+                                  bq, bkv, scale, causal, window,
+                                  softcap, s);
     case 64:
-      return dispatch_tiles<T, 4>(q, k, v, out, b, hq, hkv, sq, skv, bq, bkv,
-                                  scale, causal, window, softcap, s);
+      return dispatch_tiles<T, 4>(q, k, v, out, lse, b, hq, hkv, sq, skv,
+                                  bq, bkv, scale, causal, window,
+                                  softcap, s);
     case 128:
-      return dispatch_tiles<T, 8>(q, k, v, out, b, hq, hkv, sq, skv, bq, bkv,
-                                  scale, causal, window, softcap, s);
+      return dispatch_tiles<T, 8>(q, k, v, out, lse, b, hq, hkv, sq, skv,
+                                  bq, bkv, scale, causal, window,
+                                  softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -443,22 +460,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  The caller guarantees contiguous,
 // 16-byte aligned (B, H, S, D) operands on the current device,
-// hq % hkv == 0 and blocks that divide the sequence lengths.
+// hq % hkv == 0 and blocks that divide the sequence lengths.  lse is null
+// or a float32 (B, Hq, Sq) buffer for the rows' log-sum-exp.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int b, int hq, int hkv, int sq, int skv,
-                          int d, int bq, int bkv, float scale, int causal,
-                          int window, float softcap, int dtype,
-                          void* stream) {
+                          void* out, void* lse, int b, int hq, int hkv,
+                          int sq, int skv, int d, int bq, int bkv,
+                          float scale, int causal, int window, float softcap,
+                          int dtype, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 ||
       bq <= 0 || bkv <= 0 || sq % bq || skv % bkv)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, b, hq, hkv, sq, skv, d, bq, bkv,
-                           scale, causal, window, softcap, s);
+    return dispatch<float>(q, k, v, out, static_cast<float*>(lse), b, hq,
+                           hkv, sq, skv, d, bq, bkv, scale, causal, window,
+                           softcap, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv, d, bq,
-                                   bkv, scale, causal, window, softcap, s);
+    return dispatch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), b,
+                                   hq, hkv, sq, skv, d, bq, bkv, scale,
+                                   causal, window, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -303,8 +303,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     CUDA tensors launch the three hand-written kernels on the current
     stream — contiguous float32, a chunk and (P, N) legal for the card —
     and anything the kernels do not take raises; CPU tensors run
-    :func:`ssd_plain`.  ``ssd.launches`` counts calls that launched the
-    kernels: one per scan, three kernel launches inside.
+    :func:`ssd_plain`.  The kernels have no backward: on CUDA, with grad
+    enabled, an operand that requires grad raises ``NotImplementedError``
+    (on the CPU ``ssd_plain`` differentiates).  ``ssd.launches`` counts
+    calls that launched the kernels: one per scan, three kernel launches
+    inside.
     """
     _check(x, dt, a_log, b, c)
     l, p, n = x.shape[1], x.shape[3], b.shape[3]
@@ -322,6 +325,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on CUDA or the CPU, not {x.device}")
     ops = (x, dt, a_log, b, c) + (() if h0 is None else (h0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        raise NotImplementedError(
+            "the ssd kernel has no backward yet, so a scan on the card "
+            "cannot pass a gradient to its operands; it refuses rather than "
+            "drop it (Mamba training on the card waits for an SSD backward "
+            "kernel: ROADMAP.md Queue A item 9).  ssd_plain on CPU tensors "
+            "is differentiable")
     if any(t.dtype != torch.float32 for t in ops):
         raise TypeError("the ssd kernel takes float32 operands, got "
                         f"{[str(t.dtype) for t in ops]}")

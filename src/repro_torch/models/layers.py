@@ -51,12 +51,18 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token-level cross entropy; logits (..., V), labels (...) int."""
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's ``logZ - gold`` in float32; logits (..., V), labels
+    (...) int."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
-    return torch.mean(logz - gold)
+    return logz - gold
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token-level cross entropy; logits (..., V), labels (...) int."""
+    return torch.mean(token_nll(logits, labels))
 
 
 def normal(shape, scale: float, generator: torch.Generator, dtype,

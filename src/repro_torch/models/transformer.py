@@ -10,12 +10,13 @@ Decode caches are a list over layers in the same order: ``(K, V)`` for an
 attention layer, the (B, H, P, N) state for an SSM layer.
 
 Entry points: :func:`init_params` (random frozen parameters from a
-``torch.Generator``), :func:`forward_hidden` / :func:`forward` (full
-sequence; attention and the SSD scan through the hand-written kernels),
-:func:`init_decode_state` and :func:`decode_step` (one token, KV caches
-written in place).  The reference's ``remat`` and ``act_spec`` belong to the
-train and distributed slices; ``chunked_cross_entropy`` and ``loss_fn`` to
-the train slice.
+``torch.Generator``; the trainer turns their gradients on),
+:func:`forward_hidden` / :func:`forward` (full sequence; attention and the
+SSD scan through the hand-written kernels; ``remat=True`` checkpoints each
+period), :func:`chunked_cross_entropy` and :func:`loss_fn` (the training
+loss), :func:`init_decode_state` and :func:`decode_step` (one token, KV
+caches written in place).  The reference's ``act_spec`` belongs to the
+distributed slice.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig, LayerSpec
 from .attention import AttnParams, attn_forward, init_attn
-from .layers import normal, rmsnorm, softcap, swiglu
+from .layers import normal, rmsnorm, softcap, swiglu, token_nll
 from .mamba import MambaParams, init_mamba, init_ssm_state, mamba_forward
 from .moe import MoEParams, init_moe, moe_forward
 
@@ -205,15 +207,51 @@ def _window(spec: LayerSpec, window_cap: int) -> int:
     return window
 
 
+def _remat_policy(name: Optional[str]) -> None:
+    """The reference's ``remat_policy`` names: None and "full" recompute
+    the whole period (``torch.utils.checkpoint``); "dots", which keeps the
+    products' outputs, is not ported yet."""
+    if name is None or name == "full":
+        return
+    if name == "dots":
+        raise NotImplementedError(
+            'remat_policy="dots" (keep the products\' outputs, recompute the '
+            'rest) is not ported yet: ROADMAP.md Queue A item 11')
+    raise ValueError(name)
+
+
 def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
-                   window_cap: int = 0,
-                   use_kernel: bool = True) -> torch.Tensor:
-    """Embedding + blocks + final norm -> hidden states (B, S, d)."""
+                   window_cap: int = 0, use_kernel: bool = True,
+                   remat: bool = False,
+                   remat_policy: Optional[str] = None) -> torch.Tensor:
+    """Embedding + blocks + final norm -> hidden states (B, S, d).
+
+    ``remat=True`` applies per-period activation checkpointing: each
+    period of ``len(cfg.block_pattern)`` blocks runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so the backward keeps only
+    the hidden state between periods and recomputes the blocks' insides,
+    the attention kernel's forward included.  ``remat_policy`` as the
+    reference's (:func:`_remat_policy`).
+    """
     x = _embed(cfg, params, inputs)
-    for blk in params.blocks:
-        x, _ = _block_forward(cfg, blk, x,
-                              window=_window(blk.spec, window_cap),
-                              use_kernel=use_kernel)
+    blocks = list(params.blocks)
+    period = len(cfg.block_pattern)
+
+    def run(x, group):
+        for blk in group:
+            x, _ = _block_forward(cfg, blk, x,
+                                  window=_window(blk.spec, window_cap),
+                                  use_kernel=use_kernel)
+        return x
+
+    if remat:
+        _remat_policy(remat_policy)
+    for start in range(0, len(blocks), period):
+        group = blocks[start:start + period]
+        if remat:
+            x = checkpoint(run, x, group, use_reentrant=False)
+        else:
+            x = run(x, group)
     return rmsnorm(x, params.final_norm)
 
 
@@ -223,6 +261,45 @@ def forward(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
     x = forward_hidden(cfg, params, inputs, window_cap=window_cap,
                        use_kernel=use_kernel)
     return _head_logits(cfg, params, x)
+
+
+def _chunk_nll(cfg: ArchConfig, params: Model, xc: torch.Tensor,
+               lc: torch.Tensor) -> torch.Tensor:
+    return torch.sum(token_nll(_head_logits(cfg, params, xc), lc))
+
+
+def chunked_cross_entropy(cfg: ArchConfig, params: Model, x: torch.Tensor,
+                          labels: torch.Tensor,
+                          chunk: int = 512) -> torch.Tensor:
+    """Sequence-chunked mean cross entropy of the head's logits (final
+    softcap included) on hidden states ``x`` (B, S, d): each chunk's
+    logits are made, reduced to the sum of ``logZ - gold`` in float32 and
+    dropped, under ``torch.utils.checkpoint``, so neither pass holds the
+    full (B, S, V) logits.  The chunk sums add up in order, then divide by
+    B S, as the reference's scan does."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} must divide the sequence {s}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(_chunk_nll, cfg, params,
+                                   x[:, c0:c0 + chunk],
+                                   labels[:, c0:c0 + chunk],
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def loss_fn(cfg: ArchConfig, params: Model, inputs: torch.Tensor,
+            labels: torch.Tensor, *, remat_policy: Optional[str] = None,
+            use_kernel: bool = True) -> torch.Tensor:
+    """The training loss: the forward with per-period remat, then the
+    chunked cross entropy.  ``use_kernel=False`` sends attention and the
+    SSD to their plain versions on any device (autograd differentiates
+    them), to compare the kernels' gradients with."""
+    x = forward_hidden(cfg, params, inputs, remat=True,
+                       remat_policy=remat_policy, use_kernel=use_kernel)
+    return chunked_cross_entropy(cfg, params, x, labels)
 
 
 # ----------------------------------------------------------------- decode --

@@ -2466,9 +2466,84 @@ def attn_bwd_work(b, hq, hkv, s, d, causal, window, itemsize):
     return flops, nbytes
 
 
+def bwd_bound(flops, nbytes, dtype, card) -> dict:
+    """The backward's bound on the route it takes: bfloat16 products at the
+    tensor cores' bfloat16 rate; float32 ones as three TF32 products each
+    at the TF32 rate, with the FFMA bound (the FP32 rate outside the
+    tensor cores) beside it as ``bound_ms_ffma``."""
+    import torch
+    if dtype == torch.bfloat16:
+        bd = bound(flops, nbytes, card.bf16_tensor_flops, card)
+        bd["route"] = (f"{flops / 1e9:.1f} GFLOP at "
+                       f"{card.bf16_tensor_flops / 1e12:.0f} TFLOP/s")
+        return bd
+    bd = bound(3 * flops, nbytes, card.tf32_tensor_flops, card)
+    bd["bound_ms_ffma"] = bound(flops, nbytes, card.fp32_flops,
+                                card)["bound_ms"]
+    bd["route"] = (f"3xTF32 {3 * flops / 1e9:.1f} GFLOP at "
+                   f"{card.tf32_tensor_flops / 1e12:.0f} TFLOP/s; FFMA bound "
+                   f"{bd['bound_ms_ffma']:.3f}")
+    return bd
+
+
 def grads_err(got, want) -> dict:
     """Normwise error of each gradient, by the pair's index."""
     return {i: rel_err(g, w) for i, (g, w) in enumerate(zip(got, want))}
+
+
+def start_sass(lib):
+    """``cuobjdump -sass`` of a built library, started in the background
+    (it takes seconds); read it with :func:`hmma_counts`."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    return subprocess.Popen([str(cuobjdump), "-sass", str(lib)],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def hmma_counts(proc) -> dict:
+    """Tensor-core instructions (HMMA) in each kernel of the library whose
+    SASS ``proc`` (:func:`start_sass`) prints: {mangled name: count}."""
+    import re
+    sass, _ = proc.communicate(timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"cuobjdump -sass exited {proc.returncode}")
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+#: the backward's instantiations gemma2-27b's layers run: (warps of 16
+#: rows, D) = (4, 128), block 64
+BWD_MAIN_KEY = (4, 128)
+
+
+def check_bwd_sass(proc) -> dict:
+    """The SASS gate: the backward's dK/dV and dQ kernels at BWD_MAIN_KEY
+    hold tensor-core instructions in both dtypes (``proc`` from
+    :func:`start_sass` on the backward's library)."""
+    counts = hmma_counts(proc)
+    w, d = BWD_MAIN_KEY
+    found = {}
+    for kern in ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"):
+        for dtype, tag in (("float32", "If"), ("bfloat16", "I13__nv_bfloat16")):
+            names = [n for n in counts
+                     if kern in n and f"{tag}Li{w}ELi{d}E" in n]
+            if len(names) != 1:
+                raise AssertionError(f"no single SASS function for {kern} "
+                                     f"{dtype} at {BWD_MAIN_KEY}: {names}")
+            found[f"{kern}/{dtype}"] = counts[names[0]]
+    if not all(found.values()):
+        raise AssertionError(f"the backward's SASS at {BWD_MAIN_KEY} lacks "
+                             f"tensor-core instructions: {found}")
+    log(f"  backward SASS at (warps, D) = {BWD_MAIN_KEY}: HMMA per kernel "
+        f"{found} (cuobjdump -sass)")
+    return found
 
 
 def check_attention_bwd(card) -> dict:
@@ -2477,16 +2552,20 @@ def check_attention_bwd(card) -> dict:
     lse is held against the plain forward's first): at every instantiated
     (block, D), two masks, both dtypes, on a small shape; at gemma2-27b's
     widths over train_4k's 4096 tokens (local and global layer, softcap
-    50, both dtypes); then timed at ATTN_PROBLEM causal float32 beside its
-    plain version, its bound and SDPA's backward."""
+    50, both dtypes), each called twice and held to the same bits; then
+    timed at ATTN_PROBLEM causal in float32 and bfloat16 beside its plain
+    version, its bounds (float32: the 3xTF32 route it takes, and FFMA)
+    and SDPA's backward; the forward's bfloat16 time there beside SDPA's;
+    and the SASS gate (check_bwd_sass)."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import (
-        BWD_BLOCKS, KERNEL_HEAD_DIMS, attn_bwd_blocks, flash_attention_bwd,
-        flash_attention_bwd_plain, flash_attention_fwd,
+        BWD_BLOCKS, KERNEL_HEAD_DIMS, attn_bwd_blocks, flash_attention,
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_plain)
-    from repro_torch.perf.roofline import peak_flops
+    from repro_torch.kernels import _build
 
+    sass_proc = start_sass(_build.build("flash_attention_bwd"))
     rng = np.random.default_rng(19)
 
     def operands(b, hq, hkv, s, d, dtype):
@@ -2551,57 +2630,87 @@ def check_attention_bwd(card) -> dict:
                 f"gemma2-27b's {layer} layer ({name})", *ops, blk, kw)
             q, k, v, do = ops
             o, lse = flash_attention_fwd(q, k, v, **kw)
+            first = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"two backward calls at gemma2-27b's "
+                                     f"{layer} layer ({name}) differ")
+            del first, again
             ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                       **kw), 3)
             flops, nbytes = attn_bwd_work(1, hq, hkv, TRAIN_SEQ, d, True,
                                           window, q.element_size())
-            bd = bound(flops, nbytes, peak_flops(card, dtype), card)
+            bd = bwd_bound(flops, nbytes, dtype, card)
             log(f"  gemma2-27b {layer} layer backward, s={TRAIN_SEQ}, {name}"
-                f", block {blk}: normwise dq {errs['dq']:.3e}, dk "
+                f", block {blk}, two calls bit for bit: normwise dq "
+                f"{errs['dq']:.3e}, dk "
                 f"{errs['dk']:.3e}, dv {errs['dv']:.3e} (bound "
                 f"{WIDE_TOL[name]:.3e}), lse ratio {lse_ratio:.3f}; kernel "
                 f"{ms:.3f} ms (three launches), bound {bd['bound_ms']:.3f} ms"
-                f" ({bd['bound_by']}, {flops / 1e9:.1f} GFLOP at "
-                f"{peak_flops(card, dtype) / 1e12:.0f} TFLOP/s)")
+                f" ({bd['bound_by']}, {bd['route']})")
             wide.append({"layer": layer, "window": window, "dtype": name,
-                         "s": TRAIN_SEQ, "blk": blk, "normwise": errs,
+                         "s": TRAIN_SEQ, "blk": blk, "deterministic": True,
+                         "normwise": errs,
                          "max_abs_err": max_abs, "lse_ratio": lse_ratio,
                          "kernel_ms": ms, **bd})
             del o, lse
         del ops, q, k, v, do
 
     b, h, s, _, d = ATTN_PROBLEM
-    q, k, v, do = operands(b, h, h, s, d, torch.float32)
-    o, lse = flash_attention_fwd(q, k, v)
-    errs, max_abs, _ = check(f"{ATTN_PROBLEM} causal f32", q, k, v, do,
-                             attn_bwd_blocks(s), {})
-    kernel_ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
-                         TIME_REPS)
-    plain_ms = event_ms(lambda: flash_attention_bwd_plain(
-        q, k, v, o, lse, do, bq=attn_bwd_blocks(s)), 3)
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=True)
-    library_ms = event_ms(lambda: torch.autograd.grad(
-        sdpa_out, leaves, do, retain_graph=True), TIME_REPS)
-    lib_err = max(grads_err(torch.autograd.grad(sdpa_out, leaves, do),
-                            flash_attention_bwd_plain(q, k, v, o, lse,
-                                                      do)).values())
-    flops, nbytes = attn_bwd_work(b, h, h, s, d, True, 0, 4)
-    bd = bound(flops, nbytes, card.fp32_flops, card)
-    log(f"  attention backward {ATTN_PROBLEM} causal f32, block "
-        f"{attn_bwd_blocks(s)}: normwise {max(errs.values()):.3e}; "
-        f"kernel_ms {kernel_ms:.3f} (delta, dK/dV and dQ together), "
-        f"plain_ms {plain_ms:.3f}, library_ms {library_ms:.3f} (the "
-        f"backward of scaled_dot_product_attention, is_causal=True, TF32 "
-        f"off; normwise {lib_err:.1e} from the plain backward), bound_ms "
-        f"{bd['bound_ms']:.3f} ({bd['bound_by']}, {flops / 1e9:.1f} GFLOP);"
-        f" {flops / kernel_ms / 1e9:.1f} TFLOP/s on the kept pairs' five "
-        f"products")
-    return {"small": small, "gemma2_27b": wide, "err": max_abs,
-            "normwise": errs, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_normwise": lib_err,
-            "blk": attn_bwd_blocks(s), **bd}
+    blk = attn_bwd_blocks(s)
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v, do = operands(b, h, h, s, d, dtype)
+        o, lse = flash_attention_fwd(q, k, v)
+        errs, max_abs, _ = check(f"{ATTN_PROBLEM} causal {name}", q, k, v,
+                                 do, blk, {})
+        kernel_ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse,
+                                                         do), TIME_REPS)
+        plain_ms = event_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, o, lse, do, bq=blk), 3)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True)
+        library_ms = event_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True), TIME_REPS)
+        lib_err = max(grads_err(torch.autograd.grad(sdpa_out, leaves, do),
+                                flash_attention_bwd_plain(q, k, v, o, lse,
+                                                          do)).values())
+        flops, nbytes = attn_bwd_work(b, h, h, s, d, True, 0,
+                                      q.element_size())
+        bd = bwd_bound(flops, nbytes, dtype, card)
+        log(f"  attention backward {ATTN_PROBLEM} causal {name}, block "
+            f"{blk}: normwise {max(errs.values()):.3e}; kernel_ms "
+            f"{kernel_ms:.3f} (delta, dK/dV and dQ together), plain_ms "
+            f"{plain_ms:.3f}, library_ms {library_ms:.3f} (the backward of "
+            f"scaled_dot_product_attention, is_causal=True, TF32 off; "
+            f"normwise {lib_err:.1e} from the plain backward), bound_ms "
+            f"{bd['bound_ms']:.3f} ({bd['bound_by']}, {bd['route']}); "
+            f"{flops / kernel_ms / 1e9:.1f} TFLOP/s on the kept pairs' five "
+            f"products")
+        timed[name] = {"err": max_abs, "normwise": errs,
+                       "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "library_normwise": lib_err,
+                       "blk": blk, **bd}
+        if dtype == torch.bfloat16:
+            fwd_ms = event_ms(lambda: flash_attention(q, k, v), TIME_REPS)
+            sdpa_fwd_ms = event_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), TIME_REPS)
+            timed["forward_bfloat16"] = {"kernel_ms": fwd_ms,
+                                         "library_ms": sdpa_fwd_ms,
+                                         "blocks": [128, 128]}
+            log(f"  attention forward {ATTN_PROBLEM} causal bfloat16, blocks"
+                f" (128, 128): kernel_ms {fwd_ms:.3f}, library_ms "
+                f"{sdpa_fwd_ms:.3f} (scaled_dot_product_attention, "
+                f"is_causal=True)")
+        del q, k, v, do, o, lse, leaves, sdpa_out
+    sass = check_bwd_sass(sass_proc)
+    return {"small": small, "gemma2_27b": wide, **timed["float32"],
+            "bfloat16": timed["bfloat16"],
+            "forward_bfloat16": timed["forward_bfloat16"],
+            "sass_hmma": sass}
 
 
 def check_train_grads(dev) -> dict:
@@ -3116,16 +3225,20 @@ def main() -> int:
             "head_ms": adm["head_ms"], "kernel_ms": adm["kernel_ms"],
             "kernel_share": adm["kernel_share"]}}
     bwd_regs = {}
-    for what, key in (("dkdv", ("attn_bwd_dkdv_kernel", "float32", (4, 8))),
-                      ("dq", ("attn_bwd_dq_kernel", "float32", (4, 8))),
-                      ("delta", ("attn_bwd_delta_kernel", "float32", ()))):
+    for what, key in (
+            ("dkdv", ("attn_bwd_dkdv_kernel", "float32", BWD_MAIN_KEY)),
+            ("dq", ("attn_bwd_dq_kernel", "float32", BWD_MAIN_KEY)),
+            ("dkdv_bf16", ("attn_bwd_dkdv_kernel", "bfloat16",
+                           BWD_MAIN_KEY)),
+            ("dq_bf16", ("attn_bwd_dq_kernel", "bfloat16", BWD_MAIN_KEY)),
+            ("delta", ("attn_bwd_delta_kernel", "float32", ()))):
         if key not in ptxas:
             raise AssertionError(f"no ptxas report for the backward's {key}")
         bwd_regs[what] = dict(zip(("registers", "spill_store_bytes",
                                    "spill_load_bytes"), ptxas[key]))
-        log(f"  flash_attention_bwd at block 64, d 128: {key[0]} uses "
-            f"{bwd_regs[what]['registers']} registers, spills "
-            f"{bwd_regs[what]['spill_store_bytes']} B stored / "
+        log(f"  flash_attention_bwd at block 64, d 128: {key[0]} "
+            f"({key[1]}) uses {bwd_regs[what]['registers']} registers, "
+            f"spills {bwd_regs[what]['spill_store_bytes']} B stored / "
             f"{bwd_regs[what]['spill_load_bytes']} B loaded (ptxas)")
 
     def in_train_step(kernel):
@@ -3151,7 +3264,9 @@ def main() -> int:
               library="torch.nn.functional.scaled_dot_product_attention"
               " (is_causal=True, float32, TF32 off)",
               shape=list(ATTN_PROBLEM), dtype="float32",
-              config=list(attn["choice"]), **in_prefill("flash_attention"),
+              config=list(attn["choice"]),
+              bfloat16=attn_bwd["forward_bfloat16"],
+              **in_prefill("flash_attention"),
               **in_admission("flash_attention"),
               **in_train_step("flash_attention")),
         entry("flash_attention_bwd", f"{csrc}/flash_attention_bwd.cu",
@@ -3163,6 +3278,9 @@ def main() -> int:
               library="the backward of torch.nn.functional."
               "scaled_dot_product_attention (is_causal=True, float32, TF32 "
               "off)", shape=list(ATTN_PROBLEM), dtype="float32",
+              route_detail="mma.sync: float32 as 3xTF32, bfloat16 with dS "
+              "as hi + lo", bound_ms_ffma=attn_bwd["bound_ms_ffma"],
+              bfloat16=attn_bwd["bfloat16"], sass_hmma=attn_bwd["sass_hmma"],
               config=[attn_bwd["blk"], attn_bwd["blk"], ATTN_PROBLEM[4]],
               passes_registers=bwd_regs, **in_train_step(
                   "flash_attention_bwd")),

@@ -27,8 +27,12 @@ which also writes each row's log-sum-exp, and a backward through
 :func:`flash_attention_bwd` -- on CUDA tensors the three hand-written
 kernels of ``csrc/flash_attention_bwd.cu`` (delta, dK/dV, dQ), on CPU
 tensors :func:`flash_attention_bwd_plain`, the same arithmetic blockwise.
-The reference has no backward kernel (it differentiates
-``chunked_attention`` in XLA); the backward takes Sq = Skv only.
+The backward kernels run their products on the tensor cores (``mma.sync``:
+bfloat16 in one rounding, float32 as three TF32 products, dS in bfloat16 as
+hi + lo) in a fixed order without atomics, so their result is the same
+bits from run to run.  The reference has no backward kernel (it
+differentiates ``chunked_attention`` in XLA); the backward takes Sq = Skv
+only.
 """
 
 from __future__ import annotations
@@ -50,8 +54,8 @@ KERNEL_HEAD_DIMS: Tuple[int, ...] = (16, 32, 64, 128)
 NEG_INF = -1e30
 #: widest column chunk of the probability tile the kernel stages at once
 PROB_CHUNK = 64
-#: the backward's blocks (bq = bkv): its float32 dK and dV accumulators
-#: would not fit in registers at the forward's 128
+#: the backward's blocks (bq = bkv): 16 rows a warp, two warps a row group;
+#: its dK and dV accumulators would not fit in registers at the forward's 128
 BWD_BLOCKS: Tuple[int, ...] = (32, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -104,11 +108,13 @@ def attn_kv_range(qblk: int, bq: int, bkv: int, skv: int, causal: bool,
 
 def attn_bwd_smem_bytes(blk: int, d: int, itemsize: int = 4) -> int:
     """Shared memory one backward block stages (the dK/dV kernel, the
-    larger of the two): q, dO, k and v tiles (blk x d each, in the
-    operands' dtype), the rounded p and dS tiles in float32 (rows padded
-    by four), and the rows' lse and delta.  blk = 64, d = 128 in float32
-    takes 166,400 bytes."""
-    return 4 * blk * d * itemsize + 4 * (2 * blk * (blk + 4) + 2 * blk)
+    larger of the two): its k and v tiles and two stages of the q and dO
+    tiles (blk x d each, in the operands' dtype), two stages of the rows'
+    lse and delta, and, for bfloat16 operands, the two column slices' dK
+    sums in float32.  blk = 64, d = 128 takes 197,632 bytes in float32
+    and 164,864 in bfloat16."""
+    dk_sums = 2 * blk * d * 4 if itemsize == 2 else 0
+    return 6 * blk * d * itemsize + 4 * 4 * blk + dk_sums
 
 
 def attn_bwd_tile_legal(s: int, blk: int, d: int, itemsize: int = 4,

@@ -23,6 +23,7 @@ class Card:
     name: str
     fp32_flops: float        # FLOP/s, float32 outside the tensor cores
     bf16_tensor_flops: float  # FLOP/s, dense bfloat16 on the tensor cores
+    tf32_tensor_flops: float  # FLOP/s, dense TF32 on the tensor cores
     hbm_bytes_per_s: float   # device-memory bandwidth
     sms: int                 # streaming multiprocessors
     power_w: float           # the power limit the rates assume
@@ -30,7 +31,8 @@ class Card:
 
 #: the H100 SXM (80 GB HBM3), the card the port is written for
 H100_SXM = Card(name="NVIDIA H100 80GB HBM3", fp32_flops=67e12,
-                bf16_tensor_flops=989e12, hbm_bytes_per_s=3.35e12, sms=132,
+                bf16_tensor_flops=989e12, tf32_tensor_flops=495e12,
+                hbm_bytes_per_s=3.35e12, sms=132,
                 power_w=700.0)
 
 CARDS: Dict[str, Card] = {c.name: c for c in (H100_SXM,)}

@@ -102,16 +102,18 @@ def test_plain_backward_matches_reference_vjp(hq, hkv, s, d, kw, dtype):
             name
 
 
-@pytest.mark.parametrize("blocks", [None, 16, 32])
+@pytest.mark.parametrize("blocks", [None, 16, 32, 64])
 @pytest.mark.parametrize("hq,hkv,s,d,kw", CASES)
 def test_blockwise_backward_equals_all_rows_at_once(hq, hkv, s, d, kw,
                                                     blocks):
     """The plain backward over the kernels' blocks (each query block
-    against only its visited kv blocks) against all rows at once."""
+    against only its visited kv blocks) against all rows at once; a block
+    longer than the sequence is the sequence."""
     q, k, v, do = _torch(_arrays(hq, hkv, s, d), "float32")
     o, lse = flash_attention_plain(q, k, v, bkv=16, return_lse=True, **kw)
     whole = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-    got = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blocks, **kw)
+    bq = None if blocks is None else min(blocks, s)
+    got = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=bq, **kw)
     for g, w in zip(got, whole):
         assert _normwise(_np(g), _np(w)) <= 1e-6
 
@@ -185,15 +187,21 @@ def test_backward_blocks_and_legality():
     assert BWD_BLOCKS == (32, 64)
     assert attn_bwd_blocks(4096) == 64 and attn_bwd_blocks(96) == 32
     assert attn_bwd_blocks(48) == 48          # none divides: one block
-    assert attn_bwd_smem_bytes(64, 128) == 166_400
-    assert attn_bwd_smem_bytes(64, 128, itemsize=2) == 100_864
+    # k, v and two stages of q and dO; two stages of lse and delta; in
+    # bfloat16 also two column slices' float32 dK sums
+    assert attn_bwd_smem_bytes(64, 128) == 197_632
+    assert attn_bwd_smem_bytes(64, 128, itemsize=2) == 164_864
+    assert attn_bwd_smem_bytes(32, 128, itemsize=2) == 82_432
     for blk in BWD_BLOCKS:
         for d in KERNEL_HEAD_DIMS:
-            assert attn_bwd_tile_legal(4096, blk, d)
+            for itemsize in (4, 2):
+                assert attn_bwd_tile_legal(4096, blk, d, itemsize)
     assert not attn_bwd_tile_legal(48, 48, 16)       # block not built
     assert not attn_bwd_tile_legal(96, 64, 16)       # does not divide
     assert not attn_bwd_tile_legal(128, 64, 96)      # head dim not built
     assert not attn_bwd_tile_legal(128, 64, 128, smem_limit=100_000)
+    assert not attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=164_863)
+    assert attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=164_864)
 
 
 # ---------------------------------------------------------------- on card --
@@ -231,6 +239,40 @@ def test_backward_kernels_match_plain_on_the_card(card, hq, hkv, s, d, kw,
     for g, w in zip(got, want):
         assert _normwise(g.float().cpu().numpy(), w.float().cpu().numpy()) \
             <= tol
+    # every block that divides the sequence, called directly, twice: the
+    # same bits each time
+    for blk in (b for b in BWD_BLOCKS if s % b == 0):
+        first = flash_attention_bwd(q, k, v, o, lse, do, blk=blk, **kw)
+        again = flash_attention_bwd(q, k, v, o, lse, do, blk=blk, **kw)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk, **kw)
+        for g, h, w in zip(first, again, want):
+            assert torch.equal(g, h)
+            assert _normwise(g.float().cpu().numpy(),
+                             w.float().cpu().numpy()) <= tol
+
+
+@pytest.mark.cuda
+def test_backward_refuses_what_the_kernels_do_not_take(card):
+    """A CUDA operand the kernels do not take raises; nothing falls back
+    to the plain version."""
+    q, k, v, do = (t.to(card) for t in _torch(_arrays(4, 2, 64, 32),
+                                              "float32"))
+    o, lse = flash_attention_fwd(q, k, v, bq=16, bkv=16)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="do not take"):
+        flash_attention_bwd(q, k, v, o, lse, do, blk=16)  # block not built
+    q48, k48, v48, do48 = (t.to(card) for t in _torch(
+        _arrays(4, 2, 48, 32), "float32"))
+    o48, lse48 = flash_attention_fwd(q48, k48, v48, bq=16, bkv=16)
+    with pytest.raises(ValueError, match="do not take"):
+        flash_attention_bwd(q48, k48, v48, o48, lse48, do48)  # 48: no block
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            k, v, o, lse, do)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_bwd(q.half(), k.half(), v.half(), o.half(), lse,
+                            do.half())
+    assert flash_attention_bwd.launches == before
 
 
 @pytest.mark.cuda

@@ -314,6 +314,7 @@ def test_card_constants_are_keyed_by_device_name():
     # NVIDIA's published dense rates for the SXM part at 700 W
     assert H100_SXM.fp32_flops == 67e12
     assert H100_SXM.bf16_tensor_flops == 989e12
+    assert H100_SXM.tf32_tensor_flops == 495e12
     assert peak_flops(H100_SXM, torch.bfloat16) == 989e12
     assert peak_flops(H100_SXM, torch.float32) == 67e12
     with pytest.raises(ValueError, match="no peak rate"):

@@ -28,8 +28,12 @@ version, and drives every path of the port on the card:
 5. the matmul at 4096^3 beside its plain version and ``torch.matmul``;
 6. kernel check: flash attention and the SSD scan against their plain
    versions on the reference tests' cases, then at gemma2-27b's attention
-   width (local and global layers, float32 and bfloat16) and at
-   mamba2-2.7b's SSD width, each timed beside its bound;
+   width (local and global layers, float32 and bfloat16), at the head dims
+   the wrapper zero-pads to 128 (hubert-xlarge's 80, non-causal, and
+   phi3-mini-3.8b's 96, causal, at 4096 tokens, both dtypes and both
+   masks, each architecture's own mask timed beside SDPA at the same head
+   dim and the bound at the true one) and at mamba2-2.7b's SSD width, each
+   timed beside its bound;
 7. the attention tile path: sweep the legal (bq, bkv, 128) blocks on their
    proxies and rank them for gemma2-27b's query heads at 4096 tokens; then
    run every legal block there, check and time it, and compare orders;
@@ -71,10 +75,13 @@ version, and drives every path of the port on the card:
    flash-attention kernel and every Mamba layer's through the SSD kernel;
    each kernel's share of the prefill is read with CUDA events around its
    calls, and one more prefill runs under ``torch.profiler`` for the
-   device's busy share.  The checks (12c) cut both to 2 periods: the
-   kernel route against the plain route on the same parameters and
-   prompt, and prefill logits against a 256-token decode replay in
-   float32;
+   device's busy share; each prefill's model FLOPs (``perf.analytic``),
+   model TFLOP/s and their share of the bfloat16 tensor peak (mfu) are
+   printed.  The checks (12c) cut both to 2 periods: the kernel route
+   against the plain route on the same parameters and prompt, and prefill
+   logits against a 256-token decode replay in float32; and hubert-xlarge
+   and phi3-mini-3.8b at full width cut to 2 layers, kernel route against
+   plain route in both dtypes (attention at head dims 80 and 96);
 13. the serve path: gemma2-27b (bfloat16) and mamba2-2.7b (float32) at
    full width and depth served through the port's ``ServeEngine`` (4
    slots, 4096-token context) under FIFO over an open-loop smoke trace of
@@ -92,13 +99,16 @@ version, and drives every path of the port on the card:
    s).  The checks at 2 periods, on 256-slot rings and at the timed
    path's shape: two admissions' caches against a hand-driven decode
    replay (float32), the kernel route against the plain route, and the
-   same tokens from both routes on a FIFO trace;
+   same tokens from both routes on a FIFO trace; 13e runs ``python -m
+   repro_torch.launch.serve --arch gemma2-27b`` in a child process and
+   prints its line;
 14. the train path: (14a) the flash-attention backward kernels (delta,
    dK/dV, dQ) against their plain version on the kernel forward's output
    and row log-sum-exp, at every instantiated (block, head dim) in both
    dtypes and two masks, and at gemma2-27b's widths over 4096 tokens, then
    timed at (1, 32, 4096, 4096, 128) causal float32 beside the plain
-   backward, its bound and the backward of PyTorch's SDPA; (14b) every
+   backward, its bound and the backward of PyTorch's SDPA, and at head dim
+   96 (phi3-mini-3.8b's, padded to 128) in both dtypes; (14b) every
    parameter's gradient of ``loss_fn`` at gemma2-27b's full width cut to
    one period (batch 1 x 512), kernel route against plain route, in both
    dtypes; (14c) gemma2-27b at full width cut to 2 periods (4 layers,
@@ -108,22 +118,38 @@ version, and drives every path of the port on the card:
    (attention forward and backward, products, AdamW, idle); (14d) a small
    config trained on the card, checkpointed asynchronously and resumed in
    a fresh ``train``, its losses equal to an uninterrupted run's bit for
-   bit;
+   bit; 14c's model FLOPs, TFLOP/s and mfu;
+15. the Mamba train path: (15a) the SSD backward kernels (each chunk's
+   D_c, the reverse state pass, the chunk backward, the fixed-order
+   finish) against the plain backward in float64 on the kernel forward's
+   own s and h_in, at every instantiated (P, N) and chunks 16, 32, 64 and
+   256, with and without h0 and a final-state gradient, and at
+   mamba2-2.7b's width at chunks 64 and 256, each called twice and held to
+   the same bits, the latter timed beside the float32 plain backward and
+   the bound; (15b) every parameter's gradient of ``loss_fn`` at
+   mamba2-2.7b's full width cut to 2 layers (batch 1 x 512), kernel route
+   against plain route in both dtypes; (15c) mamba2-2.7b at full width
+   and depth (64 layers, 2.70 B parameters, bfloat16, float32 AdamW
+   moments) trained for 8 steps on batch 1 x 4096 tokens through
+   ``train``, then one step under ``torch.profiler`` (SSD forward and
+   backward, products, AdamW, idle), with the step's model FLOPs, TFLOP/s
+   and mfu;
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13 and 14c and
-read just after (the paths 9 and 10 launch none of the kernels); the
-checks and timings of phases 2, 5, 6, 14a, 14b and 14d, and those after
-each path, are not counted.
+just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c and 15c
+and read just after (the paths 9 and 10 launch none of the kernels; 14c
+and 15c add to one path, ``train``); the checks and timings of phases 2,
+5, 6, 14a, 14b, 14d, 15a and 15b, and those after each path, are not
+counted.
 
 The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits nonzero and prints no result.  Long outputs (the compilers'
 reports, the fitted models, per-config times) go to
-``chiprun_out/chip_smoke/`` (phases 9, 10, 11, 12, 13 and 14 under
-``contractions``, ``torch_engine``, ``store``, ``models``, ``serve`` and
-``train`` in ``result.json``; the stores as
+``chiprun_out/chip_smoke/`` (phases 9, 10, 11, 12, 13, 14 and 15 under
+``contractions``, ``torch_engine``, ``store``, ``models``, ``serve``,
+``train`` and ``train_mamba`` in ``result.json``; the stores as
 ``store_*.json``, the scoreboard as ``TOURNAMENT.json``).
 """
 
@@ -1757,6 +1783,8 @@ def kernel_class(name: str) -> str:
         return "flash_attention_bwd"
     if "attn_kernel" in low:
         return "flash_attention"
+    if "ssd_bwd" in low:
+        return "ssd_bwd"
     if "ssd_" in low:
         return "ssd"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
@@ -1879,6 +1907,7 @@ def drive_model(dev, card, arch, dtype_name, batch, s, seed) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     decode_ms = sorted(step_ms)[len(step_ms) // 2]
+    mf = model_flops(cfg, "prefill", batch, s, prefill_ms, card)
     kernel_ms = prof["by_class_ms"].get(kernel, 0.0) if prof["measured"] \
         else None
     share = None if kernel_ms is None else kernel_ms / prefill_ms
@@ -1893,7 +1922,7 @@ def drive_model(dev, card, arch, dtype_name, batch, s, seed) -> dict:
            "decode_weight_bound_ms":
                weight_bytes / card.hbm_bytes_per_s * 1e3,
            "peak_bytes": peak, "profile": prof,
-           "decode_profile": decode_prof}
+           "decode_profile": decode_prof, **mf}
     log(f"  {arch} {dtype_name}, {cfg.n_layers} layers, "
         f"{n_params / 1e9:.2f} B parameters ({weight_bytes / 1e9:.1f} GB, "
         f"init {init_s:.1f} s), batch {batch} x {s} tokens: prefill "
@@ -1909,6 +1938,7 @@ def drive_model(dev, card, arch, dtype_name, batch, s, seed) -> dict:
         f"{batch * 1e3 / decode_ms:.1f} tokens/s; weights over HBM "
         f"{out['decode_weight_bound_ms']:.2f} ms a step; peak memory "
         f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    log_model_flops(f"{arch} prefill of {batch} x {s}", mf)
     log_profile(f"{arch} prefill", prof)
     log_profile(f"{arch} decode step {s + DECODE_STEPS}", decode_prof)
     return out
@@ -2656,6 +2686,31 @@ def check_attention_bwd(card) -> dict:
             del o, lse
         del ops, q, k, v, do
 
+    # phi3-mini-3.8b's head dim 96, zero-padded to 128 in the wrappers
+    padded = {}
+    b, h, s = 1, 32, TRAIN_SEQ
+    blk = attn_bwd_blocks(s)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v, do = operands(b, h, h, s, 96, dtype)
+        errs, max_abs, lse_ratio = check(f"head dim 96 ({name})", q, k, v,
+                                         do, blk, {})
+        o, lse = flash_attention_fwd(q, k, v)
+        ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 3)
+        flops, nbytes = attn_bwd_work(b, h, h, s, 96, True, 0,
+                                      q.element_size())
+        bd = bwd_bound(flops, nbytes, dtype, card)
+        log(f"  attention backward (1, 32, {s}, {s}, 96) causal {name} "
+            f"(phi3-mini-3.8b's head dim, padded to 128), block {blk}: "
+            f"normwise dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
+            f"{errs['dv']:.3e} (bound {WIDE_TOL[name]:.3e}), lse ratio "
+            f"{lse_ratio:.3f}; kernel {ms:.3f} ms, bound at the true D "
+            f"{bd['bound_ms']:.3f} ms ({bd['route']})")
+        padded[name] = {"d": 96, "s": s, "blk": blk, "normwise": errs,
+                        "max_abs_err": max_abs, "lse_ratio": lse_ratio,
+                        "kernel_ms": ms, **bd}
+        del q, k, v, do, o, lse
+
     b, h, s, _, d = ATTN_PROBLEM
     blk = attn_bwd_blocks(s)
     timed = {}
@@ -2708,7 +2763,7 @@ def check_attention_bwd(card) -> dict:
         del q, k, v, do, o, lse, leaves, sdpa_out
     sass = check_bwd_sass(sass_proc)
     return {"small": small, "gemma2_27b": wide, **timed["float32"],
-            "bfloat16": timed["bfloat16"],
+            "bfloat16": timed["bfloat16"], "head_dim_96": padded,
             "forward_bfloat16": timed["forward_bfloat16"],
             "sass_hmma": sass}
 
@@ -2915,6 +2970,7 @@ def train_path(dev, card) -> dict:
     later = steps_ms[1:]
     step_ms = statistics.median(later)
     flops = train_flops(cfg, TRAIN_SEQ)
+    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, step_ms, card)
     step_fn = make_train_step(cfg, opt)
     batch = to_device(batch_at(data_cfg, TRAIN_STEPS), dev)
     prof = profile_train_step(lambda: step_fn(params, opt_state, batch))
@@ -2926,7 +2982,7 @@ def train_path(dev, card) -> dict:
            "steps_ms": steps_ms, "step_ms_median": step_ms,
            "step_ms_min": min(later), "first_step_ms": steps_ms[0],
            "tokens_per_s": TRAIN_SEQ * 1e3 / step_ms, "peak_bytes": peak,
-           "wall_s": wall_s, "products_tflop": flops / 1e12,
+           "wall_s": wall_s, "products_tflop": flops / 1e12, **mf,
            "stragglers": report.straggler_steps, "profile": prof}
     log(f"  {TRAIN_ARCH} at full width, {cfg.n_layers} layers "
         f"({n_params / 1e9:.2f} B parameters, bfloat16; AdamW float32), "
@@ -2938,6 +2994,7 @@ def train_path(dev, card) -> dict:
         f"{res['tokens_per_s']:.0f} tokens/s; products "
         f"{flops / 1e12:.1f} TFLOP a step; peak memory {peak / 1e9:.2f} GB "
         f"(torch.cuda.max_memory_allocated)")
+    log_model_flops(f"{TRAIN_ARCH} train step", mf)
     if prof["measured"]:
         log(f"  one profiled step: wall {prof['wall_ms']:.1f} ms, device busy"
             f" {prof['busy_ms']:.1f} ms, idle share "
@@ -3002,6 +3059,472 @@ def check_resume(dev) -> dict:
             "resumed_losses": rest.losses, "saved_step": saved}
 
 
+# ----------------------------------------------------------- phase 15 --
+#: 15c: mamba2-2.7b (src/repro/configs/mamba2_2_7b.py) at full width and
+#: depth trained for TRAIN_STEPS AdamW steps on train_4k's sequence at
+#: batch 1, bfloat16 parameters, float32 moments
+SSD_TRAIN_ARCH = "mamba2-2.7b"
+SSD_TRAIN_LAYERS = 64
+#: 15a: the small cases' (batch, L, H, G); each instantiated (P, N) at each
+#: chunk, h0 given at chunks 16 and 64, dh_final at 16 and 32
+SSD_BWD_SMALL = (2, 512, 4, 2)
+SSD_BWD_CHUNKS = (16, 32, 64, 256)
+SSD_BWD_MAIN_KEY = (64, 128, 64)   # the chunk pass at mamba2's (P, N, R)
+
+
+def ssd_bwd_work(b, l, h, p, g, n, chunk):
+    """(flops, bytes) the SSD's gradient needs, per head and chunk: over
+    the Q (Q + 1) / 2 kept pairs C B^T, dY X^T, G^T dY, M B and M^T C (2 N,
+    2 P, 2 P, 2 N and 2 N flops a pair), and D_c, dY h_in, X dS and B dS^T
+    (2 Q P N each); x, dy, dt, a_log, b, c, the forward's s and h_in read
+    once, dx, ddt, da_log, db, dc and dh0 written once."""
+    nc = l // chunk
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2.0 * pairs * (3 * n + 2 * p) + 8.0 * chunk * p * n
+    flops = per_chunk * b * h * nc
+    reads = 2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n + \
+        b * h * l + b * h * nc * p * n
+    writes = b * l * h * p + b * l * h + h + 2 * b * l * g * n + b * h * p * n
+    return flops, 4.0 * (reads + writes)
+
+
+def check_ssd_bwd(card) -> dict:
+    """Phase 15a: the SSD backward kernels against the plain backward in
+    float64 on the kernel forward's own s and h_in: every instantiated
+    (P, N) at each chunk of SSD_BWD_CHUNKS on a small shape, with and
+    without h0 and a final-state gradient; then mamba2-2.7b's width at
+    chunks 64 and 256.  Every gradient within 1e-5 normwise, two calls the
+    same bits; the mamba2 shapes timed beside the plain backward (float32)
+    and the bound."""
+    import torch
+    from repro_torch.kernels.ssd import (KERNEL_HEAD_DIMS, KERNEL_STATES,
+                                         _kernel_parts, ssd_bwd,
+                                         ssd_bwd_plain)
+    names = ("dx", "ddt", "da_log", "db", "dc", "dh0")
+    tol = WIDE_TOL["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    def inputs(b, l, h, p, g, n, with_h0, with_dh):
+        x = randn(b, l, h, p)
+        dt = torch.rand(b, l, h, generator=gen, device="cuda") * 0.1 + 1e-3
+        a_log = randn(h, scale=0.5)
+        bb, cc = randn(b, l, g, n, scale=n ** -0.5), \
+            randn(b, l, g, n, scale=n ** -0.5)
+        h0 = randn(b, h, p, n) if with_h0 else None
+        dy = randn(b, l, h, p)
+        dh = randn(b, h, p, n) if with_dh else None
+        return x, dt, a_log, bb, cc, h0, dy, dh
+
+    def check(label, ops, chunk):
+        x, dt, a_log, bb, cc, h0, dy, dh = ops
+        _, _, s, h_in = _kernel_parts(x, dt, a_log, bb, cc, chunk, h0,
+                                      want_state=False)
+        args = (x, dt, a_log, bb, cc, s, h_in, dy, dh)
+        got = ssd_bwd(*args, chunk=chunk)
+        again = ssd_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()           # a fault surfaces here
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ssd_bwd_plain(*(None if t is None else t.double()
+                               for t in args), chunk=chunk)
+        errs = dict(zip(names, grads_err(got, want).values()))
+        if not (same and max(errs.values()) <= tol):
+            raise AssertionError(f"ssd_bwd disagrees with its plain version "
+                                 f"at {label}: two calls equal {same}, "
+                                 f"normwise {errs} (bound {tol:.0e})")
+        return args, got, want, errs
+
+    small = []
+    b, l, h, g = SSD_BWD_SMALL
+    for p in KERNEL_HEAD_DIMS:
+        for n in KERNEL_STATES:
+            for chunk in SSD_BWD_CHUNKS:
+                with_h0, with_dh = chunk in (16, 64), chunk in (16, 32)
+                _, _, _, errs = check(
+                    f"P {p}, N {n}, chunk {chunk}",
+                    inputs(b, l, h, p, g, n, with_h0, with_dh), chunk)
+                small.append({"p": p, "n": n, "chunk": chunk,
+                              "h0": with_h0, "dh_final": with_dh,
+                              "normwise": errs})
+    worst = max(small, key=lambda r: max(r["normwise"].values()))
+    log(f"  SSD backward kernels at all {len(small)} (P, N, chunk) cases of "
+        f"{SSD_BWD_SMALL} (batch, L, H, G), two calls bit for bit, every "
+        f"gradient within {tol:.0e} normwise of the float64 plain backward;"
+        f" worst {max(worst['normwise'].values()):.3e} at P {worst['p']}, N "
+        f"{worst['n']}, chunk {worst['chunk']}")
+    wide = {}
+    for chunk in (64, SSD_MODEL_CHUNK):
+        ops = inputs(*SSD_PROBLEM, False, False)
+        args, got, want, errs = check(f"mamba2-2.7b, chunk {chunk}", ops,
+                                      chunk)
+        max_abs = max(float((a.double() - w).abs().max())
+                      for a, w in zip(got, want))
+        plain32 = dict(zip(names, grads_err(
+            ssd_bwd_plain(*args, chunk=chunk), want).values()))
+        del got, want
+        kernel_ms = event_ms(lambda: ssd_bwd(*args, chunk=chunk), TIME_REPS)
+        plain_ms = event_ms(lambda: ssd_bwd_plain(*args, chunk=chunk), 3)
+        flops, nbytes = ssd_bwd_work(*SSD_PROBLEM, chunk)
+        bd = bound(flops, nbytes, card.fp32_flops, card)
+        log(f"  mamba2-2.7b SSD backward {SSD_PROBLEM}, chunk {chunk}, two "
+            f"calls bit for bit: normwise vs float64 " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()) + " (the float32 "
+            f"plain backward: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in plain32.items()) + f"); kernel "
+            f"{kernel_ms:.3f} ms (four launches), plain {plain_ms:.3f} ms "
+            f"(float32), bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+            f"{flops / 1e9:.1f} GFLOP at {card.fp32_flops / 1e12:.0f} "
+            f"TFLOP/s FP32); {flops / kernel_ms / 1e9:.1f} TFLOP/s")
+        wide[chunk] = {"chunk": chunk, "normwise": errs,
+                       "plain32_normwise": plain32, "err": max_abs,
+                       "deterministic": True, "kernel_ms": kernel_ms,
+                       "plain_ms": plain_ms, "library_ms": None, **bd}
+        del ops, args
+    return {"small": small, "mamba2_2_7b": wide,
+            **wide[SSD_MODEL_CHUNK]}
+
+
+def check_ssd_train_grads(dev) -> dict:
+    """Phase 15b: every parameter's gradient of ``loss_fn`` through the SSD
+    kernels (forward and backward) against the plain route (autograd
+    through ``ssd_plain``) at mamba2-2.7b's full width cut to
+    CHECK_PERIODS periods (2 layers), batch 1 x GRAD_SEQ tokens, in
+    float32 and bfloat16."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.data import DataConfig, batch_at, to_device
+    cfg = dataclasses.replace(get_config(SSD_TRAIN_ARCH),
+                              n_layers=CHECK_PERIODS)
+    res = {}
+    for seed, dtype_name in enumerate(("float32", "bfloat16")):
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            500 + seed), dtype, dev)
+        for p in params.parameters():
+            p.requires_grad_(True)
+        names = [n for n, _ in params.named_parameters()]
+        leaves = list(params.parameters())
+        batch = to_device(batch_at(DataConfig(
+            vocab=cfg.vocab, seq_len=GRAD_SEQ, global_batch=1,
+            seed=500 + seed), 0), dev)
+        fwd, bwd = ssd.launches, ssd_bwd.launches
+        loss_k = loss_fn(cfg, params, batch["inputs"], batch["labels"])
+        got = torch.autograd.grad(loss_k, leaves)
+        torch.cuda.synchronize()
+        fwd, bwd = ssd.launches - fwd, ssd_bwd.launches - bwd
+        loss_p = loss_fn(cfg, params, batch["inputs"], batch["labels"],
+                         use_kernel=False)
+        want = torch.autograd.grad(loss_p, leaves)
+        errs = {names[i]: e for i, e in grads_err(got, want).items()}
+        tol = GRAD_TOL[dtype_name]
+        worst = max(errs, key=errs.get)
+        log(f"  {SSD_TRAIN_ARCH} {dtype_name} at {cfg.n_layers} layers, batch"
+            f" 1 x {GRAD_SEQ}: loss kernel route {float(loss_k.detach()):.6f}"
+            f", plain {float(loss_p.detach()):.6f}; {len(errs)} gradient "
+            f"leaves, kernel route vs plain route normwise worst "
+            f"{errs[worst]:.3e} ({worst}), a_log " + ", ".join(
+                f"{errs[n]:.3e}" for n in names if n.endswith("a_log")) +
+            f" (bound {tol:.0e}); {fwd} forward and {bwd} backward SSD "
+            f"launches (remat runs each layer's forward twice)")
+        if not (max(errs.values()) <= tol and bwd == cfg.n_layers and
+                fwd == 2 * cfg.n_layers):
+            raise AssertionError(f"{SSD_TRAIN_ARCH} {dtype_name}: the kernel "
+                                 f"route's gradients disagree or the kernels"
+                                 f" were not launched: {errs}, {fwd} / {bwd}"
+                                 f" launches")
+        res[dtype_name] = {"layers": cfg.n_layers, "tokens": GRAD_SEQ,
+                           "loss_kernel": float(loss_k.detach()),
+                           "loss_plain": float(loss_p.detach()), "tol": tol,
+                           "normwise": errs, "forward_launches": fwd,
+                           "backward_launches": bwd}
+        del got, want, loss_k, loss_p, params, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def model_flops(cfg, kind: str, batch: int, seq: int, ms: float,
+                card) -> dict:
+    """The model FLOPs of one step by ``repro_torch.perf.analytic``
+    (``cell_cost``: the forward's products and scores, training as 4
+    forwards with per-period remat), the achieved model TFLOP/s over
+    ``ms`` and their share of the card's bfloat16 tensor peak (``mfu``)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.perf.analytic import cell_cost
+    flops = cell_cost(cfg, ShapeSpec(kind, seq, batch, kind)).flops
+    rate = flops / ms / 1e9
+    return {"model_flops": flops, "model_tflops_per_s": rate,
+            "mfu": rate * 1e12 / card.bf16_tensor_flops,
+            "peak_tflops_per_s": card.bf16_tensor_flops / 1e12}
+
+
+def log_model_flops(what: str, mf: dict) -> None:
+    log(f"  {what}: {mf['model_flops'] / 1e12:.2f} model TFLOP a step "
+        f"(perf.analytic.cell_cost), {mf['model_tflops_per_s']:.1f} TFLOP/s,"
+        f" mfu {100 * mf['mfu']:.2f} % of {mf['peak_tflops_per_s']:.0f} "
+        f"TFLOP/s bf16")
+
+
+def ssd_train_path(dev, card) -> dict:
+    """Phase 15c: mamba2-2.7b at full width and SSD_TRAIN_LAYERS layers
+    trained for TRAIN_STEPS AdamW steps on train_4k's sequence at batch 1
+    through the port's ``train`` (random bfloat16 parameters from a seeded
+    card generator, float32 moments, per-period remat, chunked cross
+    entropy): every Mamba layer's scan through the SSD kernels and its
+    gradient through the SSD backward kernels; then one more step under
+    the profiler."""
+    import dataclasses
+    import gc
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.data import DataConfig, batch_at, to_device
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    class MarkedAdamW(AdamW):
+        """AdamW whose update opens a ``record_function`` range."""
+        __slots__ = ()
+
+        def update(self, *args, **kwargs):
+            with torch.profiler.record_function("adamw"):
+                return super().update(*args, **kwargs)
+
+    cfg = dataclasses.replace(get_config(SSD_TRAIN_ARCH),
+                              n_layers=SSD_TRAIN_LAYERS)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=1, seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = MarkedAdamW(lr=TRAIN_LR)
+    t0 = time.perf_counter()
+    params, opt_state, report = train(
+        cfg, data_cfg, TrainConfig(steps=TRAIN_STEPS), opt=opt,
+        dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    losses = report.losses
+    ln_v = math.log(cfg.vocab)
+    if len(losses) != TRAIN_STEPS or report.skipped_nan_steps or \
+            not all(math.isfinite(x) for x in losses) or \
+            not abs(losses[0] - ln_v) <= 2.0:
+        raise AssertionError(f"{SSD_TRAIN_ARCH} training went wrong: losses "
+                             f"{losses}, skipped {report.skipped_nan_steps}"
+                             f" (the first should be near ln V = "
+                             f"{ln_v:.3f})")
+    steps_ms = [t * 1e3 for t in report.step_times]
+    later = steps_ms[1:]
+    step_ms = statistics.median(later)
+    step_fn = make_train_step(cfg, opt)
+    batch = to_device(batch_at(data_cfg, TRAIN_STEPS), dev)
+    prof = profile_train_step(lambda: step_fn(params, opt_state, batch))
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = TRAIN_STEPS + 1
+    fwd, bwd = ssd.launches, ssd_bwd.launches
+    if fwd != 2 * steps * cfg.n_layers or bwd != steps * cfg.n_layers:
+        raise AssertionError(f"{steps} steps of {cfg.n_layers} Mamba layers "
+                             f"launched the SSD forward {fwd} and its "
+                             f"backward {bwd} times, not "
+                             f"{2 * steps * cfg.n_layers} and "
+                             f"{steps * cfg.n_layers}")
+    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, step_ms, card)
+    res = {"arch": SSD_TRAIN_ARCH, "layers": cfg.n_layers,
+           "params": n_params, "tokens": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "steps_ms": steps_ms, "step_ms_median": step_ms,
+           "step_ms_min": min(later), "first_step_ms": steps_ms[0],
+           "tokens_per_s": TRAIN_SEQ * 1e3 / step_ms, "peak_bytes": peak,
+           "wall_s": wall_s, "ssd_launches": fwd, "ssd_bwd_launches": bwd,
+           **mf, "stragglers": report.straggler_steps, "profile": prof}
+    log(f"  {SSD_TRAIN_ARCH} at full width, {cfg.n_layers} layers "
+        f"({n_params / 1e9:.2f} B parameters, bfloat16; AdamW float32), "
+        f"batch 1 x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps in {wall_s:.1f}"
+        f" s: losses " + ", ".join(f"{x:.4f}" for x in losses) +
+        f" (ln V = {ln_v:.4f}); {fwd} SSD forward and {bwd} backward "
+        f"launches over {steps} steps")
+    log(f"  step ms after the first: median {step_ms:.1f}, min "
+        f"{min(later):.1f} (first {steps_ms[0]:.1f}); "
+        f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    log_model_flops(f"{SSD_TRAIN_ARCH} train step", mf)
+    if prof["measured"]:
+        log(f"  one profiled step: wall {prof['wall_ms']:.1f} ms, device busy"
+            f" {prof['busy_ms']:.1f} ms, idle share "
+            f"{100 * prof['idle_share']:.1f} %; by class: " + ", ".join(
+                f"{k} {v:.1f} ms ({100 * prof['shares'][k]:.1f} %)"
+                for k, v in sorted(prof["by_class_ms"].items(),
+                                   key=lambda kv: -kv[1])))
+    else:
+        log("  the profiled step's trace holds no device time: shares not "
+            "measured")
+    return res
+
+
+# --------------------------------------------- head dims that pad (6, 12c) --
+#: attention at the head dims the kernels pad: (arch, hq, hkv, D, causal)
+#: of hubert-xlarge (encoder, 1280 / 16) and phi3-mini-3.8b (3072 / 32) at
+#: PAD_S tokens
+PAD_ATTN = (("hubert-xlarge", 16, 16, 80, False),
+            ("phi3-mini-3.8b", 32, 32, 96, True))
+PAD_S = 4096
+
+
+def check_padded_attention(card) -> dict:
+    """Phase 6, head dims 80 and 96: the forward (zero-padded to 128 in
+    the wrapper) against its plain version at the true D, in both dtypes
+    and both masks, at hubert-xlarge's and phi3-mini-3.8b's attention
+    widths over PAD_S tokens; each architecture's own mask timed beside
+    SDPA at the same D and the bound at the true D."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     padded_head_dim)
+    from repro_torch.perf.roofline import peak_flops
+    rng = np.random.default_rng(21)
+    rows = []
+    for arch, hq, hkv, d, own_causal in PAD_ATTN:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (1, hh, PAD_S, d)).astype(np.float32)).to("cuda", dtype)
+                for hh in (hq, hkv, hkv))
+            for causal in (own_causal, not own_causal):
+                out = flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()       # a fault surfaces here
+                ref = flash_attention_plain(q, k, v, bkv=128, causal=causal)
+                err = rel_err(out, ref)
+                if not err <= WIDE_TOL[name]:
+                    raise AssertionError(
+                        f"flash_attention disagrees with its plain version "
+                        f"at {arch}'s head dim {d} ({name}, causal "
+                        f"{causal}): normwise {err:.3e}")
+                row = {"arch": arch, "d": d, "padded_to": padded_head_dim(d),
+                       "dtype": name, "causal": causal, "s": PAD_S,
+                       "normwise": err,
+                       "max_abs_err": float((out.float() - ref.float())
+                                            .abs().max())}
+                del out, ref
+                if causal == own_causal:
+                    row["kernel_ms"] = event_ms(lambda: flash_attention(
+                        q, k, v, causal=causal), TIME_REPS)
+                    row["plain_ms"] = event_ms(lambda: flash_attention_plain(
+                        q, k, v, bkv=128, causal=causal), 3)
+                    qs, ks, vs = q, k.repeat_interleave(hq // hkv, 1), \
+                        v.repeat_interleave(hq // hkv, 1)
+                    row["library_ms"] = event_ms(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=causal),
+                        TIME_REPS)
+                    flops, nbytes = attn_work(1, hq, hkv, PAD_S, d, causal,
+                                              0, q.element_size())
+                    row.update(bound(flops, nbytes, peak_flops(card, dtype),
+                                     card))
+                    row["padded_work"] = padded_head_dim(d) / d
+                    log(f"  {arch} attention (1, {hq}, {PAD_S}, {PAD_S}, {d})"
+                        f" {'causal' if causal else 'non-causal'} {name}, "
+                        f"padded to {padded_head_dim(d)}: normwise "
+                        f"{err:.3e} (bound {WIDE_TOL[name]:.0e}); kernel "
+                        f"{row['kernel_ms']:.3f} ms, plain "
+                        f"{row['plain_ms']:.3f} ms, SDPA at D {d} "
+                        f"{row['library_ms']:.3f} ms, bound at the true D "
+                        f"{row['bound_ms']:.3f} ms ({row['bound_by']}); the "
+                        f"padded route does {row['padded_work']:.2f}x the "
+                        f"needed work")
+                else:
+                    log(f"  {arch} attention at D {d}, "
+                        f"{'causal' if causal else 'non-causal'} {name}: "
+                        f"normwise {err:.3e} (bound {WIDE_TOL[name]:.0e})")
+                rows.append(row)
+            del q, k, v
+    return {"padded_head_dims": rows}
+
+
+def check_padded_models(dev) -> dict:
+    """Phase 12c, head dims that pad: hubert-xlarge (D 80, non-causal, the
+    audio frontend's frame embeddings) and phi3-mini-3.8b (D 96) at full
+    width cut to CHECK_PERIODS layers, the kernel route's logits against
+    the plain route's on the same parameters and inputs, both dtypes."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import forward, init_params
+    res = {}
+    for seed, (arch, *_rest) in enumerate(PAD_ATTN):
+        cfg = dataclasses.replace(get_config(arch), n_layers=CHECK_PERIODS)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            gen = torch.Generator(device=dev).manual_seed(600 + seed)
+            params = init_params(cfg, gen, dtype, dev)
+            if cfg.frontend == "none":
+                inputs = model_inputs(cfg, 1, PAD_S, gen)
+            else:
+                inputs = torch.randn((1, PAD_S, cfg.frontend_dim),
+                                     generator=gen, device=dev)
+            calls = flash_attention.launches
+            got = forward(cfg, params, inputs)
+            torch.cuda.synchronize()
+            calls = flash_attention.launches - calls
+            want = forward(cfg, params, inputs, use_kernel=False)
+            err = rel_err(got, want)
+            tol = ROUTE_TOL[dtype_name]
+            log(f"  {arch} {dtype_name} at {cfg.n_layers} layers (head dim "
+                f"{cfg.head_dim_}), 1 x {PAD_S}: kernel route vs plain route"
+                f" logits normwise {err:.3e} (bound {tol:.0e}); {calls} "
+                f"attention kernel launches")
+            if not (err <= tol and calls == cfg.n_layers and
+                    torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{arch} {dtype_name}: the kernel route "
+                                     f"disagrees ({err:.3e}) or launched "
+                                     f"{calls} times")
+            res[f"{arch}/{dtype_name}"] = {"layers": cfg.n_layers,
+                                           "head_dim": cfg.head_dim_,
+                                           "normwise": err, "tol": tol,
+                                           "launches": calls}
+            del params, inputs, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    return res
+
+
+def serve_launcher() -> dict:
+    """Phase 13e: ``python -m repro_torch.launch.serve --arch gemma2-27b``
+    in a child process on the card, at the launcher's reduced defaults;
+    its line must be the reference's."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", "gemma2-27b"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+        else ""
+    log(f"  python -m repro_torch.launch.serve --arch gemma2-27b: exit "
+        f"{proc.returncode} in {wall_s:.1f} s: {line}")
+    if proc.returncode or not line.startswith("arch=gemma2-27b-smoke "
+                                              "requests=6 decode_steps="):
+        raise AssertionError(f"the serve launcher failed: {proc.returncode}"
+                             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return {"line": line, "wall_s": wall_s}
+
+
 # ---------------------------------------------------------------- main --
 
 
@@ -3017,7 +3540,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.matmul import matmul, matmul_plain
-    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
     from repro_torch.perf.roofline import card_of
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -3027,8 +3550,8 @@ def main() -> int:
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
     libs = _build.build_all(["matmul", "flash_attention",
-                             "flash_attention_bwd", "ssd"])
-    log(f"    kernel build (four nvcc at once) "
+                             "flash_attention_bwd", "ssd", "ssd_bwd"])
+    log(f"    kernel build (five nvcc at once) "
         f"{time.perf_counter() - t0:.1f} s -> " +
         ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     ptxas = {}
@@ -3058,15 +3581,19 @@ def main() -> int:
     # the main path: each of its paths runs with every kernel's count set
     # to 0 just before it and read just after
     wrappers = {"matmul": matmul, "flash_attention": flash_attention,
-                "flash_attention_bwd": flash_attention_bwd, "ssd": ssd}
+                "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
+                "ssd_bwd": ssd_bwd}
     launches = {name: {} for name in wrappers}
 
     def counted(path, label, fn, *args):
+        """Run ``fn`` as phase ``label`` with every count set to 0 just
+        before it, and add the counts read just after to ``path``'s (the
+        train path is 14c and 15c)."""
         for w in wrappers.values():
             w.launches = 0
         out = phase(label, fn, *args)
         for name, w in wrappers.items():
-            launches[name][path] = w.launches
+            launches[name][path] = launches[name].get(path, 0) + w.launches
         return out
 
     log(f"[3] paper path: potrf at n={N}, b in {BLOCK_SIZES}")
@@ -3099,6 +3626,7 @@ def main() -> int:
     log("[6] kernel check (CUDA flash attention and SSD vs their plain "
         "versions)")
     wide = phase("6 attention", check_attention, the_card)
+    wide.update(phase("6 padded", check_padded_attention, the_card))
     wide.update(phase("6 ssd", check_ssd, the_card))
 
     session = tuned["session"]
@@ -3148,6 +3676,8 @@ def main() -> int:
         f"{CHECK_PERIODS} periods")
     model_runs = counted("models", "12", models_path, dev, the_card)
     model_checks = phase("12 check", check_models, dev)
+    model_checks["padded_head_dims"] = phase("12c padded",
+                                             check_padded_models, dev)
 
     log(f"[13] serve path: {', '.join(a for a, _ in SERVE_RUNS)} served "
         f"through the port's ServeEngine ({SERVE_SLOTS} slots x "
@@ -3155,6 +3685,8 @@ def main() -> int:
         f"checks at {CHECK_PERIODS} periods")
     serving = counted("serve", "13", serve_path, dev)
     serve_checks = phase("13 check", check_serve, dev)
+    log("[13e] the serve launcher, in a child process")
+    serve_checks["launcher"] = phase("13e", serve_launcher)
 
     log(f"[14] train path: the attention backward kernels, {TRAIN_ARCH}'s "
         f"gradients at full width, {TRAIN_STEPS} AdamW steps at full width "
@@ -3169,6 +3701,18 @@ def main() -> int:
     training = counted("train", "14c", train_path, dev, the_card)
     log("[14d] resume after an asynchronous checkpoint, on the card")
     resume = phase("14d", check_resume, dev)
+
+    log(f"[15] Mamba train path: the SSD backward kernels, "
+        f"{SSD_TRAIN_ARCH}'s gradients at full width, {TRAIN_STEPS} AdamW "
+        f"steps at full width ({SSD_TRAIN_LAYERS} layers, 1 x {TRAIN_SEQ} "
+        f"tokens, bfloat16)")
+    log("[15a] SSD backward kernels vs their plain version")
+    ssd_bwd_res = phase("15a", check_ssd_bwd, the_card)
+    log(f"[15b] {SSD_TRAIN_ARCH} gradients at full width: kernel route vs "
+        f"plain route")
+    ssd_grads = phase("15b", check_ssd_train_grads, dev)
+    log(f"[15c] {SSD_TRAIN_ARCH} trained at full width through train()")
+    ssd_training = counted("train", "15c", ssd_train_path, dev, the_card)
 
     regs = {}
     for name, keys in selected_ptxas_keys(
@@ -3192,7 +3736,8 @@ def main() -> int:
                        ("flash_attention", "models"), ("ssd", "models"),
                        ("flash_attention", "serve"), ("ssd", "serve"),
                        ("flash_attention", "train"),
-                       ("flash_attention_bwd", "train")):
+                       ("flash_attention_bwd", "train"), ("ssd", "train"),
+                       ("ssd_bwd", "train")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -3241,16 +3786,25 @@ def main() -> int:
             f"spills {bwd_regs[what]['spill_store_bytes']} B stored / "
             f"{bwd_regs[what]['spill_load_bytes']} B loaded (ptxas)")
 
-    def in_train_step(kernel):
-        prof = training["profile"]
+    def in_train_step(kernel, run=training):
+        prof = run["profile"]
         if not prof["measured"]:
             return {"train_step": {"measured": False}}
         ms = prof["by_class_ms"].get(kernel, 0.0)
         return {"train_step": {
-            "arch": training["arch"], "layers": training["layers"],
-            "tokens": training["tokens"], "dtype": "bfloat16",
+            "arch": run["arch"], "layers": run["layers"],
+            "tokens": run["tokens"], "dtype": "bfloat16",
             "step_wall_ms": prof["wall_ms"], "kernel_ms": ms,
             "kernel_share": ms / prof["wall_ms"]}}
+    key = ("ssd_bwd_chunk_kernel", "float32", SSD_BWD_MAIN_KEY)
+    if key not in ptxas:
+        raise AssertionError(f"no ptxas report for the SSD backward's {key}")
+    ssd_bwd_regs = dict(zip(("registers", "spill_store_bytes",
+                             "spill_load_bytes"), ptxas[key]))
+    log(f"  ssd_bwd's chunk pass at (P, N, R) = {SSD_BWD_MAIN_KEY} uses "
+        f"{ssd_bwd_regs['registers']} registers, spills "
+        f"{ssd_bwd_regs['spill_store_bytes']} B stored / "
+        f"{ssd_bwd_regs['spill_load_bytes']} B loaded (ptxas)")
     kernels = {"kernels": [
         entry("matmul", f"{csrc}/matmul.cu",
               "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
@@ -3266,6 +3820,8 @@ def main() -> int:
               shape=list(ATTN_PROBLEM), dtype="float32",
               config=list(attn["choice"]),
               bfloat16=attn_bwd["forward_bfloat16"],
+              head_dim_96=[r for r in wide["padded_head_dims"]
+                           if r["d"] == 96 and "kernel_ms" in r],
               **in_prefill("flash_attention"),
               **in_admission("flash_attention"),
               **in_train_step("flash_attention")),
@@ -3290,7 +3846,18 @@ def main() -> int:
               shape=list(SSD_PROBLEM), dtype="float32",
               config=list(ssd_res["choice"]),
               passes_ms=ssd_res["passes_ms"], passes_registers=regs["ssd"],
-              **in_prefill("ssd"), **in_admission("ssd")),
+              **in_prefill("ssd"), **in_admission("ssd"),
+              **in_train_step("ssd", ssd_training)),
+        entry("ssd_bwd", f"{csrc}/ssd_bwd.cu",
+              "none: no Pallas body. The backward of "
+              "src/repro/kernels/ssd.py:30 (_ssd_kernel), which the "
+              "reference differentiates in XLA through "
+              "src/repro/models/mamba.py:55 (_ssd_chunked)", ssd_bwd_res,
+              ssd_bwd_regs, library="none", shape=list(SSD_PROBLEM),
+              dtype="float32", config=[SSD_MODEL_CHUNK, SSD_PROBLEM[3],
+                                       SSD_PROBLEM[5]],
+              chunk_64=ssd_bwd_res["mamba2_2_7b"][64],
+              **in_train_step("ssd_bwd", ssd_training)),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):
@@ -3304,6 +3871,8 @@ def main() -> int:
          "serve": {"runs": serving, "checks": serve_checks},
          "train": {"attention_bwd": attn_bwd, "grads": train_grads,
                    "run": training, "resume": resume},
+         "train_mamba": {"ssd_bwd": ssd_bwd_res, "grads": ssd_grads,
+                         "run": ssd_training},
          "phase_s": phase_s,
          **kernels},
         indent=1, default=str))

@@ -7,7 +7,9 @@
   _attn_kernel``, and its gradient ``flash_attention_bwd`` (three kernels:
   delta, dK/dV, dQ; the reference has no backward kernel)
 * ``ssd`` — the Mamba-2 chunked SSD scan, replacing
-  ``repro/kernels/ssd.py::_ssd_kernel``
+  ``repro/kernels/ssd.py::_ssd_kernel``, and its gradient ``ssd_bwd``
+  (four kernels: each chunk's D_c, the reverse state pass, the chunk
+  backward, the fixed-order finish; the reference has no backward kernel)
 
 ``ops`` holds the public wrappers, ``ref`` the plain PyTorch oracles.  The
 kernels are built from ``csrc/`` on first use (:mod:`._build`).
@@ -16,7 +18,7 @@ kernels are built from ``csrc/`` on first use (:mod:`._build`).
 from . import ops, ref
 from .flash_attention import flash_attention, flash_attention_bwd
 from .matmul import matmul, smem_bytes, tile_legal
-from .ssd import ssd
+from .ssd import ssd, ssd_bwd
 
 __all__ = ["ops", "ref", "matmul", "flash_attention", "flash_attention_bwd",
-           "ssd", "smem_bytes", "tile_legal"]
+           "ssd", "ssd_bwd", "smem_bytes", "tile_legal"]

@@ -33,14 +33,26 @@ hi + lo) in a fixed order without atomics, so their result is the same
 bits from run to run.  The reference has no backward kernel (it
 differentiates ``chunked_attention`` in XLA); the backward takes Sq = Skv
 only.
+
+Head dims.  The kernels are instantiated at :data:`KERNEL_HEAD_DIMS`; any
+other head dim up to 128 (hubert-xlarge's 80, phi3-mini's 96) runs at the
+next instantiated width: the wrappers zero-pad q, k and v (and o and dO
+for the backward) to it, keep the scale at 1/sqrt(D) of the true D and
+slice the results back (:func:`padded_forward`, :func:`padded_backward`).
+Zero columns add exact zeros to q k^T, to the output and to every
+gradient, so the result is the unpadded one; the work is the padded
+width's (128 / 80 = 1.6x and 128 / 96 = 1.33x at those two).  Legality
+(:func:`attn_tile_legal`, :func:`attn_bwd_tile_legal`) and staging are
+reckoned at the padded width.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from ._card import H100_SMEM_OPTIN, PROXY_BLOCKS
@@ -61,13 +73,58 @@ BWD_BLOCKS: Tuple[int, ...] = (32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def padded_head_dim(d: int) -> Optional[int]:
+    """The instantiated head dim that head dim ``d`` runs at: the
+    smallest of :data:`KERNEL_HEAD_DIMS` not below ``d`` (``d`` itself
+    where it is instantiated); None above the largest."""
+    return next((k for k in KERNEL_HEAD_DIMS if k >= d), None) \
+        if d > 0 else None
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns appended to its last dim up to ``width``
+    (``t`` itself when it is that wide already)."""
+    return t if t.shape[-1] == width else \
+        F.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+def padded_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   run: Callable):
+    """``run(q, k, v, scale) -> (out, lse)`` on q, k and v zero-padded to
+    :func:`padded_head_dim`, with ``scale`` = 1/sqrt(D) of the true head
+    dim D; the output is sliced back to D (lse needs nothing).  The
+    route the kernel takes at a head dim it is not instantiated for."""
+    d = q.shape[3]
+    width = padded_head_dim(d)
+    out, lse = run(*(pad_head_dim(t, width) for t in (q, k, v)),
+                   1.0 / (d ** 0.5))
+    return (out if width == d else out[..., :d].contiguous()), lse
+
+
+def padded_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, do: torch.Tensor, run: Callable):
+    """``run(q, k, v, o, do, scale) -> (dq, dk, dv)`` on the operands
+    zero-padded to :func:`padded_head_dim`, ``scale`` = 1/sqrt(D) of the
+    true D; the gradients are sliced back to D.  The padded columns of o
+    are the padded forward's exact zeros, so the rows' delta = rowsum(do
+    o) is unchanged."""
+    d = q.shape[3]
+    width = padded_head_dim(d)
+    grads = run(*(pad_head_dim(t, width) for t in (q, k, v, o, do)),
+                1.0 / (d ** 0.5))
+    return grads if width == d else tuple(g[..., :d].contiguous()
+                                          for g in grads)
+
+
 def attn_smem_bytes(bq: int, bkv: int, d: int) -> int:
     """Shared memory one block stages, in float32 (bfloat16 operands
     stage half as much for q, k and v): one q tile (bq x d), one k tile
     and one v tile (bkv x d each; the next block's k and v land in them
     while the other product runs), and the probability tile in column
-    chunks of at most :data:`PROB_CHUNK`.  bq = bkv = d = 128 takes
-    229,376 bytes, within the H100's opt-in limit."""
+    chunks of at most :data:`PROB_CHUNK`, at the padded head dim
+    (:func:`padded_head_dim`).  bq = bkv = d = 128 takes 229,376 bytes,
+    within the H100's opt-in limit."""
+    d = padded_head_dim(d) or d
     return 4 * ((bq + 2 * bkv) * d + bq * min(bkv, PROB_CHUNK))
 
 
@@ -75,12 +132,14 @@ def attn_tile_legal(sq: int, skv: int, bq: int, bkv: int, d: int,
                     smem_limit: int = H100_SMEM_OPTIN) -> bool:
     """Can the kernel run sequence lengths ``(sq, skv)`` at head dim
     ``d`` with blocks ``(bq, bkv)``?  The blocks must divide the
-    sequences, ``(bq, bkv, d)`` must be instantiated, and the staging
-    must fit ``smem_limit`` — the card's opt-in shared memory per block."""
+    sequences, ``(bq, bkv)`` must be instantiated and ``d`` pad to an
+    instantiated head dim (any ``d`` up to 128), and the staging at the
+    padded width must fit ``smem_limit`` — the card's opt-in shared
+    memory per block."""
     if min(sq, skv, bq, bkv, d) <= 0 or sq % bq or skv % bkv:
         return False
     if bq not in KERNEL_BLOCKS or bkv not in KERNEL_BLOCKS or \
-            d not in KERNEL_HEAD_DIMS:
+            padded_head_dim(d) is None:
         return False
     return attn_smem_bytes(bq, bkv, d) <= smem_limit
 
@@ -111,8 +170,10 @@ def attn_bwd_smem_bytes(blk: int, d: int, itemsize: int = 4) -> int:
     larger of the two): its k and v tiles and two stages of the q and dO
     tiles (blk x d each, in the operands' dtype), two stages of the rows'
     lse and delta, and, for bfloat16 operands, the two column slices' dK
-    sums in float32.  blk = 64, d = 128 takes 197,632 bytes in float32
-    and 164,864 in bfloat16."""
+    sums in float32; at the padded head dim (:func:`padded_head_dim`).
+    blk = 64, d = 128 takes 197,632 bytes in float32 and 164,864 in
+    bfloat16."""
+    d = padded_head_dim(d) or d
     dk_sums = 2 * blk * d * 4 if itemsize == 2 else 0
     return 6 * blk * d * itemsize + 4 * 4 * blk + dk_sums
 
@@ -121,11 +182,12 @@ def attn_bwd_tile_legal(s: int, blk: int, d: int, itemsize: int = 4,
                         smem_limit: int = H100_SMEM_OPTIN) -> bool:
     """Can the backward kernels run sequence length ``s`` (= Sq = Skv) at
     head dim ``d`` with blocks ``(blk, blk)``?  The block must divide the
-    sequence, ``(blk, d)`` must be instantiated, and the staging must fit
+    sequence, ``blk`` must be instantiated and ``d`` pad to an
+    instantiated head dim, and the staging at the padded width must fit
     ``smem_limit``."""
     if min(s, blk, d) <= 0 or s % blk:
         return False
-    if blk not in BWD_BLOCKS or d not in KERNEL_HEAD_DIMS:
+    if blk not in BWD_BLOCKS or padded_head_dim(d) is None:
         return False
     return attn_bwd_smem_bytes(blk, d, itemsize) <= smem_limit
 
@@ -188,7 +250,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, bkv: int, causal: bool = True,
                           window: int = 0, softcap: float = 0.0,
                           bq: Optional[int] = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          scale: Optional[float] = None):
     """The kernel's online-softmax loop over kv blocks in plain PyTorch.
 
     With ``bq``, each query block visits only the kv blocks of
@@ -202,11 +265,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     sums the unrounded ``p``, output ``acc / max(l, 1e-30)`` cast to the
     input dtype.  ``return_lse`` also returns each row's log-sum-exp
     ``m + log(max(l, 1e-30))``, float32 (B, Hq, Sq), as the kernel writes
-    it for the backward.
+    it for the backward.  ``scale`` defaults to 1/sqrt(D); the padded
+    route passes the true D's.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    scale = 1.0 / (d ** 0.5)
+    scale = 1.0 / (d ** 0.5) if scale is None else scale
     dev = q.device
     qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
     if bq is None:
@@ -256,7 +320,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor, *,
                               causal: bool = True, window: int = 0,
                               softcap: float = 0.0,
-                              bq: Optional[int] = None):
+                              bq: Optional[int] = None,
+                              scale: Optional[float] = None):
     """The backward kernels' arithmetic in plain PyTorch: (dq, dk, dv).
 
     ``o`` and ``lse`` are the forward's output and row log-sum-exp
@@ -271,7 +336,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     head's gradient over its query-head group; results are cast to the
     operands' dtype.  With ``bq`` each query block takes only the kv
     blocks of :func:`attn_kv_range`, as the kernels do; without, every
-    row at once.
+    row at once.  ``scale`` defaults to 1/sqrt(D); the padded route passes
+    the true D's.
     """
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -279,7 +345,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"the attention backward takes Sq = Skv, got "
                          f"{s} and {k.shape[2]}")
     g = hq // hkv
-    scale = 1.0 / (d ** 0.5)
+    scale = 1.0 / (d ** 0.5) if scale is None else scale
     dev = q.device
     qf = q.float().reshape(b, hkv, g, s, d)
     gf = do.float().reshape(b, hkv, g, s, d)
@@ -340,9 +406,9 @@ def _raise_on(err: int, name: str, what: str) -> None:
 
 
 def _launch(q, k, v, out, lse, bq: int, bkv: int, causal: bool,
-            window: int, softcap: float) -> None:
-    """The forward kernel; ``lse`` is None or the float32 (B, Hq, Sq)
-    buffer for the rows' log-sum-exp."""
+            window: int, softcap: float, scale: float) -> None:
+    """The forward kernel at an instantiated head dim; ``lse`` is None or
+    the float32 (B, Hq, Sq) buffer for the rows' log-sum-exp."""
     fn = _lib("flash_attention", "repro_flash_attention",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
               [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -352,7 +418,7 @@ def _launch(q, k, v, out, lse, bq: int, bkv: int, causal: bool,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              0 if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, d,
-             bq, bkv, 1.0 / (d ** 0.5), int(causal), int(window),
+             bq, bkv, scale, int(causal), int(window),
              float(softcap), _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, "flash_attention",
               f"flash_attention kernel launch failed at blocks ({bq}, {bkv})"
@@ -360,9 +426,10 @@ def _launch(q, k, v, out, lse, bq: int, bkv: int, causal: bool,
 
 
 def _launch_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, blk: int,
-                causal: bool, window: int, softcap: float) -> None:
+                causal: bool, window: int, softcap: float,
+                scale: float) -> None:
     """The three backward kernels (delta, dK/dV, dQ) on the current
-    stream."""
+    stream, at an instantiated head dim."""
     fn = _lib("flash_attention_bwd", "repro_flash_attention_bwd",
               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 +
               [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -371,7 +438,7 @@ def _launch_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, blk: int,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
                                       dv)),
-             b, hq, k.shape[1], s, d, blk, 1.0 / (d ** 0.5), int(causal),
+             b, hq, k.shape[1], s, d, blk, scale, int(causal),
              int(window), float(softcap), _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, "flash_attention_bwd",
               f"flash_attention backward launch failed at block {blk} for q "
@@ -406,15 +473,22 @@ def _forward(q, k, v, bq: int, bkv: int, causal: bool, window: int,
     if not attn_tile_legal(sq, skv, bq, bkv, d, limit):
         raise ValueError(
             f"blocks ({bq}, {bkv}) at head dim {d} are not legal for the "
-            f"kernel: bq, bkv must be in {KERNEL_BLOCKS}, d in "
-            f"{KERNEL_HEAD_DIMS}, and the staging "
+            f"kernel: bq, bkv must be in {KERNEL_BLOCKS}, d at most "
+            f"{max(KERNEL_HEAD_DIMS)} (run at the next of "
+            f"{KERNEL_HEAD_DIMS}), and the staging "
             f"{attn_smem_bytes(bq, bkv, d)} B must fit {limit} B")
-    out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32,
-                      device=q.device) if with_lse else None
-    _launch(q, k, v, out, lse, bq, bkv, causal, window, softcap)
+
+    def run(qp, kp, vp, scale):
+        out = torch.empty_like(qp)
+        lse = torch.empty(qp.shape[:3], dtype=torch.float32,
+                          device=qp.device) if with_lse else None
+        _launch(qp, kp, vp, out, lse, bq, bkv, causal, window, softcap,
+                scale)
+        return out, lse
+
+    res = padded_forward(q, k, v, run)
     flash_attention.launches += 1
-    return out, lse
+    return res
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -446,8 +520,9 @@ def _bwd_legal(q, k, blk: int) -> None:
         raise ValueError(
             f"the attention backward kernels do not take Sq = {s}, Skv = "
             f"{k.shape[2]} at head dim {d} and block {blk}: Sq must equal "
-            f"Skv, the block be one of {BWD_BLOCKS} dividing it, d one of "
-            f"{KERNEL_HEAD_DIMS}, and the staging "
+            f"Skv, the block be one of {BWD_BLOCKS} dividing it, d at most "
+            f"{max(KERNEL_HEAD_DIMS)} (run at the next of "
+            f"{KERNEL_HEAD_DIMS}), and the staging "
             f"{attn_bwd_smem_bytes(blk, d, q.element_size())} B fit "
             f"{limit} B")
 
@@ -492,12 +567,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{o.dtype}, {do.dtype}, {lse.dtype}")
     _card_ready((q, k, v, o, lse, do), "flash_attention backward")
     _bwd_legal(q, k, blk)
-    delta = torch.empty_like(lse)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _launch_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, blk, causal, window,
-                softcap)
+
+    def run(qp, kp, vp, op, dop, scale):
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
+        _launch_bwd(qp, kp, vp, op, lse, dop, delta, dq, dk, dv, blk,
+                    causal, window, softcap, scale)
+        return dq, dk, dv
+
+    grads = padded_backward(q, k, v, o, do, run)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_attention_bwd.launches = 0

@@ -24,6 +24,15 @@ dual form; no softplus on dt and no D skip (the kernel's contract).
 three kernels (or raise); CPU tensors take :func:`ssd_plain`, the same
 three passes in plain PyTorch — the counterpart of Pallas
 ``interpret=True``.  There is no fall back from one to the other.
+
+Training.  When grad is enabled and an operand requires it, :func:`ssd`
+runs :class:`SsdFn`: the same forward, which keeps its scratches (``s``
+and the chunk-entry states), and a backward through :func:`ssd_bwd` -- on
+CUDA tensors the four hand-written kernels of ``csrc/ssd_bwd.cu`` (each
+chunk's D_c, the reverse state pass over the chunks, the chunk backward,
+a fixed-order finish), on CPU tensors :func:`ssd_bwd_plain`, the same
+passes.  No atomics, so two calls give the same bits.  The reference has
+no backward kernel: it differentiates ``_ssd_chunked`` in XLA.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ KERNEL_STATES: Tuple[int, ...] = (8, 16, 32, 64, 128)
 ROWS = 64
 #: pass 1: rows of a slab and slabs in its cp.async ring (fixed by design)
 STATE_SLAB, STATE_STAGES = 16, 3
+#: threads of a block of the backward's reverse state pass (ii)
+BWD_PASS_THREADS = 128
 
 
 def _rows(chunk: int) -> int:
@@ -153,13 +164,27 @@ def _check(x, dt, a_log, b, c) -> None:
         raise ValueError(f"operands on {sorted(map(str, devices))}")
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' working dtype: float64 stays float64
+    (the gradient tests' oracle), anything else computes in float32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _chunked(t: torch.Tensor, chunk: int, rep: int = 1) -> torch.Tensor:
-    """(B, L, K, ...) float32 as (B, K * rep, L / chunk, chunk, ...):
-    heads (or groups repeated to heads) before chunks and steps."""
+    """(B, L, K, ...) in the working dtype as (B, K * rep, L / chunk,
+    chunk, ...): heads (or groups repeated to heads) before chunks and
+    steps."""
     bsz, l, k = t.shape[:3]
-    t = t.float().reshape(bsz, l // chunk, chunk, k, *t.shape[3:])
+    t = _acc(t).reshape(bsz, l // chunk, chunk, k, *t.shape[3:])
     t = t.movedim(3, 1)
     return t.repeat_interleave(rep, dim=1) if rep > 1 else t
+
+
+def _unchunked(t: torch.Tensor) -> torch.Tensor:
+    """(B, K, C, Q, ...) back to (B, C Q, K, ...): the inverse of
+    :func:`_chunked` without the repeat."""
+    bsz, k, nc, q = t.shape[:4]
+    return t.movedim(1, 3).reshape(bsz, nc * q, k, *t.shape[4:])
 
 
 def _states(xc, dtc, bc, a_log, h0: Optional[torch.Tensor] = None
@@ -167,13 +192,14 @@ def _states(xc, dtc, bc, a_log, h0: Optional[torch.Tensor] = None
     """Passes 1 and 2 on chunked operands: s (B, H, C, Q), h_in
     (B, H, C, P, N) from the initial state ``h0`` (B, H, P, N; zero when
     None), and the state after the last chunk (B, H, P, N)."""
-    a = -torch.exp(a_log.float())                             # (H,)
+    a = -torch.exp(_acc(a_log))                               # (H,)
     s = torch.cumsum(a[:, None, None] * dtc, dim=-1)
     w = dtc * torch.exp(s[..., -1:] - s)
     states = xc.transpose(-1, -2) @ (bc * w[..., None])       # (B,H,C,P,N)
     decay = torch.exp(s[..., -1])                             # (B,H,C)
     h_in = torch.empty_like(states)
-    carry = torch.zeros_like(states[:, :, 0]) if h0 is None else h0.float()
+    carry = torch.zeros_like(states[:, :, 0]) if h0 is None else \
+        h0.to(states.dtype)
     for ci in range(states.shape[2]):
         h_in[:, :, ci] = carry
         carry = decay[:, :, ci, None, None] * carry + states[:, :, ci]
@@ -197,16 +223,11 @@ def ssd_chunk_states_plain(x: torch.Tensor, dt: torch.Tensor,
     return s.reshape(bsz, h, l), h_in
 
 
-def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-              b: torch.Tensor, c: torch.Tensor, *, chunk: int,
-              h0: Optional[torch.Tensor] = None, return_state: bool = False):
-    """The kernels' three passes in plain PyTorch, vectorised over
-    batches, heads and chunks: :func:`ssd_chunk_states_plain` (its carry
-    starting at ``h0`` where one is given), then per chunk
-    ``G = (C B^T) * decay * dt`` with the decay exponentiated only on and
-    below the diagonal, ``y = G X + exp(s) C h_in^T``.  With
-    ``return_state`` it returns ``(y, h_final)``, the state after the last
-    chunk in float32."""
+def _plain_parts(x, dt, a_log, b, c, chunk: int, h0=None):
+    """The three passes in plain PyTorch: (y in x's dtype, h_final, s
+    (B, H, L), h_in (B, H, L / chunk, P, N)), the last three in the
+    working dtype; s and h_in are what the kernels leave in their
+    scratches, and what the backward takes."""
     bsz, l, h, p = x.shape
     rep = h // b.shape[2]
     xc = _chunked(x, chunk)                                   # (B,H,C,Q,P)
@@ -220,16 +241,140 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     decay = torch.exp(torch.where(lower, seg, -torch.inf))
     gm = (cc @ bc.transpose(-1, -2)) * decay * dtc[..., None, :]
     y = gm @ xc + torch.exp(s)[..., None] * (cc @ h_in.transpose(-1, -2))
-    y = y.movedim(1, 3).reshape(bsz, l, h, p).to(x.dtype)
+    return (_unchunked(y).to(x.dtype), h_final, s.reshape(bsz, h, l),
+            h_in)
+
+
+def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+              h0: Optional[torch.Tensor] = None, return_state: bool = False):
+    """The kernels' three passes in plain PyTorch, vectorised over
+    batches, heads and chunks: :func:`ssd_chunk_states_plain` (its carry
+    starting at ``h0`` where one is given), then per chunk
+    ``G = (C B^T) * decay * dt`` with the decay exponentiated only on and
+    below the diagonal, ``y = G X + exp(s) C h_in^T``.  With
+    ``return_state`` it returns ``(y, h_final)``, the state after the last
+    chunk in float32 (float64 for float64 operands, which the plain
+    versions keep)."""
+    y, h_final, _, _ = _plain_parts(x, dt, a_log, b, c, chunk, h0)
     return (y, h_final) if return_state else y
+
+
+def ssd_state_grads_plain(c: torch.Tensor, s: torch.Tensor,
+                          h_in: torch.Tensor, dy: torch.Tensor,
+                          dh_final: Optional[torch.Tensor] = None, *,
+                          chunk: int):
+    """The backward's passes (i) and (ii) in plain PyTorch: ``(dS, ds_q,
+    dh0)``.  dS (B, H, L / chunk, P, N) holds, for each chunk c, the
+    gradient of the state leaving it (``dS_c``, the one entering chunk
+    c + 1; ``dh_final`` for the last); ds_q (B, H, L / chunk) the gradient
+    of each chunk's last log-decay through its carry, ``exp(s_Q) <dS_c,
+    h_in[c]>``; dh0 the gradient of the state entering the first chunk.
+
+    Pass (i) forms each chunk's ``D_c = sum_i exp(s_i) dy_i c_i^T``, the
+    state's gradient through the chunk's own outputs; pass (ii) walks the
+    chunks backwards from ``g = dh_final`` (zero when None): ``dS_c = g``,
+    ``g = D_c + exp(s_Q) g``.  In the working dtype."""
+    bsz, l, h, _ = dy.shape
+    dyc = _chunked(dy, chunk)                                 # (B,H,C,Q,P)
+    cc = _chunked(c, chunk, h // c.shape[2])                  # (B,H,C,Q,N)
+    es = torch.exp(_acc(s).reshape(dyc.shape[:4]))
+    e_q = es[..., -1]                                         # (B,H,C)
+    h_in = _acc(h_in)
+    d_c = (dyc * es[..., None]).transpose(-1, -2) @ cc        # (B,H,C,P,N)
+    g = torch.zeros_like(d_c[:, :, 0]) if dh_final is None else \
+        _acc(dh_final)
+    d_s = torch.empty_like(d_c)
+    ds_q = torch.empty_like(e_q)
+    for ci in reversed(range(d_c.shape[2])):
+        d_s[:, :, ci] = g
+        ds_q[:, :, ci] = e_q[:, :, ci] * (g * h_in[:, :, ci]).sum((-1, -2))
+        g = d_c[:, :, ci] + e_q[:, :, ci, None, None] * g
+    return d_s, ds_q, g
+
+
+def ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                  h_in: torch.Tensor, dy: torch.Tensor,
+                  dh_final: Optional[torch.Tensor] = None, *, chunk: int):
+    """The backward kernels' four passes in plain PyTorch, vectorised over
+    batches, heads and chunks: ``(dx, ddt, da_log, db, dc, dh0)``.
+
+    ``s`` (B, H, L) and ``h_in`` (B, H, L / chunk, P, N) are the forward's
+    (its scratches on the card, :func:`_plain_parts` here); ``dy`` is y's
+    gradient and ``dh_final`` the final state's (zero when None).  Per
+    (batch, head, chunk), with ``L_ij = exp(s_i - s_j)`` on and below the
+    diagonal, ``G = (C B^T) L dt``, ``w = dt exp(s_Q - s)``:
+
+    1. and 2. :func:`ssd_state_grads_plain`: each chunk's outgoing state
+       gradient ``dS_c``, ``ds_Q += exp(s_Q) <dS_c, h_in[c]>`` and dh0;
+    3. per chunk, with ``dG = dY X^T`` and ``M = dG L dt``: ``dx = G^T dY
+       + w (B dS^T)``, ``dc = M B + exp(s) dY h_in``, ``db = M^T C + w (X
+       dS)``, ``ddt = colsum(dG (C B^T) L) + exp(s_Q - s) u`` with ``u_j =
+       x_j^T dS b_j``, and ``ds`` from the decay (row sums less column sums
+       of ``E = M (C B^T)``), from the state term and from ``w``;
+    4. ``r``, the reverse cumulative sum of ``ds`` within each chunk:
+       ``ddt += a r``, ``da_log = a sum(dt r)``; db and dc summed over the
+       heads of each group.
+
+    Every sum is in the working dtype (float64 operands stay float64);
+    results come back in their operands' dtypes, ``dh0`` in the working
+    dtype.
+    """
+    bsz, l, h, p = x.shape
+    rep = h // b.shape[2]
+    d_s, ds_q, dh0 = ssd_state_grads_plain(c, s, h_in, dy, dh_final,
+                                           chunk=chunk)
+    xc, dyc = _chunked(x, chunk), _chunked(dy, chunk)         # (B,H,C,Q,P)
+    dtc = _chunked(dt[..., None], chunk)[..., 0]              # (B,H,C,Q)
+    bc, cc = _chunked(b, chunk, rep), _chunked(c, chunk, rep)
+    sc = _acc(s).reshape(dtc.shape)
+    h_in = _acc(h_in)
+    a = -torch.exp(_acc(a_log))
+    es = torch.exp(sc)
+    w = dtc * torch.exp(sc[..., -1:] - sc)
+    # 3. the chunk backward
+    lower = torch.ones((chunk, chunk), dtype=torch.bool,
+                       device=x.device).tril()
+    seg = sc[..., :, None] - sc[..., None, :]
+    decay = torch.exp(torch.where(lower, seg, -torch.inf))
+    cb = cc @ bc.transpose(-1, -2)
+    d_g = dyc @ xc.transpose(-1, -2)
+    gm = cb * decay * dtc[..., None, :]
+    m = d_g * decay * dtc[..., None, :]
+    e = m * cb
+    v = xc @ d_s                                              # (B,H,C,Q,N)
+    u = (v * bc).sum(-1)
+    hc = dyc @ h_in                                           # (B,H,C,Q,N)
+    dx = gm.transpose(-1, -2) @ dyc + w[..., None] * (bc @ d_s.transpose(
+        -1, -2))
+    dcc = m @ bc + es[..., None] * hc
+    dbc = m.transpose(-1, -2) @ cc + w[..., None] * v
+    ddt = (d_g * cb * decay).sum(-2) + torch.exp(sc[..., -1:] - sc) * u
+    ds = e.sum(-1) - e.sum(-2) + es * (hc * cc).sum(-1) - u * w
+    ds[..., -1] += ds_q + (u * w).sum(-1)
+    # 4. s = cumsum(a dt) within each chunk
+    r = ds.flip(-1).cumsum(-1).flip(-1)
+    ddt = ddt + a[:, None, None] * r
+    da_log = a * (dtc * r).sum((0, 2, 3))
+
+    def grouped(t):
+        t = _unchunked(t)                                     # (B,L,H,N)
+        return t.reshape(bsz, l, h // rep, rep, -1).sum(3)
+
+    return (_unchunked(dx).to(x.dtype),
+            _unchunked(ddt[..., None])[..., 0].to(dt.dtype),
+            da_log.to(a_log.dtype), grouped(dbc).to(b.dtype),
+            grouped(dcc).to(c.dtype), dh0)
 
 
 # ------------------------------------------------------------ launchers --
 
-def _fn(name: str, n_ptr: int, n_int: int):
-    """The C launcher ``name`` of the built library: ``n_ptr`` pointers,
-    ``n_int`` ints and the stream, returning a cudaError_t."""
-    lib = _build.load("ssd")
+def _fn(name: str, n_ptr: int, n_int: int, lib_name: str = "ssd"):
+    """The C launcher ``name`` of the built library ``lib_name``:
+    ``n_ptr`` pointers, ``n_int`` ints and the stream, returning a
+    cudaError_t."""
+    lib = _build.load(lib_name)
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
         [ctypes.c_void_p]
@@ -239,10 +384,11 @@ def _fn(name: str, n_ptr: int, n_int: int):
     return lib, fn
 
 
-def _call(name: str, what: str, ptrs, ints, device) -> None:
+def _call(name: str, what: str, ptrs, ints, device,
+          lib_name: str = "ssd") -> None:
     """Launch ``name`` on ``device``'s current stream; a ``None`` among
     ``ptrs`` passes a null pointer."""
-    lib, fn = _fn(name, len(ptrs), len(ints))
+    lib, fn = _fn(name, len(ptrs), len(ints), lib_name)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*(None if t is None else t.data_ptr() for t in ptrs), *ints,
              stream)
@@ -289,6 +435,197 @@ def _launch_chunk_scan(x, dt, b, c, s, states, y, chunk: int) -> None:
           (bsz, l, h, b.shape[2], p, b.shape[3], chunk), x.device)
 
 
+def _prepare(x, dt, a_log, b, c, chunk: int, h0) -> int:
+    """Validate one call; return the chunk clamped to L."""
+    _check(x, dt, a_log, b, c)
+    l = x.shape[1]
+    chunk = min(chunk, l)
+    if l <= 0 or l % chunk:
+        raise ValueError(f"chunk {chunk} must divide L = {l}")
+    state_shape = (x.shape[0], x.shape[2], x.shape[3], b.shape[3])
+    if h0 is not None and (tuple(h0.shape) != state_shape or
+                           h0.device != x.device):
+        raise ValueError(f"h0 must be {state_shape} on {x.device}, got "
+                         f"{tuple(h0.shape)} on {h0.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd runs on CUDA or the CPU, not {x.device}")
+    return chunk
+
+
+def _card_ready(ops, l: int, chunk: int, p: int, n: int) -> None:
+    """Raise unless the kernels (forward and backward) take these
+    operands: contiguous float32, 16-byte aligned, a legal chunk and
+    (P, N) whose staging fits the card."""
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError("the ssd kernels take float32 operands, got "
+                        f"{[str(t.dtype) for t in ops]}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops):
+        raise ValueError("the ssd kernels take contiguous, 16-byte aligned "
+                         "operands")
+    limit = torch.cuda.get_device_properties(
+        ops[0].device).shared_memory_per_block_optin
+    if not ssd_tile_legal(l, chunk, p, n, limit):
+        raise ValueError(
+            f"chunk {chunk} at (P, N) = ({p}, {n}) is not legal for the "
+            f"kernel: the chunk must be 16, 32 or a multiple of {ROWS}, P in "
+            f"{KERNEL_HEAD_DIMS}, N in {KERNEL_STATES}, and the staging "
+            f"{ssd_smem_bytes(chunk, p, n)} B must fit {limit} B")
+
+
+def _kernel_parts(x, dt, a_log, b, c, chunk: int, h0, want_state: bool):
+    """The three forward kernels: (y, h_final or None, s, h_in), the last
+    two the scratches pass 2 leaves (``s`` and the chunk-entry states),
+    which the backward takes."""
+    s, states = ssd_scratch(x, b, chunk)
+    y = torch.empty_like(x)
+    h_final = torch.empty((x.shape[0], x.shape[2], x.shape[3], b.shape[3]),
+                          dtype=torch.float32,
+                          device=x.device) if want_state else None
+    _launch_chunk_state(x, dt, a_log, b, s, states, chunk)
+    _launch_state_pass(s, states, chunk, h0, h_final)
+    _launch_chunk_scan(x, dt, b, c, s, states, y, chunk)
+    ssd.launches += 1
+    return y, h_final, s, states
+
+
+def ssd_bwd_pass_blocks(p: int, n: int) -> int:
+    """Blocks of the reverse state pass (ii) per (batch, head): 128
+    threads, one float4 of the (P, N) state each."""
+    return -(-(p * n // 4) // BWD_PASS_THREADS)
+
+
+
+def ssd_bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory of the backward's chunk pass (iii), its largest, all
+    float32 with every row padded by one float (no bank conflicts in the
+    strided reads): the block's own tile of C and B rows (R x N each) and
+    of X and dY rows (R x P each), then a union that holds either a slab
+    of B or C rows (R x N) and of X or dY rows (R x P) with the M and G
+    tiles (R x R each), or h_in and dS of the chunk (P x N each), or the
+    column sums of 16 row groups (2 x 16 x R); and five R-vectors (s and
+    dt of the tile and of the slab, the u w terms).  R = min(chunk, 64):
+    183,552 bytes at (64, 128) and any chunk of 64 or more."""
+    r = _rows(chunk)
+    own = 2 * r * (n + 1) + 2 * r * (p + 1)
+    union = max(r * (n + 1) + r * (p + 1) + 2 * r * (r + 1),
+                2 * p * (n + 1), 2 * 16 * r)
+    return 4 * (own + union + 5 * r)
+
+
+def ssd_bwd_legal(l: int, chunk: int, p: int, n: int,
+                  smem_limit: int = H100_SMEM_OPTIN) -> bool:
+    """Can the backward kernels take what :func:`ssd_tile_legal` admits
+    for the forward at ``(l, chunk, p, n)``?  The same rule, and the chunk
+    pass's staging (:func:`ssd_bwd_smem_bytes`) must fit ``smem_limit``:
+    at every instantiated (P, N) and chunk it does on the H100."""
+    return ssd_tile_legal(l, chunk, p, n, smem_limit) and \
+        ssd_bwd_smem_bytes(chunk, p, n) <= smem_limit
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+            h_in: torch.Tensor, dy: torch.Tensor,
+            dh_final: Optional[torch.Tensor] = None, *, chunk: int):
+    """The SSD scan's gradient: ``(dx, ddt, da_log, db, dc, dh0)`` for
+    the forward's operands, its scratches ``s`` (B, H, L) and ``h_in``
+    (B, H, L / chunk, P, N) (what :class:`SsdFn`'s forward keeps), y's
+    gradient ``dy`` and the final state's ``dh_final`` (zero when None).
+
+    CUDA tensors launch the four hand-written kernels of
+    ``csrc/ssd_bwd.cu`` on the current stream -- (i) each chunk's D_c,
+    (ii) the reverse state pass, (iii) the chunk backward, (iv) the
+    fixed-order finish: ds's reverse sums into ddt and da_log, db and dc
+    summed over each group's heads -- in a fixed order with no atomics,
+    so two calls give the same bits; anything they do not take raises.
+    CPU tensors run :func:`ssd_bwd_plain`, the same passes.
+    ``ssd_bwd.launches`` counts calls that launched the kernels: one per
+    backward, four kernel launches inside.
+    """
+    chunk = _prepare(x, dt, a_log, b, c, chunk, None)
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = l // chunk
+    if tuple(dy.shape) != tuple(x.shape) or \
+            tuple(s.shape) != (bsz, h, l) or \
+            tuple(h_in.shape) != (bsz, h, nc, p, n) or \
+            (dh_final is not None and
+             tuple(dh_final.shape) != (bsz, h, p, n)):
+        raise ValueError(
+            f"ssd_bwd needs dy {tuple(x.shape)}, s {(bsz, h, l)}, h_in "
+            f"{(bsz, h, nc, p, n)} and dh_final {(bsz, h, p, n)}, got "
+            f"{tuple(dy.shape)}, {tuple(s.shape)}, {tuple(h_in.shape)}, "
+            f"{None if dh_final is None else tuple(dh_final.shape)}")
+    if x.device.type == "cpu":
+        return ssd_bwd_plain(x, dt, a_log, b, c, s, h_in, dy, dh_final,
+                             chunk=chunk)
+    ops = (x, dt, a_log, b, c, s, h_in, dy) + \
+        (() if dh_final is None else (dh_final,))
+    if len({t.device for t in ops}) != 1:
+        raise ValueError("ssd_bwd's operands lie on more than one device")
+    _card_ready(ops, l, chunk, p, n)
+    limit = torch.cuda.get_device_properties(
+        x.device).shared_memory_per_block_optin
+    if ssd_bwd_smem_bytes(chunk, p, n) > limit:
+        raise ValueError(f"the ssd backward's staging "
+                         f"{ssd_bwd_smem_bytes(chunk, p, n)} B at chunk "
+                         f"{chunk}, (P, N) = ({p}, {n}) does not fit {limit}"
+                         f" B")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nq = chunk // _rows(chunk)
+    d_s = torch.empty((bsz, h, nc, p, n), **f32)
+    dsq_pass = torch.empty((bsz, h, nc, ssd_bwd_pass_blocks(p, n)), **f32)
+    dsq_scan = torch.empty((bsz, h, nc, nq), **f32)
+    ds, ddt_part = (torch.empty((bsz, h, l), **f32) for _ in range(2))
+    db_h, dc_h = (torch.empty((bsz, l, h, n), **f32) for _ in range(2))
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    da_log = torch.empty_like(a_log)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    dh0 = torch.empty((bsz, h, p, n), **f32)
+    _call("repro_ssd_bwd", "backward",
+          (x, dt, a_log, b, c, dy, s, h_in, dh_final, d_s, dsq_pass,
+           dsq_scan, ds, ddt_part, db_h, dc_h, dx, ddt, da_log, db, dc, dh0),
+          (bsz, l, h, g, p, n, chunk), x.device, lib_name="ssd_bwd")
+    ssd_bwd.launches += 1
+    return dx, ddt, da_log, db, dc, dh0
+
+
+ssd_bwd.launches = 0
+
+
+class SsdFn(torch.autograd.Function):
+    """The SSD scan with a gradient: ``(y, h_final)``.  The forward is the
+    three kernels (or, on the CPU, their plain version) and keeps their
+    scratches, ``s`` and the chunk-entry states (41.9 MB a layer at
+    mamba2-2.7b's width and chunk 256, held only while a layer's remat is
+    differentiated), so the backward recomputes neither; the backward is
+    :func:`ssd_bwd`.  x, dt, a_log, b, c and h0 get gradients; y's or the
+    final state's gradient may be absent."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, h0, chunk: int):
+        if x.device.type == "cpu":
+            y, h_final, s, h_in = _plain_parts(x, dt, a_log, b, c, chunk,
+                                               h0)
+        else:
+            y, h_final, s, h_in = _kernel_parts(x, dt, a_log, b, c, chunk,
+                                                h0, want_state=True)
+        ctx.save_for_backward(x, dt, a_log, b, c, s, h_in)
+        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        ctx.set_materialize_grads(False)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, a_log, b, c, s, h_in = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.contiguous()
+        dx, ddt, da_log, db, dc, dh0 = ssd_bwd(
+            x, dt, a_log, b, c, s, h_in, dy, dh_final, chunk=ctx.chunk)
+        return (dx, ddt, da_log, db, dc, dh0 if ctx.has_h0 else None,
+                None)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
         h0: Optional[torch.Tensor] = None, return_state: bool = False):
@@ -303,58 +640,31 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     CUDA tensors launch the three hand-written kernels on the current
     stream — contiguous float32, a chunk and (P, N) legal for the card —
     and anything the kernels do not take raises; CPU tensors run
-    :func:`ssd_plain`.  The kernels have no backward: on CUDA, with grad
-    enabled, an operand that requires grad raises ``NotImplementedError``
-    (on the CPU ``ssd_plain`` differentiates).  ``ssd.launches`` counts
-    calls that launched the kernels: one per scan, three kernel launches
-    inside.
+    :func:`ssd_plain`.  When grad is enabled and an operand requires it,
+    the call goes through :class:`SsdFn`, whose backward is
+    :func:`ssd_bwd` (the four backward kernels on the card, their plain
+    version on the CPU).  ``ssd.launches`` counts calls that launched the
+    forward kernels: one per scan, three kernel launches inside.
     """
-    _check(x, dt, a_log, b, c)
-    l, p, n = x.shape[1], x.shape[3], b.shape[3]
-    chunk = min(chunk, l)
-    if l <= 0 or l % chunk:
-        raise ValueError(f"chunk {chunk} must divide L = {l}")
-    state_shape = (x.shape[0], x.shape[2], p, n)
-    if h0 is not None and (tuple(h0.shape) != state_shape or
-                           h0.device != x.device):
-        raise ValueError(f"h0 must be {state_shape} on {x.device}, got "
-                         f"{tuple(h0.shape)} on {h0.device}")
+    chunk = _prepare(x, dt, a_log, b, c, chunk, h0)
+    ops = (x, dt, a_log, b, c) + (() if h0 is None else (h0,))
+    if x.device.type == "cuda":
+        _card_ready(ops, x.shape[1], chunk, x.shape[3], b.shape[3])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        if x.device.type == "cuda" and not ssd_bwd_legal(
+                x.shape[1], chunk, x.shape[3], b.shape[3],
+                torch.cuda.get_device_properties(
+                    x.device).shared_memory_per_block_optin):
+            raise ValueError(f"the ssd backward kernels do not take chunk "
+                             f"{chunk} at (P, N) = ({x.shape[3]}, "
+                             f"{b.shape[3]}) on this card")
+        y, h_final = SsdFn.apply(x, dt, a_log, b, c, h0, chunk)
+        return (y, h_final) if return_state else y
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a_log, b, c, chunk=chunk, h0=h0,
                          return_state=return_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on CUDA or the CPU, not {x.device}")
-    ops = (x, dt, a_log, b, c) + (() if h0 is None else (h0,))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
-        raise NotImplementedError(
-            "the ssd kernel has no backward yet, so a scan on the card "
-            "cannot pass a gradient to its operands; it refuses rather than "
-            "drop it (Mamba training on the card waits for an SSD backward "
-            "kernel: ROADMAP.md Queue A item 9).  ssd_plain on CPU tensors "
-            "is differentiable")
-    if any(t.dtype != torch.float32 for t in ops):
-        raise TypeError("the ssd kernel takes float32 operands, got "
-                        f"{[str(t.dtype) for t in ops]}")
-    if not all(t.is_contiguous() for t in ops) or \
-            (h0 is not None and h0.data_ptr() % 16):
-        raise ValueError("the ssd kernel takes contiguous operands and a "
-                         "16-byte aligned h0")
-    limit = torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin
-    if not ssd_tile_legal(l, chunk, p, n, limit):
-        raise ValueError(
-            f"chunk {chunk} at (P, N) = ({p}, {n}) is not legal for the "
-            f"kernel: the chunk must be 16, 32 or a multiple of {ROWS}, P in "
-            f"{KERNEL_HEAD_DIMS}, N in {KERNEL_STATES}, and the staging "
-            f"{ssd_smem_bytes(chunk, p, n)} B must fit {limit} B")
-    s, states = ssd_scratch(x, b, chunk)
-    y = torch.empty_like(x)
-    h_final = torch.empty(state_shape, dtype=torch.float32,
-                          device=x.device) if return_state else None
-    _launch_chunk_state(x, dt, a_log, b, s, states, chunk)
-    _launch_state_pass(s, states, chunk, h0, h_final)
-    _launch_chunk_scan(x, dt, b, c, s, states, y, chunk)
-    ssd.launches += 1
+    y, h_final, _, _ = _kernel_parts(x, dt, a_log, b, c, chunk, h0,
+                                     return_state)
     return (y, h_final) if return_state else y
 
 

@@ -1,3 +1,4 @@
-"""repro_torch.launch — the port of ``repro.launch``'s training half: the
-train step (:mod:`.steps`) and the training CLI (:mod:`.train`).  The
-mesh, dry-run and serve launchers belong to the distributed slice."""
+"""repro_torch.launch — the port of ``repro.launch``: the train step
+(:mod:`.steps`), the training CLI (:mod:`.train`) and the serving CLI
+(:mod:`.serve`).  The mesh and dry-run launchers belong to the
+distributed slice."""

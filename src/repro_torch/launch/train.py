@@ -3,10 +3,15 @@
 Mirrors ``repro.launch.train``.  Without ``--full-config`` it trains the
 reduced config of the family (``--d-model``, ``--layers``, vocab 512);
 with it, the architecture at full width, cut to ``--layers`` layers when
-given.  It runs on the card unless ``--device cpu``.  For example::
+given.  It runs on the card unless ``--device cpu``: attention layers
+through the flash-attention kernels and their backward, Mamba layers
+through the SSD kernels and theirs (mamba2-2.7b trains on the card).
+For example::
 
     python -m repro_torch.launch.train --arch gemma2-27b --full-config \\
         --layers 4 --batch 1 --seq 4096 --steps 8 --dtype bfloat16
+    python -m repro_torch.launch.train --arch mamba2-2.7b --full-config \\
+        --batch 1 --seq 4096 --steps 8 --dtype bfloat16
 """
 
 from __future__ import annotations

@@ -12,9 +12,11 @@ as the reference computes it outside any kernel; the kernel takes neither
 an offset nor a one-row query.  A cached call of more than one row (the
 reference's scan allows it, its models never make it) is refused.
 
-On a CUDA tensor the kernel runs or raises (for example at a head dim it is
-not instantiated for, or a sequence length no legal block divides); on a
-CPU tensor its wrapper runs the kernel's plain version.  ``use_kernel=False``
+On a CUDA tensor the kernel runs or raises (for example at a head dim above
+128, or a sequence length no legal block divides); a head dim between the
+instantiated ones (hubert-xlarge's 80, phi3-mini's 96) runs zero-padded
+to the next.  On a CPU tensor its wrapper runs the kernel's plain
+version.  ``use_kernel=False``
 sends the call to that plain version on any device, to compare the two.
 """
 

@@ -10,6 +10,14 @@ and the decay in float32 too, and a bfloat16 model runs the float32 kernel.
 The one-step decode recurrence, the D skip, the gated RMSNorm and the
 projections stay in PyTorch, as they stay in XLA in the reference.
 
+Training: the kernel scan is differentiable.  Under grad it runs
+:class:`repro_torch.kernels.ssd.SsdFn`, whose backward is the hand-written
+SSD backward (``csrc/ssd_bwd.cu``), so ``models.loss_fn`` trains an
+``ssm``-family config such as mamba2-2.7b on the card, per-period remat
+re-running the forward kernels inside ``torch.utils.checkpoint``; the
+softplus, the D skip, the norm and the projections differentiate in
+PyTorch.  The reference differentiates ``_ssd_chunked`` in XLA.
+
 ``use_kernel=False`` sends the scan to the kernel's plain version
 (:func:`repro_torch.kernels.ssd.ssd_plain`) on any device: the port's one
 plain scan, in place of the reference's ``_ssd_chunked``.

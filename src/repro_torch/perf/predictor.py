@@ -1,14 +1,16 @@
-"""Configuration ranking on the batched prediction engine — the paper's
-algorithm selection (§4.5) applied to trace-producing candidates.
+"""Configuration ranking — the paper's algorithm selection (§4.5)
+applied at configuration scale.  The counterpart of
+``repro.perf.predictor``.
 
-The counterpart of the batched half of ``repro.perf.predictor``: each
-candidate is a *tracer* that yields its kernel-call sequence, and all of
-them are predicted in one batch through
+Two halves, as in the reference.  :func:`rank_configs` sorts candidates by
+the bound of their roofline terms (:class:`~repro_torch.perf.roofline.
+RooflineTerms`, on a card's rates), never executing one; here a
+candidate's ``build()`` returns its terms, since the reference's
+``extract`` from a compiled XLA executable has no counterpart yet.
+:func:`rank_traced_configs` ranks *tracers* that yield kernel-call
+sequences, all predicted in one batch through
 :class:`~repro_torch.core.predict.PredictionEngine` — never executed,
-never compiled.  The reference's other half, ``rank_configs`` over
-``ConfigCandidate`` builders, ranks compiled dry-runs by their roofline
-bound terms (``RooflineTerms``); it waits for the HLO half of
-``perf.roofline``, which the port does not have yet.
+never compiled.
 """
 
 from __future__ import annotations
@@ -19,6 +21,51 @@ from typing import Callable, List, Mapping, Optional
 from ..core.model import ModelSet
 from ..core.predict import KernelCall, PredictionEngine, resolve_engine
 from ..core.sampler import Stats
+from .roofline import RooflineTerms
+
+
+@dataclass(frozen=True)
+class ConfigCandidate:
+    """One configuration: a name and a builder returning its
+    :class:`RooflineTerms` (or what ``extract`` turns into them)."""
+
+    name: str
+    build: Callable[[], object]
+    note: str = ""
+
+
+@dataclass
+class RankedConfig:
+    name: str
+    terms: RooflineTerms
+    note: str = ""
+
+    @property
+    def predicted_s(self) -> float:
+        return self.terms.bound_s
+
+
+def rank_configs(candidates: List[ConfigCandidate],
+                 extract: Optional[Callable[[object], RooflineTerms]] = None,
+                 ) -> List[RankedConfig]:
+    """Build every candidate and sort by predicted step time (the bound
+    of its roofline terms).  A build that returns no
+    :class:`RooflineTerms` goes through ``extract``; without one it
+    raises ``TypeError``."""
+    ranked = []
+    for cand in candidates:
+        built = cand.build()
+        if isinstance(built, RooflineTerms):
+            terms = built
+        elif extract is not None:
+            terms = extract(built)
+        else:
+            raise TypeError(f"candidate {cand.name!r} built "
+                            f"{type(built).__name__}, not RooflineTerms, "
+                            f"and no extract was given")
+        ranked.append(RankedConfig(cand.name, terms, cand.note))
+    ranked.sort(key=lambda r: r.predicted_s)
+    return ranked
 
 
 @dataclass(frozen=True)

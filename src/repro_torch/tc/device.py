@@ -129,7 +129,10 @@ class _FlashAttentionDevice:
     kernel configurations.  The measured call is the reference's: causal,
     no window, no softcap, as many kv heads as query heads.  Its steps are
     the (query block, kv block) pairs the kernel visits, which skips the
-    blocks above the diagonal; the reference counts the TPU's full grid."""
+    blocks above the diagonal; the reference counts the TPU's full grid.
+    The family times and models the instantiated head dims only: a head
+    dim between them (80, 96) runs zero-padded at the next one's config,
+    as :func:`attn_smem_bytes` and the legality rules reckon it."""
 
     name = "cuda_flash_attention"
     config_dims = ("bq", "bkv", "d")

@@ -297,7 +297,10 @@ def test_attn_tile_legality_is_instantiation_and_shared_memory():
     assert attn_tile_legal(4096, 4096, 64, 64, 128, smem_limit=200_000)
     assert attn_tile_legal(4096, 4096, 128, 64, 128, smem_limit=200_000)
     assert not attn_tile_legal(4096, 4096, 256, 128, 128)   # not built
-    assert not attn_tile_legal(4096, 4096, 128, 128, 96)    # d not built
+    # a head dim between the instantiated ones runs padded to the next
+    assert attn_tile_legal(4096, 4096, 128, 128, 96)        # at 128
+    assert attn_smem_bytes(128, 128, 96) == attn_smem_bytes(128, 128, 128)
+    assert not attn_tile_legal(4096, 4096, 128, 128, 160)   # d over 128
     assert not attn_tile_legal(4000, 4096, 64, 64, 128)     # not dividing
     assert not attn_tile_legal(4096, 4096, 0, 64, 128)
 

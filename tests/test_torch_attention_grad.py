@@ -198,7 +198,9 @@ def test_backward_blocks_and_legality():
                 assert attn_bwd_tile_legal(4096, blk, d, itemsize)
     assert not attn_bwd_tile_legal(48, 48, 16)       # block not built
     assert not attn_bwd_tile_legal(96, 64, 16)       # does not divide
-    assert not attn_bwd_tile_legal(128, 64, 96)      # head dim not built
+    assert attn_bwd_tile_legal(128, 64, 96)          # padded to 128
+    assert attn_bwd_smem_bytes(64, 80) == attn_bwd_smem_bytes(64, 128)
+    assert not attn_bwd_tile_legal(128, 64, 160)     # head dim over 128
     assert not attn_bwd_tile_legal(128, 64, 128, smem_limit=100_000)
     assert not attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=164_863)
     assert attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=164_864)
@@ -277,16 +279,29 @@ def test_backward_refuses_what_the_kernels_do_not_take(card):
 
 @pytest.mark.cuda
 def test_ssd_refuses_a_gradient_on_the_card(card):
+    """The name dates from the slices before the SSD had a backward, when
+    a scan on the card refused an operand that required grad.  Now the
+    gradient flows through the backward kernels (``csrc/ssd_bwd.cu``) and
+    matches the plain route's, autograd through ``ssd_plain``."""
     from repro_torch.kernels import ssd
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_plain
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((1, 64, 2, 16)).astype(
-        np.float32)).to(card).requires_grad_()
+        np.float32)).to(card)
     dt = torch.full((1, 64, 2), 0.01, device=card)
     a_log = torch.zeros(2, device=card)
     b = torch.from_numpy(rng.standard_normal((1, 64, 1, 16)).astype(
         np.float32)).to(card)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd(x, dt, a_log, b, b, chunk=32)
+    grads = []
+    for scan in (ssd, ssd_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, a_log, b)]
+        before = ssd_bwd.launches
+        y = scan(*leaves, leaves[3], chunk=32)
+        grads.append(torch.autograd.grad((y * y).sum(), leaves))
+        assert ssd_bwd.launches - before == (scan is ssd)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("x", "dt", "a_log", "b"), *grads):
+        assert _normwise(_np(g.cpu()), _np(w.cpu())) <= 1e-5, name
     with torch.no_grad():
         assert ssd(x, dt, a_log, b, b, chunk=32).shape == x.shape
 

@@ -336,7 +336,7 @@ def test_reduced_models_on_the_card_kernel_route_matches_plain(card):
     """Reduced gemma2-27b (window 8, so it bites) and mamba2-2.7b in
     float32 on the card: the kernel route against the plain route at 1e-4,
     every layer launching its kernel; attention at head dim 96 (phi3-mini's)
-    raises rather than falling back."""
+    runs the kernel, zero-padded to 128, and matches the plain route."""
     from repro_torch.kernels import flash_attention, ssd
     for arch, wrapper in (("gemma2-27b", flash_attention),
                           ("mamba2-2.7b", ssd)):
@@ -360,6 +360,12 @@ def test_reduced_models_on_the_card_kernel_route_matches_plain(card):
     assert cfg.head_dim_ == 96
     p = attention.init_attn(cfg, torch.Generator(device=card).manual_seed(0),
                             torch.float32, card)
-    with pytest.raises(ValueError, match="head dim 96"):
-        attention.attn_forward(cfg, p, torch.zeros((1, 64, 384),
-                                                   device=card))
+    x = torch.from_numpy(_rng(12).standard_normal((1, 64, 384)).astype(
+        np.float32)).to(card)
+    before = flash_attention.launches
+    got, _ = attention.attn_forward(cfg, p, x)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 1
+    want, _ = attention.attn_forward(cfg, p, x, use_kernel=False)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=TOL, atol=TOL)

@@ -2521,22 +2521,28 @@ def grads_err(got, want) -> dict:
     return {i: rel_err(g, w) for i, (g, w) in enumerate(zip(got, want))}
 
 
-def start_sass(lib):
+def start_sass(lib) -> tuple:
     """``cuobjdump -sass`` of a built library, started in the background
-    (it takes seconds); read it with :func:`hmma_counts`."""
+    (it takes tens of seconds, so main starts it after the build) into a
+    file under build/; read it with :func:`hmma_counts`."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    return subprocess.Popen([str(cuobjdump), "-sass", str(lib)],
-                            stdout=subprocess.PIPE, text=True)
+    out = ROOT / "build" / "sass" / f"{Path(lib).stem}.sass"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with out.open("w") as f:
+        proc = subprocess.Popen([str(cuobjdump), "-sass", str(lib)],
+                                stdout=f, text=True)
+    return proc, out
 
 
-def hmma_counts(proc) -> dict:
+def hmma_counts(sass_run) -> dict:
     """Tensor-core instructions (HMMA) in each kernel of the library whose
-    SASS ``proc`` (:func:`start_sass`) prints: {mangled name: count}."""
+    SASS ``sass_run`` (:func:`start_sass`) writes: {mangled name: count}."""
     import re
-    sass, _ = proc.communicate(timeout=300)
-    if proc.returncode:
+    proc, out = sass_run
+    if proc.wait(timeout=300):
         raise AssertionError(f"cuobjdump -sass exited {proc.returncode}")
+    sass = out.read_text()
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -2553,11 +2559,11 @@ def hmma_counts(proc) -> dict:
 BWD_MAIN_KEY = (4, 128)
 
 
-def check_bwd_sass(proc) -> dict:
+def check_bwd_sass(sass_run) -> dict:
     """The SASS gate: the backward's dK/dV and dQ kernels at BWD_MAIN_KEY
     hold tensor-core instructions in both dtypes (``proc`` from
     :func:`start_sass` on the backward's library)."""
-    counts = hmma_counts(proc)
+    counts = hmma_counts(sass_run)
     w, d = BWD_MAIN_KEY
     found = {}
     for kern in ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"):
@@ -2576,7 +2582,7 @@ def check_bwd_sass(proc) -> dict:
     return found
 
 
-def check_attention_bwd(card) -> dict:
+def check_attention_bwd(card, sass_run) -> dict:
     """Phase 14a: the backward kernels against the plain backward on the
     same forward output and row statistics (the kernel forward's, whose
     lse is held against the plain forward's first): at every instantiated
@@ -2593,9 +2599,7 @@ def check_attention_bwd(card) -> dict:
         BWD_BLOCKS, KERNEL_HEAD_DIMS, attn_bwd_blocks, flash_attention,
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_plain)
-    from repro_torch.kernels import _build
 
-    sass_proc = start_sass(_build.build("flash_attention_bwd"))
     rng = np.random.default_rng(19)
 
     def operands(b, hq, hkv, s, d, dtype):
@@ -2761,7 +2765,7 @@ def check_attention_bwd(card) -> dict:
                 f"{sdpa_fwd_ms:.3f} (scaled_dot_product_attention, "
                 f"is_causal=True)")
         del q, k, v, do, o, lse, leaves, sdpa_out
-    sass = check_bwd_sass(sass_proc)
+    sass = check_bwd_sass(sass_run)
     return {"small": small, "gemma2_27b": wide, **timed["float32"],
             "bfloat16": timed["bfloat16"], "head_dim_96": padded,
             "forward_bfloat16": timed["forward_bfloat16"],
@@ -3088,18 +3092,83 @@ def ssd_bwd_work(b, l, h, p, g, n, chunk):
     return flops, 4.0 * (reads + writes)
 
 
-def check_ssd_bwd(card) -> dict:
+#: host seconds on each side of a short profiler window: the profiler keeps
+#: only the device events its host-clock window holds, and 750 s into this
+#: script on the H100 a window of five calls (18 ms) held none, and one of
+#: twenty calls padded by half a second held 13 of each kernel's 20 events
+PROFILE_PAD_S = 0.5
+
+
+def ssd_bwd_kernel_ms(fn, calls: int = 20) -> dict:
+    """Each SSD backward kernel's device time in ms a call: the mean over
+    its events in one ``torch.profiler`` window of ``calls`` calls of
+    ``fn`` (after one unprofiled call), padded by PROFILE_PAD_S of host
+    time on each side, with the events the window held under ``events``;
+    ``{"measured": False}`` when it holds none."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    total, events = {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"ssd_bwd_(\w+?)_kernel", evt.name)
+        if m:
+            dur = (evt.time_range.end - evt.time_range.start) / 1e3
+            total[m.group(1)] = total.get(m.group(1), 0.0) + dur
+            events[m.group(1)] = events.get(m.group(1), 0) + 1
+    if not total:
+        return {"measured": False}
+    return {"measured": True, "events": events, "of_calls": calls,
+            **{k: v / events[k] for k, v in total.items()}}
+
+
+def check_ssd_bwd_sass(sass_run) -> dict:
+    """The SASS gate: the SSD backward's product kernels at mamba2's (P, N)
+    -- pass (i)'s D_c and the chunk pass at SSD_BWD_MAIN_KEY -- hold
+    tensor-core instructions (``sass_run`` from :func:`start_sass` on the
+    backward's library)."""
+    counts = hmma_counts(sass_run)
+    p, n, r = SSD_BWD_MAIN_KEY
+    found = {}
+    for kern, tag in (("ssd_bwd_dstate_kernel", f"ILi{p}ELi{n}EE"),
+                      ("ssd_bwd_chunk_kernel", f"ILi{p}ELi{n}ELi{r}EE")):
+        names = [k for k in counts if kern in k and tag in k]
+        if len(names) != 1:
+            raise AssertionError(f"no single SASS function for {kern} at "
+                                 f"{SSD_BWD_MAIN_KEY}: {names}")
+        found[kern] = counts[names[0]]
+    if not all(found.values()):
+        raise AssertionError(f"the SSD backward's SASS at {SSD_BWD_MAIN_KEY}"
+                             f" lacks tensor-core instructions: {found}")
+    log(f"  SSD backward SASS at (P, N, R) = {SSD_BWD_MAIN_KEY}: HMMA per "
+        f"kernel {found} (cuobjdump -sass)")
+    return found
+
+
+def check_ssd_bwd(card, sass_run) -> dict:
     """Phase 15a: the SSD backward kernels against the plain backward in
     float64 on the kernel forward's own s and h_in: every instantiated
     (P, N) at each chunk of SSD_BWD_CHUNKS on a small shape, with and
     without h0 and a final-state gradient; then mamba2-2.7b's width at
     chunks 64 and 256.  Every gradient within 1e-5 normwise, two calls the
     same bits; the mamba2 shapes timed beside the plain backward (float32)
-    and the bound."""
+    and the bound of the route taken (3xTF32, with the FFMA bound beside
+    it), each kernel's own time from one profiler window; and the SASS
+    gate (check_ssd_bwd_sass)."""
     import torch
     from repro_torch.kernels.ssd import (KERNEL_HEAD_DIMS, KERNEL_STATES,
                                          _kernel_parts, ssd_bwd,
-                                         ssd_bwd_plain)
+                                         ssd_bwd_heads, ssd_bwd_plain)
     names = ("dx", "ddt", "da_log", "db", "dc", "dh0")
     tol = WIDE_TOL["float32"]
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -3166,23 +3235,38 @@ def check_ssd_bwd(card) -> dict:
         del got, want
         kernel_ms = event_ms(lambda: ssd_bwd(*args, chunk=chunk), TIME_REPS)
         plain_ms = event_ms(lambda: ssd_bwd_plain(*args, chunk=chunk), 3)
+        passes_ms = ssd_bwd_kernel_ms(lambda: ssd_bwd(*args, chunk=chunk))
+        _, _, h, _, g, _ = SSD_PROBLEM
         flops, nbytes = ssd_bwd_work(*SSD_PROBLEM, chunk)
-        bd = bound(flops, nbytes, card.fp32_flops, card)
+        bd = bwd_bound(flops, nbytes, torch.float32, card)
         log(f"  mamba2-2.7b SSD backward {SSD_PROBLEM}, chunk {chunk}, two "
             f"calls bit for bit: normwise vs float64 " + ", ".join(
                 f"{k} {v:.2e}" for k, v in errs.items()) + " (the float32 "
             f"plain backward: " + ", ".join(
                 f"{k} {v:.2e}" for k, v in plain32.items()) + f"); kernel "
-            f"{kernel_ms:.3f} ms (four launches), plain {plain_ms:.3f} ms "
-            f"(float32), bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
-            f"{flops / 1e9:.1f} GFLOP at {card.fp32_flops / 1e12:.0f} "
-            f"TFLOP/s FP32); {flops / kernel_ms / 1e9:.1f} TFLOP/s")
+            f"{kernel_ms:.3f} ms (four launches, {ssd_bwd_heads(h, g)} heads"
+            f" a chunk-pass block), plain {plain_ms:.3f} ms (float32), bound "
+            f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['route']}); "
+            f"{flops / kernel_ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} "
+            f"GFLOP")
+        if passes_ms["measured"]:
+            log("    each kernel (torch.profiler, mean ms an event): " +
+                ", ".join(f"{k} {passes_ms[k]:.3f}"
+                          for k in passes_ms["events"]) +
+                f"; events held {passes_ms['events']} of "
+                f"{passes_ms['of_calls']} calls")
+        else:
+            log("    the profiler window holds no device time: each "
+                "kernel's time not measured")
         wide[chunk] = {"chunk": chunk, "normwise": errs,
                        "plain32_normwise": plain32, "err": max_abs,
                        "deterministic": True, "kernel_ms": kernel_ms,
-                       "plain_ms": plain_ms, "library_ms": None, **bd}
+                       "plain_ms": plain_ms, "library_ms": None,
+                       "heads": ssd_bwd_heads(h, g), "passes_ms": passes_ms,
+                       **bd}
         del ops, args
-    return {"small": small, "mamba2_2_7b": wide,
+    sass = check_ssd_bwd_sass(sass_run)
+    return {"small": small, "mamba2_2_7b": wide, "sass_hmma": sass,
             **wide[SSD_MODEL_CHUNK]}
 
 
@@ -3554,6 +3638,10 @@ def main() -> int:
     log(f"    kernel build (five nvcc at once) "
         f"{time.perf_counter() - t0:.1f} s -> " +
         ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    log("    nvcc seconds per source: " + ", ".join(
+        f"{name} {_build.BUILD_SECONDS[name]:.1f}"
+        if name in _build.BUILD_SECONDS else f"{name} already built"
+        for name in libs))
     ptxas = {}
     for name, lib in libs.items():
         text = lib.with_suffix(".log").read_text()
@@ -3565,6 +3653,9 @@ def main() -> int:
         log(f"    ptxas {name}: {len(rows)} instantiations, registers "
             f"{min(r[0] for r in rows)}-{max(r[0] for r in rows)}, "
             f"{sum(1 for r in rows if r[1])} spill")
+    # the backward libraries' SASS for phases 14a and 15a, dumped meanwhile
+    sass_runs = {name: start_sass(libs[name])
+                 for name in ("flash_attention_bwd", "ssd_bwd")}
     the_card = card_of(dev)
     phase_s = {}
 
@@ -3693,7 +3784,8 @@ def main() -> int:
         f"({TRAIN_PERIODS} periods, 1 x {TRAIN_SEQ} tokens, bfloat16), "
         f"resume")
     log("[14a] attention backward kernels vs their plain version")
-    attn_bwd = phase("14a", check_attention_bwd, the_card)
+    attn_bwd = phase("14a", check_attention_bwd, the_card,
+                     sass_runs["flash_attention_bwd"])
     log(f"[14b] {TRAIN_ARCH} gradients at full width: kernel route vs plain "
         f"route")
     train_grads = phase("14b", check_train_grads, dev)
@@ -3707,7 +3799,8 @@ def main() -> int:
         f"steps at full width ({SSD_TRAIN_LAYERS} layers, 1 x {TRAIN_SEQ} "
         f"tokens, bfloat16)")
     log("[15a] SSD backward kernels vs their plain version")
-    ssd_bwd_res = phase("15a", check_ssd_bwd, the_card)
+    ssd_bwd_res = phase("15a", check_ssd_bwd, the_card,
+                        sass_runs["ssd_bwd"])
     log(f"[15b] {SSD_TRAIN_ARCH} gradients at full width: kernel route vs "
         f"plain route")
     ssd_grads = phase("15b", check_ssd_train_grads, dev)
@@ -3796,15 +3889,22 @@ def main() -> int:
             "tokens": run["tokens"], "dtype": "bfloat16",
             "step_wall_ms": prof["wall_ms"], "kernel_ms": ms,
             "kernel_share": ms / prof["wall_ms"]}}
-    key = ("ssd_bwd_chunk_kernel", "float32", SSD_BWD_MAIN_KEY)
-    if key not in ptxas:
-        raise AssertionError(f"no ptxas report for the SSD backward's {key}")
-    ssd_bwd_regs = dict(zip(("registers", "spill_store_bytes",
-                             "spill_load_bytes"), ptxas[key]))
-    log(f"  ssd_bwd's chunk pass at (P, N, R) = {SSD_BWD_MAIN_KEY} uses "
-        f"{ssd_bwd_regs['registers']} registers, spills "
-        f"{ssd_bwd_regs['spill_store_bytes']} B stored / "
-        f"{ssd_bwd_regs['spill_load_bytes']} B loaded (ptxas)")
+    ssd_bwd_regs = {}
+    for what, key in (
+            ("chunk", ("ssd_bwd_chunk_kernel", "float32", SSD_BWD_MAIN_KEY)),
+            ("dstate", ("ssd_bwd_dstate_kernel", "float32",
+                        SSD_BWD_MAIN_KEY[:2])),
+            ("state_pass", ("ssd_bwd_state_pass_kernel", "float32", ())),
+            ("finish", ("ssd_bwd_finish_kernel", "float32", ()))):
+        if key not in ptxas:
+            raise AssertionError(f"no ptxas report for the SSD backward's "
+                                 f"{key}")
+        ssd_bwd_regs[what] = dict(zip(("registers", "spill_store_bytes",
+                                       "spill_load_bytes"), ptxas[key]))
+        log(f"  ssd_bwd's {what} pass {key[0]}<{key[2]}> uses "
+            f"{ssd_bwd_regs[what]['registers']} registers, spills "
+            f"{ssd_bwd_regs[what]['spill_store_bytes']} B stored / "
+            f"{ssd_bwd_regs[what]['spill_load_bytes']} B loaded (ptxas)")
     kernels = {"kernels": [
         entry("matmul", f"{csrc}/matmul.cu",
               "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
@@ -3853,9 +3953,15 @@ def main() -> int:
               "src/repro/kernels/ssd.py:30 (_ssd_kernel), which the "
               "reference differentiates in XLA through "
               "src/repro/models/mamba.py:55 (_ssd_chunked)", ssd_bwd_res,
-              ssd_bwd_regs, library="none", shape=list(SSD_PROBLEM),
-              dtype="float32", config=[SSD_MODEL_CHUNK, SSD_PROBLEM[3],
-                                       SSD_PROBLEM[5]],
+              ssd_bwd_regs["chunk"], library="none",
+              shape=list(SSD_PROBLEM), dtype="float32",
+              config=[SSD_MODEL_CHUNK, SSD_PROBLEM[3], SSD_PROBLEM[5]],
+              route_detail="mma.sync: float32 as 3xTF32; a chunk-pass block "
+              f"sums db and dc over {ssd_bwd_res['heads']} heads",
+              bound_ms_ffma=ssd_bwd_res["bound_ms_ffma"],
+              sass_hmma=ssd_bwd_res["sass_hmma"],
+              passes_ms=ssd_bwd_res["passes_ms"],
+              passes_registers=ssd_bwd_regs,
               chunk_64=ssd_bwd_res["mamba2_2_7b"][64],
               **in_train_step("ssd_bwd", ssd_training)),
     ]}

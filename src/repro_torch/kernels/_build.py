@@ -16,6 +16,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Sequence
@@ -31,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--split-compile=0")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: wall seconds of each source's nvcc in this process (none when its
+#: library was already built)
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -65,7 +69,9 @@ def build(name: str) -> Path:
     os.close(fd)
     cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                       str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)

@@ -29,10 +29,11 @@ Training.  When grad is enabled and an operand requires it, :func:`ssd`
 runs :class:`SsdFn`: the same forward, which keeps its scratches (``s``
 and the chunk-entry states), and a backward through :func:`ssd_bwd` -- on
 CUDA tensors the four hand-written kernels of ``csrc/ssd_bwd.cu`` (each
-chunk's D_c, the reverse state pass over the chunks, the chunk backward,
-a fixed-order finish), on CPU tensors :func:`ssd_bwd_plain`, the same
-passes.  No atomics, so two calls give the same bits.  The reference has
-no backward kernel: it differentiates ``_ssd_chunked`` in XLA.
+chunk's D_c, the reverse state pass over the chunks, the chunk backward
+over a block of heads, a fixed-order finish; the products on the tensor
+cores as 3xTF32), on CPU tensors :func:`ssd_bwd_plain`, the same passes.
+No atomics, so two calls give the same bits.  The reference has no
+backward kernel: it differentiates ``_ssd_chunked`` in XLA.
 """
 
 from __future__ import annotations
@@ -54,6 +55,11 @@ ROWS = 64
 STATE_SLAB, STATE_STAGES = 16, 3
 #: threads of a block of the backward's reverse state pass (ii)
 BWD_PASS_THREADS = 128
+#: the most heads a block of the backward's chunk pass (iii) takes
+#: (``kMaxHeads`` in ``csrc/ssd_bwd.cu``; :func:`ssd_bwd_heads` picks the
+#: number).  10 at mamba2-2.7b's 80 heads timed 1 % faster than 8 at chunk
+#: 256 and 3 % at chunk 64 on the H100, 16 11 % slower (PERF.md)
+BWD_HEADS = 10
 
 
 def _rows(chunk: int) -> int:
@@ -494,22 +500,33 @@ def ssd_bwd_pass_blocks(p: int, n: int) -> int:
     return -(-(p * n // 4) // BWD_PASS_THREADS)
 
 
+def ssd_bwd_heads(h: int, g: int) -> int:
+    """Heads of a chunk-pass block: the largest divisor of a group's
+    ``h // g`` heads that is at most :data:`BWD_HEADS`.  A block sums db
+    and dc over its heads in registers, so the scratch the finish pass
+    adds holds ``h // (g * heads)`` partials a group in place of ``h // g``
+    heads: 10 at mamba2-2.7b (80 heads, one group) gives 8 partials and,
+    at chunk 256, 512 blocks of one an SM."""
+    rep = h // g
+    return max(k for k in range(1, min(BWD_HEADS, rep) + 1) if rep % k == 0)
+
 
 def ssd_bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
     """Shared memory of the backward's chunk pass (iii), its largest, all
-    float32 with every row padded by one float (no bank conflicts in the
-    strided reads): the block's own tile of C and B rows (R x N each) and
-    of X and dY rows (R x P each), then a union that holds either a slab
-    of B or C rows (R x N) and of X or dY rows (R x P) with the M and G
-    tiles (R x R each), or h_in and dS of the chunk (P x N each), or the
-    column sums of 16 row groups (2 x 16 x R); and five R-vectors (s and
-    dt of the tile and of the slab, the u w terms).  R = min(chunk, 64):
-    183,552 bytes at (64, 128) and any chunk of 64 or more."""
+    float32 (``ChunkShape`` in ``csrc/ssd_bwd.cu``): the tile's own C or B
+    rows (R x N); two head buffers of a head's dY or X rows (R x P) with its
+    s and dt (2 R); two slab buffers of B_k or C_k, or a head's h_in or dS
+    (max(R, P) x N), with X_k or dY_k (R x P) and s, dt (2 R); each
+    warp's dx sums of a head (2 x R x P); and the row sums (2 x
+    :data:`BWD_HEADS` x R for the query role's heads, 3 x 2 x R for the key
+    role's).  R = min(chunk, 64): 205,312 bytes at (64, 128) and any chunk
+    of 64 or more."""
     r = _rows(chunk)
-    own = 2 * r * (n + 1) + 2 * r * (p + 1)
-    union = max(r * (n + 1) + r * (p + 1) + 2 * r * (r + 1),
-                2 * p * (n + 1), 2 * 16 * r)
-    return 4 * (own + union + 5 * r)
+    own = r * n
+    head = r * p + 2 * r
+    slab = max(r, p) * n + r * p + 2 * r
+    rows = (2 * BWD_HEADS + 6) * r
+    return 4 * (own + 2 * head + 2 * slab + 2 * r * p + rows)
 
 
 def ssd_bwd_legal(l: int, chunk: int, p: int, n: int,
@@ -533,11 +550,12 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     CUDA tensors launch the four hand-written kernels of
     ``csrc/ssd_bwd.cu`` on the current stream -- (i) each chunk's D_c,
-    (ii) the reverse state pass, (iii) the chunk backward, (iv) the
-    fixed-order finish: ds's reverse sums into ddt and da_log, db and dc
-    summed over each group's heads -- in a fixed order with no atomics,
-    so two calls give the same bits; anything they do not take raises.
-    CPU tensors run :func:`ssd_bwd_plain`, the same passes.
+    (ii) the reverse state pass, (iii) the chunk backward, each block over
+    :func:`ssd_bwd_heads` heads of one group, summing db and dc over them,
+    (iv) the fixed-order finish: ds's reverse sums into ddt and da_log, db
+    and dc added over each group's block partials -- in a fixed order with
+    no atomics, so two calls give the same bits; anything they do not take
+    raises.  CPU tensors run :func:`ssd_bwd_plain`, the same passes.
     ``ssd_bwd.launches`` counts calls that launched the kernels: one per
     backward, four kernel launches inside.
     """
@@ -570,21 +588,25 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                          f"{ssd_bwd_smem_bytes(chunk, p, n)} B at chunk "
                          f"{chunk}, (P, N) = ({p}, {n}) does not fit {limit}"
                          f" B")
+    rep = h // g
+    heads = ssd_bwd_heads(h, g)
     f32 = dict(dtype=torch.float32, device=x.device)
     nq = chunk // _rows(chunk)
     d_s = torch.empty((bsz, h, nc, p, n), **f32)
     dsq_pass = torch.empty((bsz, h, nc, ssd_bwd_pass_blocks(p, n)), **f32)
     dsq_scan = torch.empty((bsz, h, nc, nq), **f32)
     ds, ddt_part = (torch.empty((bsz, h, l), **f32) for _ in range(2))
-    db_h, dc_h = (torch.empty((bsz, l, h, n), **f32) for _ in range(2))
+    db_part, dc_part = (torch.empty((bsz, l, g * (rep // heads), n), **f32)
+                        for _ in range(2))
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     da_log = torch.empty_like(a_log)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     dh0 = torch.empty((bsz, h, p, n), **f32)
     _call("repro_ssd_bwd", "backward",
           (x, dt, a_log, b, c, dy, s, h_in, dh_final, d_s, dsq_pass,
-           dsq_scan, ds, ddt_part, db_h, dc_h, dx, ddt, da_log, db, dc, dh0),
-          (bsz, l, h, g, p, n, chunk), x.device, lib_name="ssd_bwd")
+           dsq_scan, ds, ddt_part, db_part, dc_part, dx, ddt, da_log, db, dc,
+           dh0),
+          (bsz, l, h, g, p, n, chunk, heads), x.device, lib_name="ssd_bwd")
     ssd_bwd.launches += 1
     return dx, ddt, da_log, db, dc, dh0
 

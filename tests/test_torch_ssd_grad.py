@@ -168,16 +168,16 @@ def test_ssd_routes_a_gradient_through_the_function_on_the_cpu():
 
 def test_backward_takes_whatever_the_forward_takes():
     """Every (chunk, P, N) the forward admits, the backward admits: its
-    chunk pass stages at most 183,552 bytes, the card's opt-in is 232,448."""
-    assert ssd_bwd_smem_bytes(256, 64, 128) == 183_552
-    assert ssd_bwd_smem_bytes(64, 64, 128) == 183_552
+    chunk pass stages at most 205,312 bytes, the card's opt-in is 232,448."""
+    assert ssd_bwd_smem_bytes(256, 64, 128) == 205_312
+    assert ssd_bwd_smem_bytes(64, 64, 128) == 205_312
     for chunk in (16, 32, 64, 128, 256, 512, 1024):
         for p in KERNEL_HEAD_DIMS:
             for n in KERNEL_STATES:
                 assert ssd_bwd_legal(4096, chunk, p, n) == \
                     ssd_tile_legal(4096, chunk, p, n), (chunk, p, n)
     assert not ssd_bwd_legal(4096, 48, 64, 128)          # chunk 48
-    assert not ssd_bwd_legal(4096, 64, 64, 128, smem_limit=183_551)
+    assert not ssd_bwd_legal(4096, 64, 64, 128, smem_limit=205_311)
 
 
 def test_backward_refuses_operands_that_disagree():

@@ -134,22 +134,40 @@ version, and drives every path of the port on the card:
    ``train``, then one step under ``torch.profiler`` (SSD forward and
    backward, products, AdamW, idle), with the step's model FLOPs, TFLOP/s
    and mfu;
+16. the MoE train path, cell train-4096-jamba-l3-4: jamba-v0.1-52b at
+   full width cut to layers 3 and 4 of its 8-layer period (a Mamba mixer
+   with the 16-expert top-2 einsum MoE at capacity factor 1.25, then GQA
+   attention with a dense SwiGLU; 3.41 B parameters): (16a) the SSD
+   forward and backward kernels at jamba's (1, 4096, 128, 64, 1, 16),
+   chunk 256, against ``ssd_plain`` and the float64 plain backward (1e-5),
+   each called twice for the same bits and timed beside its plain version
+   and bound; (16b) every parameter's gradient of ``loss_fn`` at the
+   cell's full width (batch 1 x 512), kernel route against plain route in
+   both dtypes, each kernel launched exactly 2 forward / 1 backward, and
+   how many tokens' expert sets differ between the routes; (16c) 8 AdamW
+   steps of 1 x 4096 tokens through ``train`` (bfloat16, float32
+   moments), one more under ``torch.profiler``, the step's model FLOPs
+   and mfu; (16d) ``remat_policy="dots"`` against "full" on 16c's
+   parameters: one step's gradients, the products each backward runs
+   counted at the dispatcher against the backward without remat (no
+   product with no batch dimension recomputed under "dots"), then 3 steps
+   under each policy (ms, peak memory, mfu, launches);
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c and 15c
-and read just after (the paths 9 and 10 launch none of the kernels; 14c
-and 15c add to one path, ``train``); the checks and timings of phases 2,
-5, 6, 14a, 14b, 14d, 15a and 15b, and those after each path, are not
-counted.
+just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c, 15c and
+16c and read just after (the paths 9 and 10 launch none of the kernels;
+14c and 15c add to one path, ``train``; 16c is ``train_moe``); the checks
+and timings of phases 2, 5, 6, 14a, 14b, 14d, 15a, 15b, 16a, 16b and 16d,
+and those after each path, are not counted.
 
 The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits nonzero and prints no result.  Long outputs (the compilers'
 reports, the fitted models, per-config times) go to
-``chiprun_out/chip_smoke/`` (phases 9, 10, 11, 12, 13, 14 and 15 under
-``contractions``, ``torch_engine``, ``store``, ``models``, ``serve``,
-``train`` and ``train_mamba`` in ``result.json``; the stores as
+``chiprun_out/chip_smoke/`` (phases 9 to 16 under ``contractions``,
+``torch_engine``, ``store``, ``models``, ``serve``, ``train``,
+``train_mamba`` and ``train_moe`` in ``result.json``; the stores as
 ``store_*.json``, the scoreboard as ``TOURNAMENT.json``).
 """
 
@@ -2918,106 +2936,30 @@ def profile_train_step(fn) -> dict:
 
 def train_path(dev, card) -> dict:
     """Phase 14c: gemma2-27b at full width, TRAIN_PERIODS periods, trained
-    for TRAIN_STEPS AdamW steps on train_4k's sequence at batch 1 through
-    the port's ``train`` (random bfloat16 parameters from a seeded card
-    generator, float32 moments, per-period remat, chunked cross entropy),
-    then one more step under the profiler."""
+    through :func:`train_cell`, with the step's products (train_flops),
+    model FLOPs and mfu."""
     import dataclasses
     import gc
-    import math
-    import statistics
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.train.data import DataConfig, batch_at, to_device
-    from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.train_loop import TrainConfig, train
-
-    class MarkedAdamW(AdamW):
-        """AdamW whose update opens a ``record_function`` range, so the
-        profile can tell the optimizer's kernels apart."""
-        __slots__ = ()
-
-        def update(self, *args, **kwargs):
-            with torch.profiler.record_function("adamw"):
-                return super().update(*args, **kwargs)
-
     base = get_config(TRAIN_ARCH)
     cfg = dataclasses.replace(
         base, n_layers=TRAIN_PERIODS * len(base.block_pattern))
-    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                          global_batch=1, seed=0)
     log(f"  memory held by earlier phases: "
         f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    res, state = train_cell(dev, cfg, TRAIN_ARCH)
+    del state
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    opt = MarkedAdamW(lr=TRAIN_LR)
-    t0 = time.perf_counter()
-    params, opt_state, report = train(
-        cfg, data_cfg, TrainConfig(steps=TRAIN_STEPS), opt=opt,
-        dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
-    n_params = sum(p.numel() for p in params.parameters())
-    losses = report.losses
-    ln_v = math.log(cfg.vocab)
-    if len(losses) != TRAIN_STEPS or report.skipped_nan_steps or \
-            not all(math.isfinite(x) for x in losses) or \
-            not abs(losses[0] - ln_v) <= 2.0:
-        raise AssertionError(f"{TRAIN_ARCH} training went wrong: losses "
-                             f"{losses}, skipped {report.skipped_nan_steps}"
-                             f" (the first should be near ln V = "
-                             f"{ln_v:.3f})")
-    steps_ms = [t * 1e3 for t in report.step_times]
-    later = steps_ms[1:]
-    step_ms = statistics.median(later)
     flops = train_flops(cfg, TRAIN_SEQ)
-    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, step_ms, card)
-    step_fn = make_train_step(cfg, opt)
-    batch = to_device(batch_at(data_cfg, TRAIN_STEPS), dev)
-    prof = profile_train_step(lambda: step_fn(params, opt_state, batch))
-    del params, opt_state, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    res = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "params": n_params,
-           "tokens": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
-           "steps_ms": steps_ms, "step_ms_median": step_ms,
-           "step_ms_min": min(later), "first_step_ms": steps_ms[0],
-           "tokens_per_s": TRAIN_SEQ * 1e3 / step_ms, "peak_bytes": peak,
-           "wall_s": wall_s, "products_tflop": flops / 1e12, **mf,
-           "stragglers": report.straggler_steps, "profile": prof}
-    log(f"  {TRAIN_ARCH} at full width, {cfg.n_layers} layers "
-        f"({n_params / 1e9:.2f} B parameters, bfloat16; AdamW float32), "
-        f"batch 1 x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps in {wall_s:.1f}"
-        f" s: losses " + ", ".join(f"{x:.4f}" for x in losses) +
-        f" (ln V = {ln_v:.4f})")
-    log(f"  step ms after the first: median {step_ms:.1f}, min "
-        f"{min(later):.1f} (first {steps_ms[0]:.1f}); "
-        f"{res['tokens_per_s']:.0f} tokens/s; products "
-        f"{flops / 1e12:.1f} TFLOP a step; peak memory {peak / 1e9:.2f} GB "
-        f"(torch.cuda.max_memory_allocated)")
+    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
+    log(f"  products {flops / 1e12:.1f} TFLOP a step (train_flops)")
     log_model_flops(f"{TRAIN_ARCH} train step", mf)
-    if prof["measured"]:
-        log(f"  one profiled step: wall {prof['wall_ms']:.1f} ms, device busy"
-            f" {prof['busy_ms']:.1f} ms, idle share "
-            f"{100 * prof['idle_share']:.1f} %; by class: " + ", ".join(
-                f"{k} {v:.1f} ms ({100 * prof['shares'][k]:.1f} %)"
-                for k, v in sorted(prof["by_class_ms"].items(),
-                                   key=lambda kv: -kv[1])) +
-            ("" if prof["optimizer_marked"] else
-             " (the optimizer's range was not found: adamw not split out)") +
-            f"; {prof['device_spans_left_out']} device-side span of the "
-            f"range left out")
-        mm = prof["by_class_ms"].get("library matmul")
-        if mm:
-            log(f"  bf16 products {flops / mm / 1e9:.0f} TFLOP/s over their "
-                f"device time")
-    else:
-        log("  the profiled step's trace holds no device time: shares not "
-            "measured")
-    return res
+    mm = res["profile"].get("by_class_ms", {}).get("library matmul")
+    if mm:
+        log(f"  bf16 products {flops / mm / 1e9:.0f} TFLOP/s over their "
+            f"device time")
+    return {**res, "products_tflop": flops / 1e12, **mf}
 
 
 def check_resume(dev) -> dict:
@@ -3155,55 +3097,112 @@ def check_ssd_bwd_sass(sass_run) -> dict:
     return found
 
 
+#: the SSD backward's gradients, in ``ssd_bwd``'s order
+SSD_BWD_NAMES = ("dx", "ddt", "da_log", "db", "dc", "dh0")
+
+
+def ssd_bwd_inputs(gen, b, l, h, p, g, n, with_h0, with_dh):
+    """SSD operands and upstream gradients on the card from the card
+    generator ``gen``: x, dy (and h0, dh_final when asked for) standard
+    normal, dt in [1e-3, 0.101), a_log N(0, 0.25), b and c N(0, 1 / N)."""
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = randn(b, l, h, p)
+    dt = torch.rand(b, l, h, generator=gen, device="cuda") * 0.1 + 1e-3
+    a_log = randn(h, scale=0.5)
+    bb, cc = randn(b, l, g, n, scale=n ** -0.5), \
+        randn(b, l, g, n, scale=n ** -0.5)
+    h0 = randn(b, h, p, n) if with_h0 else None
+    dy = randn(b, l, h, p)
+    dh = randn(b, h, p, n) if with_dh else None
+    return x, dt, a_log, bb, cc, h0, dy, dh
+
+
+def check_ssd_bwd_case(label, ops, chunk):
+    """The SSD backward kernels on ``ops`` (:func:`ssd_bwd_inputs`) at
+    ``chunk`` against the plain backward in float64 on the kernel
+    forward's own s and h_in: two calls the same bits, every gradient
+    within 1e-5 normwise.  Returns (args, got, want, errs)."""
+    import torch
+    from repro_torch.kernels.ssd import _kernel_parts, ssd_bwd, ssd_bwd_plain
+    tol = WIDE_TOL["float32"]
+    x, dt, a_log, bb, cc, h0, dy, dh = ops
+    _, _, s, h_in = _kernel_parts(x, dt, a_log, bb, cc, chunk, h0,
+                                  want_state=False)
+    args = (x, dt, a_log, bb, cc, s, h_in, dy, dh)
+    got = ssd_bwd(*args, chunk=chunk)
+    again = ssd_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()           # a fault surfaces here
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_bwd_plain(*(None if t is None else t.double() for t in args),
+                         chunk=chunk)
+    errs = dict(zip(SSD_BWD_NAMES, grads_err(got, want).values()))
+    if not (same and max(errs.values()) <= tol):
+        raise AssertionError(f"ssd_bwd disagrees with its plain version "
+                             f"at {label}: two calls equal {same}, "
+                             f"normwise {errs} (bound {tol:.0e})")
+    return args, got, want, errs
+
+
+def ssd_bwd_timed(label, args, got, want, errs, chunk, card) -> dict:
+    """The SSD backward at ``args`` (a checked case) timed beside the
+    float32 plain backward and the bound of the route taken (3xTF32, the
+    FFMA bound beside it), each kernel's own time from one profiler
+    window; logged as ``label``."""
+    import torch
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_bwd_heads, ssd_bwd_plain
+    problem = tuple(args[0].shape) + tuple(args[3].shape[2:])
+    b, l, h, p, g, n = problem
+    max_abs = max(float((a.double() - w).abs().max())
+                  for a, w in zip(got, want))
+    plain32 = dict(zip(SSD_BWD_NAMES, grads_err(
+        ssd_bwd_plain(*args, chunk=chunk), want).values()))
+    kernel_ms = event_ms(lambda: ssd_bwd(*args, chunk=chunk), TIME_REPS)
+    plain_ms = event_ms(lambda: ssd_bwd_plain(*args, chunk=chunk), 3)
+    passes_ms = ssd_bwd_kernel_ms(lambda: ssd_bwd(*args, chunk=chunk))
+    flops, nbytes = ssd_bwd_work(*problem, chunk)
+    bd = bwd_bound(flops, nbytes, torch.float32, card)
+    heads = ssd_bwd_heads(h, g)
+    log(f"  {label} SSD backward {problem}, chunk {chunk}, two calls bit for"
+        f" bit: normwise vs float64 " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()) + " (the float32 "
+        f"plain backward: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in plain32.items()) + f"); kernel "
+        f"{kernel_ms:.3f} ms (four launches, {heads} heads a chunk-pass "
+        f"block), plain {plain_ms:.3f} ms (float32), bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['route']}); "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP")
+    if passes_ms["measured"]:
+        log("    each kernel (torch.profiler, mean ms an event): " +
+            ", ".join(f"{k} {passes_ms[k]:.3f}"
+                      for k in passes_ms["events"]) +
+            f"; events held {passes_ms['events']} of "
+            f"{passes_ms['of_calls']} calls")
+    else:
+        log("    the profiler window holds no device time: each kernel's "
+            "time not measured")
+    return {"shape": list(problem), "chunk": chunk, "normwise": errs,
+            "plain32_normwise": plain32, "err": max_abs,
+            "deterministic": True, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None, "heads": heads,
+            "passes_ms": passes_ms, **bd}
+
+
 def check_ssd_bwd(card, sass_run) -> dict:
     """Phase 15a: the SSD backward kernels against the plain backward in
     float64 on the kernel forward's own s and h_in: every instantiated
     (P, N) at each chunk of SSD_BWD_CHUNKS on a small shape, with and
     without h0 and a final-state gradient; then mamba2-2.7b's width at
     chunks 64 and 256.  Every gradient within 1e-5 normwise, two calls the
-    same bits; the mamba2 shapes timed beside the plain backward (float32)
-    and the bound of the route taken (3xTF32, with the FFMA bound beside
-    it), each kernel's own time from one profiler window; and the SASS
-    gate (check_ssd_bwd_sass)."""
+    same bits (:func:`check_ssd_bwd_case`); the mamba2 shapes timed
+    (:func:`ssd_bwd_timed`); and the SASS gate (check_ssd_bwd_sass)."""
     import torch
-    from repro_torch.kernels.ssd import (KERNEL_HEAD_DIMS, KERNEL_STATES,
-                                         _kernel_parts, ssd_bwd,
-                                         ssd_bwd_heads, ssd_bwd_plain)
-    names = ("dx", "ddt", "da_log", "db", "dc", "dh0")
+    from repro_torch.kernels.ssd import KERNEL_HEAD_DIMS, KERNEL_STATES
     tol = WIDE_TOL["float32"]
     gen = torch.Generator(device="cuda").manual_seed(15)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device="cuda") * scale
-
-    def inputs(b, l, h, p, g, n, with_h0, with_dh):
-        x = randn(b, l, h, p)
-        dt = torch.rand(b, l, h, generator=gen, device="cuda") * 0.1 + 1e-3
-        a_log = randn(h, scale=0.5)
-        bb, cc = randn(b, l, g, n, scale=n ** -0.5), \
-            randn(b, l, g, n, scale=n ** -0.5)
-        h0 = randn(b, h, p, n) if with_h0 else None
-        dy = randn(b, l, h, p)
-        dh = randn(b, h, p, n) if with_dh else None
-        return x, dt, a_log, bb, cc, h0, dy, dh
-
-    def check(label, ops, chunk):
-        x, dt, a_log, bb, cc, h0, dy, dh = ops
-        _, _, s, h_in = _kernel_parts(x, dt, a_log, bb, cc, chunk, h0,
-                                      want_state=False)
-        args = (x, dt, a_log, bb, cc, s, h_in, dy, dh)
-        got = ssd_bwd(*args, chunk=chunk)
-        again = ssd_bwd(*args, chunk=chunk)
-        torch.cuda.synchronize()           # a fault surfaces here
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        want = ssd_bwd_plain(*(None if t is None else t.double()
-                               for t in args), chunk=chunk)
-        errs = dict(zip(names, grads_err(got, want).values()))
-        if not (same and max(errs.values()) <= tol):
-            raise AssertionError(f"ssd_bwd disagrees with its plain version "
-                                 f"at {label}: two calls equal {same}, "
-                                 f"normwise {errs} (bound {tol:.0e})")
-        return args, got, want, errs
 
     small = []
     b, l, h, g = SSD_BWD_SMALL
@@ -3211,9 +3210,10 @@ def check_ssd_bwd(card, sass_run) -> dict:
         for n in KERNEL_STATES:
             for chunk in SSD_BWD_CHUNKS:
                 with_h0, with_dh = chunk in (16, 64), chunk in (16, 32)
-                _, _, _, errs = check(
+                _, _, _, errs = check_ssd_bwd_case(
                     f"P {p}, N {n}, chunk {chunk}",
-                    inputs(b, l, h, p, g, n, with_h0, with_dh), chunk)
+                    ssd_bwd_inputs(gen, b, l, h, p, g, n, with_h0, with_dh),
+                    chunk)
                 small.append({"p": p, "n": n, "chunk": chunk,
                               "h0": with_h0, "dh_final": with_dh,
                               "normwise": errs})
@@ -3225,46 +3225,12 @@ def check_ssd_bwd(card, sass_run) -> dict:
         f"{worst['n']}, chunk {worst['chunk']}")
     wide = {}
     for chunk in (64, SSD_MODEL_CHUNK):
-        ops = inputs(*SSD_PROBLEM, False, False)
-        args, got, want, errs = check(f"mamba2-2.7b, chunk {chunk}", ops,
-                                      chunk)
-        max_abs = max(float((a.double() - w).abs().max())
-                      for a, w in zip(got, want))
-        plain32 = dict(zip(names, grads_err(
-            ssd_bwd_plain(*args, chunk=chunk), want).values()))
-        del got, want
-        kernel_ms = event_ms(lambda: ssd_bwd(*args, chunk=chunk), TIME_REPS)
-        plain_ms = event_ms(lambda: ssd_bwd_plain(*args, chunk=chunk), 3)
-        passes_ms = ssd_bwd_kernel_ms(lambda: ssd_bwd(*args, chunk=chunk))
-        _, _, h, _, g, _ = SSD_PROBLEM
-        flops, nbytes = ssd_bwd_work(*SSD_PROBLEM, chunk)
-        bd = bwd_bound(flops, nbytes, torch.float32, card)
-        log(f"  mamba2-2.7b SSD backward {SSD_PROBLEM}, chunk {chunk}, two "
-            f"calls bit for bit: normwise vs float64 " + ", ".join(
-                f"{k} {v:.2e}" for k, v in errs.items()) + " (the float32 "
-            f"plain backward: " + ", ".join(
-                f"{k} {v:.2e}" for k, v in plain32.items()) + f"); kernel "
-            f"{kernel_ms:.3f} ms (four launches, {ssd_bwd_heads(h, g)} heads"
-            f" a chunk-pass block), plain {plain_ms:.3f} ms (float32), bound "
-            f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['route']}); "
-            f"{flops / kernel_ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} "
-            f"GFLOP")
-        if passes_ms["measured"]:
-            log("    each kernel (torch.profiler, mean ms an event): " +
-                ", ".join(f"{k} {passes_ms[k]:.3f}"
-                          for k in passes_ms["events"]) +
-                f"; events held {passes_ms['events']} of "
-                f"{passes_ms['of_calls']} calls")
-        else:
-            log("    the profiler window holds no device time: each "
-                "kernel's time not measured")
-        wide[chunk] = {"chunk": chunk, "normwise": errs,
-                       "plain32_normwise": plain32, "err": max_abs,
-                       "deterministic": True, "kernel_ms": kernel_ms,
-                       "plain_ms": plain_ms, "library_ms": None,
-                       "heads": ssd_bwd_heads(h, g), "passes_ms": passes_ms,
-                       **bd}
-        del ops, args
+        ops = ssd_bwd_inputs(gen, *SSD_PROBLEM, False, False)
+        args, got, want, errs = check_ssd_bwd_case(
+            f"mamba2-2.7b, chunk {chunk}", ops, chunk)
+        wide[chunk] = ssd_bwd_timed("mamba2-2.7b", args, got, want, errs,
+                                    chunk, card)
+        del ops, args, got, want
     sass = check_ssd_bwd_sass(sass_run)
     return {"small": small, "mamba2_2_7b": wide, "sass_hmma": sass,
             **wide[SSD_MODEL_CHUNK]}
@@ -3334,14 +3300,16 @@ def check_ssd_train_grads(dev) -> dict:
 
 
 def model_flops(cfg, kind: str, batch: int, seq: int, ms: float,
-                card) -> dict:
+                card, remat_policy=None) -> dict:
     """The model FLOPs of one step by ``repro_torch.perf.analytic``
     (``cell_cost``: the forward's products and scores, training as 4
-    forwards with per-period remat), the achieved model TFLOP/s over
-    ``ms`` and their share of the card's bfloat16 tensor peak (``mfu``)."""
+    forwards with per-period remat, 3.2 under ``remat_policy="dots"``),
+    the achieved model TFLOP/s over ``ms`` and their share of the card's
+    bfloat16 tensor peak (``mfu``)."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.perf.analytic import cell_cost
-    flops = cell_cost(cfg, ShapeSpec(kind, seq, batch, kind)).flops
+    flops = cell_cost(cfg, ShapeSpec(kind, seq, batch, kind),
+                      remat_policy=remat_policy).flops
     rate = flops / ms / 1e9
     return {"model_flops": flops, "model_tflops_per_s": rate,
             "mfu": rate * 1e12 / card.bf16_tensor_flops,
@@ -3355,42 +3323,43 @@ def log_model_flops(what: str, mf: dict) -> None:
         f"TFLOP/s bf16")
 
 
-def ssd_train_path(dev, card) -> dict:
-    """Phase 15c: mamba2-2.7b at full width and SSD_TRAIN_LAYERS layers
-    trained for TRAIN_STEPS AdamW steps on train_4k's sequence at batch 1
-    through the port's ``train`` (random bfloat16 parameters from a seeded
-    card generator, float32 moments, per-period remat, chunked cross
-    entropy): every Mamba layer's scan through the SSD kernels and its
-    gradient through the SSD backward kernels; then one more step under
-    the profiler."""
-    import dataclasses
-    import gc
-    import math
-    import statistics
+def marked_adamw(lr: float):
+    """AdamW whose update opens a ``record_function`` range named
+    "adamw", so a profile can tell the optimizer's kernels apart."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd import ssd, ssd_bwd
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.train.data import DataConfig, batch_at, to_device
     from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.train_loop import TrainConfig, train
 
     class MarkedAdamW(AdamW):
-        """AdamW whose update opens a ``record_function`` range."""
         __slots__ = ()
 
         def update(self, *args, **kwargs):
             with torch.profiler.record_function("adamw"):
                 return super().update(*args, **kwargs)
 
-    cfg = dataclasses.replace(get_config(SSD_TRAIN_ARCH),
-                              n_layers=SSD_TRAIN_LAYERS)
+    return MarkedAdamW(lr=lr)
+
+
+def train_cell(dev, cfg, arch: str) -> tuple:
+    """``cfg`` trained for TRAIN_STEPS AdamW steps on train_4k's sequence
+    at batch 1 through the port's ``train`` (random bfloat16 parameters
+    from a seeded card generator, float32 moments, per-period remat,
+    chunked cross entropy), then one more step under the profiler (phases
+    15c and 16c).  Every loss finite, the first within 2 of ln V.  Returns
+    (the run's numbers, (params, opt_state, opt, batch)): the trained
+    state and the profiled step's batch."""
+    import gc
+    import math
+    import statistics
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.data import DataConfig, batch_at, to_device
+    from repro_torch.train.train_loop import TrainConfig, train
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                           global_batch=1, seed=0)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    opt = MarkedAdamW(lr=TRAIN_LR)
+    opt = marked_adamw(TRAIN_LR)
     t0 = time.perf_counter()
     params, opt_state, report = train(
         cfg, data_cfg, TrainConfig(steps=TRAIN_STEPS), opt=opt,
@@ -3404,7 +3373,7 @@ def ssd_train_path(dev, card) -> dict:
     if len(losses) != TRAIN_STEPS or report.skipped_nan_steps or \
             not all(math.isfinite(x) for x in losses) or \
             not abs(losses[0] - ln_v) <= 2.0:
-        raise AssertionError(f"{SSD_TRAIN_ARCH} training went wrong: losses "
+        raise AssertionError(f"{arch} training went wrong: losses "
                              f"{losses}, skipped {report.skipped_nan_steps}"
                              f" (the first should be near ln V = "
                              f"{ln_v:.3f})")
@@ -3414,47 +3383,424 @@ def ssd_train_path(dev, card) -> dict:
     step_fn = make_train_step(cfg, opt)
     batch = to_device(batch_at(data_cfg, TRAIN_STEPS), dev)
     prof = profile_train_step(lambda: step_fn(params, opt_state, batch))
-    del params, opt_state, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    steps = TRAIN_STEPS + 1
-    fwd, bwd = ssd.launches, ssd_bwd.launches
-    if fwd != 2 * steps * cfg.n_layers or bwd != steps * cfg.n_layers:
-        raise AssertionError(f"{steps} steps of {cfg.n_layers} Mamba layers "
-                             f"launched the SSD forward {fwd} and its "
-                             f"backward {bwd} times, not "
-                             f"{2 * steps * cfg.n_layers} and "
-                             f"{steps * cfg.n_layers}")
-    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, step_ms, card)
-    res = {"arch": SSD_TRAIN_ARCH, "layers": cfg.n_layers,
-           "params": n_params, "tokens": TRAIN_SEQ, "steps": TRAIN_STEPS,
-           "losses": losses, "steps_ms": steps_ms, "step_ms_median": step_ms,
+    res = {"arch": arch, "layers": cfg.n_layers, "params": n_params,
+           "tokens": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "steps_ms": steps_ms, "step_ms_median": step_ms,
            "step_ms_min": min(later), "first_step_ms": steps_ms[0],
            "tokens_per_s": TRAIN_SEQ * 1e3 / step_ms, "peak_bytes": peak,
-           "wall_s": wall_s, "ssd_launches": fwd, "ssd_bwd_launches": bwd,
-           **mf, "stragglers": report.straggler_steps, "profile": prof}
-    log(f"  {SSD_TRAIN_ARCH} at full width, {cfg.n_layers} layers "
+           "wall_s": wall_s, "stragglers": report.straggler_steps,
+           "profile": prof}
+    log(f"  {arch} at full width, {cfg.n_layers} layers "
         f"({n_params / 1e9:.2f} B parameters, bfloat16; AdamW float32), "
         f"batch 1 x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps in {wall_s:.1f}"
         f" s: losses " + ", ".join(f"{x:.4f}" for x in losses) +
-        f" (ln V = {ln_v:.4f}); {fwd} SSD forward and {bwd} backward "
-        f"launches over {steps} steps")
+        f" (ln V = {ln_v:.4f})")
     log(f"  step ms after the first: median {step_ms:.1f}, min "
         f"{min(later):.1f} (first {steps_ms[0]:.1f}); "
         f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
         f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
-    log_model_flops(f"{SSD_TRAIN_ARCH} train step", mf)
     if prof["measured"]:
         log(f"  one profiled step: wall {prof['wall_ms']:.1f} ms, device busy"
             f" {prof['busy_ms']:.1f} ms, idle share "
             f"{100 * prof['idle_share']:.1f} %; by class: " + ", ".join(
                 f"{k} {v:.1f} ms ({100 * prof['shares'][k]:.1f} %)"
                 for k, v in sorted(prof["by_class_ms"].items(),
-                                   key=lambda kv: -kv[1])))
+                                   key=lambda kv: -kv[1])) +
+            ("" if prof["optimizer_marked"] else
+             " (the optimizer's range was not found: adamw not split out)") +
+            f"; {prof['device_spans_left_out']} device-side span of the "
+            f"range left out")
     else:
         log("  the profiled step's trace holds no device time: shares not "
             "measured")
+    return res, (params, opt_state, opt, batch)
+
+
+def exact_launches(what: str, got: dict, want: dict) -> None:
+    """Each kernel wrapper's launches ``got`` (by name) must equal
+    ``want``'s."""
+    log(f"  {what}: launches " + ", ".join(
+        f"{k} {got[k]}" for k in want) + " (exactly " + ", ".join(
+        f"{k} {v}" for k, v in want.items()) + " expected)")
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: launches {got}, not {want}")
+
+
+def ssd_train_path(dev, card) -> dict:
+    """Phase 15c: mamba2-2.7b at full width and SSD_TRAIN_LAYERS layers
+    trained through :func:`train_cell`: every Mamba layer's scan through
+    the SSD kernels (twice a step with remat) and its gradient through the
+    SSD backward kernels, with the step's model FLOPs and mfu."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
+    cfg = dataclasses.replace(get_config(SSD_TRAIN_ARCH),
+                              n_layers=SSD_TRAIN_LAYERS)
+    res, state = train_cell(dev, cfg, SSD_TRAIN_ARCH)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = TRAIN_STEPS + 1
+    exact_launches(f"{steps} steps of {cfg.n_layers} Mamba layers",
+                   {"ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches},
+                   {"ssd": 2 * steps * cfg.n_layers,
+                    "ssd_bwd": steps * cfg.n_layers})
+    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
+    log_model_flops(f"{SSD_TRAIN_ARCH} train step", mf)
+    return {**res, "ssd_launches": ssd.launches,
+            "ssd_bwd_launches": ssd_bwd.launches, **mf}
+
+
+# ----------------------------------------------------------- phase 16 --
+#: phase 16's cell, train-4096-jamba-l3-4: jamba-v0.1-52b (Lieber et al.,
+#: arXiv:2403.19887; the reference's src/repro/configs/jamba_v0_1_52b.py)
+#: at full width, cut to layers 3 and 4 of its 8-layer period: a Mamba
+#: mixer with the 16-expert top-2 einsum MoE, then attention with a dense
+#: SwiGLU.  A whole period (13.00 B parameters) would need about 190 GB to
+#: train; these two layers hold 3.41 B.
+MOE_TRAIN_ARCH = "jamba-v0.1-52b"
+MOE_TRAIN_LAYERS = slice(3, 5)
+#: 16a: the SSD at jamba's widths, (batch, L, H, P, G, N), at its chunk 256
+MOE_SSD_PROBLEM = (1, 4096, 128, 64, 1, 16)
+#: 16d: AdamW steps under each remat policy
+DOTS_STEPS = 3
+
+
+def moe_cell_config():
+    """The cell's config: jamba-v0.1-52b with its block pattern cut to
+    MOE_TRAIN_LAYERS (by ``dataclasses.replace``, nothing in the
+    package)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    base = get_config(MOE_TRAIN_ARCH)
+    pattern = base.block_pattern[MOE_TRAIN_LAYERS]
+    return dataclasses.replace(base, n_layers=len(pattern),
+                               block_pattern=pattern)
+
+
+def check_jamba_ssd(card) -> dict:
+    """Phase 16a: the SSD forward and backward kernels at jamba-v0.1-52b's
+    widths (MOE_SSD_PROBLEM, its chunk 256): the forward within 1e-5
+    normwise of ``ssd_plain``, the backward within 1e-5 of the float64
+    plain backward (:func:`check_ssd_bwd_case`), two calls of each the
+    same bits; each timed beside its plain version and the bound of its
+    route."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    chunk = get_config(MOE_TRAIN_ARCH).ssm_chunk
+    tol = WIDE_TOL["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    ops = ssd_bwd_inputs(gen, *MOE_SSD_PROBLEM, False, False)
+    fwd_ops = ops[:5]
+    out = ssd(*fwd_ops, chunk=chunk)
+    again = ssd(*fwd_ops, chunk=chunk)
+    torch.cuda.synchronize()               # a fault surfaces here
+    same = bool(torch.equal(out, again))
+    ref = ssd_plain(*fwd_ops, chunk=chunk)
+    err, max_abs = rel_err(out, ref), float((out - ref).abs().max())
+    if not (same and err <= tol):
+        raise AssertionError(f"ssd at jamba's widths: two calls equal {same},"
+                             f" normwise {err:.3e} from its plain version "
+                             f"(bound {tol:.0e})")
+    del out, again, ref
+    ms = event_ms(lambda: ssd(*fwd_ops, chunk=chunk), TIME_REPS)
+    plain_ms = event_ms(lambda: ssd_plain(*fwd_ops, chunk=chunk), 3)
+    flops, nbytes = ssd_work(*MOE_SSD_PROBLEM, chunk)
+    bd = bound(flops, nbytes, card.fp32_flops, card)
+    log(f"  jamba-v0.1-52b SSD forward {MOE_SSD_PROBLEM}, chunk {chunk}, two "
+        f"calls bit for bit: normwise {err:.3e} from ssd_plain (bound "
+        f"{tol:.0e}), max_abs_err {max_abs:.3e}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']},"
+        f" {flops / 1e9:.1f} GFLOP at FP32)")
+    fwd = {"shape": list(MOE_SSD_PROBLEM), "chunk": chunk, "normwise": err,
+           "err": max_abs, "deterministic": True, "kernel_ms": ms,
+           "plain_ms": plain_ms, "library_ms": None, **bd}
+    args, got, want, errs = check_ssd_bwd_case(
+        f"jamba-v0.1-52b, chunk {chunk}", ops, chunk)
+    bwd = ssd_bwd_timed("jamba-v0.1-52b", args, got, want, errs, chunk, card)
+    return {"forward": fwd, "backward": bwd}
+
+
+def route_flips(cfg, h_a, h_b, router) -> dict:
+    """How two inputs of one MoE layer (the kernel and the plain route's)
+    route: the tokens whose top-k expert sets differ and each one's
+    dropped choices, through the port's ``moe._route`` at the capacity
+    ``moe_forward_einsum`` gives a call of their tokens."""
+    import math
+    from repro_torch.models.moe import _route
+    t = h_a.shape[0] * h_a.shape[1]
+    cap = max(1, int(math.ceil(cfg.moe_capacity_factor * cfg.top_k * t /
+                               cfg.n_experts)))
+    sets, dropped = [], []
+    for h in (h_a, h_b):
+        _, experts, _, keep = _route(h.reshape(1, t, -1) @ router,
+                                     cfg.top_k, cfg.n_experts, cap)
+        sets.append(experts.sort(-1).values)
+        dropped.append(int((~keep).sum()))
+    return {"tokens": t, "capacity": cap,
+            "expert_sets_differ": int((sets[0] != sets[1]).any(-1).sum()),
+            "dropped_kernel_route": dropped[0],
+            "dropped_plain_route": dropped[1]}
+
+
+def check_moe_train_grads(dev) -> dict:
+    """Phase 16b: every parameter's gradient of ``loss_fn`` at the cell's
+    full width (its two layers), batch 1 x GRAD_SEQ tokens, the kernel
+    route (attention and the SSD, forward and backward kernels) against
+    the plain route, in float32 and bfloat16, with each kernel's launches
+    exactly 2 forward (remat) and 1 backward; and how many tokens' expert
+    sets differ between the routes (the MoE's top-2 sits after the SSD
+    mixer, so the routes' last-bit differences can flip a near-tied
+    choice), from ``moe._route`` on each route's MoE input."""
+    import gc
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
+    from repro_torch.models import init_params, loss_fn, transformer
+    from repro_torch.train.data import DataConfig, batch_at, to_device
+    cfg = moe_cell_config()
+    wrappers = {"flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
+                "ssd_bwd": ssd_bwd}
+    seen = []
+    inner = transformer.moe_forward
+
+    def recording(cfg_, p, h, *args, **kwargs):
+        seen.append(h.detach())
+        return inner(cfg_, p, h, *args, **kwargs)
+
+    res = {}
+    transformer.moe_forward = recording
+    try:
+        for seed, dtype_name in enumerate(("float32", "bfloat16")):
+            dtype = getattr(torch, dtype_name)
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                600 + seed), dtype, dev)
+            for p in params.parameters():
+                p.requires_grad_(True)
+            names = [n for n, _ in params.named_parameters()]
+            leaves = list(params.parameters())
+            batch = to_device(batch_at(DataConfig(
+                vocab=cfg.vocab, seq_len=GRAD_SEQ, global_batch=1,
+                seed=600 + seed), 0), dev)
+            before = {k: w.launches for k, w in wrappers.items()}
+            seen.clear()
+            loss_k = loss_fn(cfg, params, batch["inputs"], batch["labels"])
+            got = torch.autograd.grad(loss_k, leaves)
+            torch.cuda.synchronize()
+            launched = {k: w.launches - before[k]
+                        for k, w in wrappers.items()}
+            h_kernel = seen[0]         # the forward's (then the recompute's)
+            seen.clear()
+            loss_p = loss_fn(cfg, params, batch["inputs"], batch["labels"],
+                             use_kernel=False)
+            want = torch.autograd.grad(loss_p, leaves)
+            flips = route_flips(cfg, h_kernel, seen[0],
+                                next(b.moe for b in params.blocks
+                                     if b.moe is not None).router)
+            errs = {names[i]: e for i, e in grads_err(got, want).items()}
+            tol = GRAD_TOL[dtype_name]
+            worst = max(errs, key=errs.get)
+            log(f"  {MOE_TRAIN_ARCH} layers 3-4 {dtype_name}, batch 1 x "
+                f"{GRAD_SEQ}: loss kernel route {float(loss_k.detach()):.6f},"
+                f" plain {float(loss_p.detach()):.6f}; {len(errs)} gradient "
+                f"leaves, kernel route vs plain route normwise worst "
+                f"{errs[worst]:.3e} ({worst}), the MoE's router "
+                f"{errs['blocks.0.moe.router']:.3e} (bound {tol:.0e}); "
+                f"expert sets that differ between the routes: "
+                f"{flips['expert_sets_differ']} of {flips['tokens']} tokens;"
+                f" dropped choices at capacity {flips['capacity']}: "
+                f"{flips['dropped_kernel_route']} (kernel route), "
+                f"{flips['dropped_plain_route']} (plain)")
+            exact_launches(f"{dtype_name} gradients", launched,
+                           {"flash_attention": 2, "flash_attention_bwd": 1,
+                            "ssd": 2, "ssd_bwd": 1})
+            if not max(errs.values()) <= tol:
+                raise AssertionError(f"{MOE_TRAIN_ARCH} layers 3-4 "
+                                     f"{dtype_name}: the kernel route's "
+                                     f"gradients disagree: {errs}; route "
+                                     f"flips {flips}")
+            res[dtype_name] = {"layers": cfg.n_layers, "tokens": GRAD_SEQ,
+                               "loss_kernel": float(loss_k.detach()),
+                               "loss_plain": float(loss_p.detach()),
+                               "tol": tol, "normwise": errs,
+                               "launches": launched, "routes": flips}
+            del got, want, loss_k, loss_p, params, leaves, h_kernel
+            seen.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        transformer.moe_forward = inner
     return res
+
+
+def moe_train_path(dev, card) -> dict:
+    """Phase 16c: the cell trained through :func:`train_cell`, with the
+    attention and SSD kernels' launches exactly 2 forward and 1 backward a
+    step, the step's model FLOPs and mfu; the trained state and the
+    profiled step's batch stay under ``state`` for 16d."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
+    cfg = moe_cell_config()
+    res, state = train_cell(dev, cfg, MOE_TRAIN_ARCH)
+    steps = TRAIN_STEPS + 1
+    launched = {"flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches,
+                "ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches}
+    exact_launches(f"{steps} steps of layers 3-4", launched,
+                   {"flash_attention": 2 * steps, "flash_attention_bwd":
+                    steps, "ssd": 2 * steps, "ssd_bwd": steps})
+    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
+    log_model_flops(f"{MOE_TRAIN_ARCH} layers 3-4 train step", mf)
+    return {**res, "cell": "train-4096-jamba-l3-4", "launches": launched,
+            **mf, "state": state}
+
+
+def products_counter():
+    """A ``TorchDispatchMode`` that counts the products reaching the
+    dispatcher: ``no_batch`` (``mm``, ``addmm``, a ``bmm`` over a batch of
+    one: what ``remat_policy="dots"`` keeps) and ``batched`` (the other
+    ``bmm``)."""
+    import collections
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                self.counts["no_batch"] += 1
+            elif func is torch.ops.aten.bmm.default:
+                self.counts["no_batch" if args[0].shape[0] == 1
+                            else "batched"] += 1
+            return func(*args, **(kwargs or {}))
+
+    return Products()
+
+
+def check_dots(dev, card, run: dict) -> dict:
+    """Phase 16d: ``remat_policy="dots"`` on the card, on 16c's trained
+    parameters and its profiled step's batch: one step's gradients under
+    "dots" against "full" (GRAD_TOL; expected the same bits), the products
+    each backward runs counted at the dispatcher against the backward
+    without remat (under "dots" none of the forward's no-batch-dims
+    products runs again, under "full" they do; the batched ones run again
+    under both), then DOTS_STEPS AdamW steps under each policy: step ms,
+    peak memory, mfu by ``cell_cost(..., remat_policy=)``, and the
+    kernels' launches, 2 forward and 1 backward a step under both.  Takes
+    the state out of 16c's ``run`` and frees it."""
+    import gc
+    import math
+    import statistics
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import (chunked_cross_entropy, forward_hidden,
+                                    loss_fn, n_periods)
+    cfg = moe_cell_config()
+    params, opt_state, opt, batch = run.pop("state")
+    inputs, labels = batch["inputs"], batch["labels"]
+    names = [n for n, _ in params.named_parameters()]
+    leaves = list(params.parameters())
+    wrappers = {"flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
+                "ssd_bwd": ssd_bwd}
+
+    def loss_under(policy):
+        if policy == "none":
+            return chunked_cross_entropy(
+                cfg, params, forward_hidden(cfg, params, inputs), labels)
+        return loss_fn(cfg, params, inputs, labels, remat_policy=policy)
+
+    with torch.no_grad(), products_counter() as mode:
+        forward_hidden(cfg, params, inputs)
+    fwd = dict(mode.counts)
+    counts, grads = {}, {}
+    for policy in ("none", "full", "dots"):
+        loss = loss_under(policy)
+        with products_counter() as mode:
+            g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        counts[policy] = dict(mode.counts)
+        if policy != "none":
+            grads[policy] = g
+        del loss, g
+    errs = {names[i]: e for i, e in grads_err(grads["dots"],
+                                               grads["full"]).items()}
+    same = sum(torch.equal(a, b) for a, b in zip(grads["dots"],
+                                                  grads["full"]))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = GRAD_TOL["bfloat16"]
+    worst = max(errs, key=errs.get)
+    log(f"  one step's gradients, \"dots\" against \"full\": {same} of "
+        f"{len(errs)} leaves the same bits, normwise worst {errs[worst]:.3e}"
+        f" ({worst}; bound {tol:.0e})")
+    nb = {k: counts[k].get("no_batch", 0) for k in counts}
+    bt = {k: counts[k].get("batched", 0) for k in counts}
+    log(f"  products in the forward: {fwd.get('no_batch', 0)} with no "
+        f"batch dimension, {fwd.get('batched', 0)} batched; in the backward"
+        f" (no remat / \"full\" / \"dots\"): no batch dimension {nb['none']}"
+        f" / {nb['full']} / {nb['dots']}, batched {bt['none']} / "
+        f"{bt['full']} / {bt['dots']}: \"dots\" runs "
+        f"{nb['dots'] - nb['none']} of the forward's no-batch-dims products "
+        f"again, \"full\" {nb['full'] - nb['none']}")
+    if not (max(errs.values()) <= tol and nb["dots"] == nb["none"] and
+            nb["full"] - nb["none"] >= fwd.get("no_batch", 0) -
+            n_periods(cfg) and bt["dots"] == bt["full"] > bt["none"]):
+        raise AssertionError(f"remat_policy=\"dots\": gradients {errs}, "
+                             f"products forward {fwd}, backward {counts}")
+    runs = {}
+    for policy in ("full", "dots"):
+        step_fn = make_train_step(cfg, opt, remat_policy=policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {k: w.launches for k, w in wrappers.items()}
+        times, losses = [], []
+        for _ in range(DOTS_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, loss = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated(dev)
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        exact_launches(f"{DOTS_STEPS} steps under \"{policy}\"", launched,
+                       {"flash_attention": 2 * DOTS_STEPS,
+                        "flash_attention_bwd": DOTS_STEPS,
+                        "ssd": 2 * DOTS_STEPS, "ssd_bwd": DOTS_STEPS})
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"\"{policy}\" steps: losses {losses}")
+        ms = statistics.median(times)
+        mf = model_flops(cfg, "train", 1, TRAIN_SEQ, ms, card,
+                         remat_policy=policy)
+        runs[policy] = {"steps_ms": times, "step_ms_median": ms,
+                        "losses": losses, "peak_bytes": peak,
+                        "launches": launched, **mf}
+        log(f"  {DOTS_STEPS} steps under \"{policy}\": ms " + ", ".join(
+            f"{t:.1f}" for t in times) + f" (median {ms:.1f}); losses " +
+            ", ".join(f"{x:.4f}" for x in losses) + f"; peak memory "
+            f"{peak / 1e9:.2f} GB")
+        log_model_flops(f"the step under \"{policy}\"", mf)
+    del params, opt_state, batch, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"normwise": errs, "same_bits_leaves": same,
+            "leaves": len(errs), "products_forward": fwd,
+            "products_backward": counts, "runs": runs}
 
 
 # --------------------------------------------- head dims that pad (6, 12c) --
@@ -3807,6 +4153,24 @@ def main() -> int:
     log(f"[15c] {SSD_TRAIN_ARCH} trained at full width through train()")
     ssd_training = counted("train", "15c", ssd_train_path, dev, the_card)
 
+    log(f"[16] MoE train path, cell train-4096-jamba-l3-4: {MOE_TRAIN_ARCH} "
+        f"at full width cut to layers 3 and 4 of its period (Mamba + "
+        f"16-expert MoE, attention + dense FFN); the SSD kernels at its "
+        f"widths, its gradients kernel vs plain route, {TRAIN_STEPS} AdamW "
+        f"steps (1 x {TRAIN_SEQ} tokens, bfloat16), remat_policy=\"dots\"")
+    log(f"[16a] the SSD kernels at {MOE_TRAIN_ARCH}'s widths "
+        f"{MOE_SSD_PROBLEM}")
+    jamba_ssd = phase("16a", check_jamba_ssd, the_card)
+    log(f"[16b] {MOE_TRAIN_ARCH} layers 3-4 gradients at full width: kernel "
+        f"route vs plain route")
+    moe_grads = phase("16b", check_moe_train_grads, dev)
+    log(f"[16c] {MOE_TRAIN_ARCH} layers 3-4 trained at full width through "
+        f"train()")
+    moe_training = counted("train_moe", "16c", moe_train_path, dev,
+                           the_card)
+    log("[16d] remat_policy=\"dots\" against \"full\" on 16c's parameters")
+    dots = phase("16d", check_dots, dev, the_card, moe_training)
+
     regs = {}
     for name, keys in selected_ptxas_keys(
             (bm, bn, bk), attn["choice"], ssd_res["choice"]).items():
@@ -3830,7 +4194,9 @@ def main() -> int:
                        ("flash_attention", "serve"), ("ssd", "serve"),
                        ("flash_attention", "train"),
                        ("flash_attention_bwd", "train"), ("ssd", "train"),
-                       ("ssd_bwd", "train")):
+                       ("ssd_bwd", "train"), ("flash_attention", "train_moe"),
+                       ("flash_attention_bwd", "train_moe"),
+                       ("ssd", "train_moe"), ("ssd_bwd", "train_moe")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -3879,12 +4245,12 @@ def main() -> int:
             f"spills {bwd_regs[what]['spill_store_bytes']} B stored / "
             f"{bwd_regs[what]['spill_load_bytes']} B loaded (ptxas)")
 
-    def in_train_step(kernel, run=training):
+    def in_train_step(kernel, run=training, key="train_step"):
         prof = run["profile"]
         if not prof["measured"]:
-            return {"train_step": {"measured": False}}
+            return {key: {"measured": False}}
         ms = prof["by_class_ms"].get(kernel, 0.0)
-        return {"train_step": {
+        return {key: {
             "arch": run["arch"], "layers": run["layers"],
             "tokens": run["tokens"], "dtype": "bfloat16",
             "step_wall_ms": prof["wall_ms"], "kernel_ms": ms,
@@ -3924,7 +4290,9 @@ def main() -> int:
                            if r["d"] == 96 and "kernel_ms" in r],
               **in_prefill("flash_attention"),
               **in_admission("flash_attention"),
-              **in_train_step("flash_attention")),
+              **in_train_step("flash_attention"),
+              **in_train_step("flash_attention", moe_training,
+                              "train_moe_step")),
         entry("flash_attention_bwd", f"{csrc}/flash_attention_bwd.cu",
               "none: no Pallas body. The backward of "
               "src/repro/kernels/flash_attention.py:37 (_attn_kernel), which "
@@ -3939,7 +4307,8 @@ def main() -> int:
               bfloat16=attn_bwd["bfloat16"], sass_hmma=attn_bwd["sass_hmma"],
               config=[attn_bwd["blk"], attn_bwd["blk"], ATTN_PROBLEM[4]],
               passes_registers=bwd_regs, **in_train_step(
-                  "flash_attention_bwd")),
+                  "flash_attention_bwd"), **in_train_step(
+                  "flash_attention_bwd", moe_training, "train_moe_step")),
         entry("ssd", f"{csrc}/ssd.cu",
               "src/repro/kernels/ssd.py:30 (_ssd_kernel)", ssd_res,
               regs["ssd"]["chunk_scan"], library="none",
@@ -3947,7 +4316,9 @@ def main() -> int:
               config=list(ssd_res["choice"]),
               passes_ms=ssd_res["passes_ms"], passes_registers=regs["ssd"],
               **in_prefill("ssd"), **in_admission("ssd"),
-              **in_train_step("ssd", ssd_training)),
+              **in_train_step("ssd", ssd_training),
+              **in_train_step("ssd", moe_training, "train_moe_step"),
+              jamba_width=jamba_ssd["forward"]),
         entry("ssd_bwd", f"{csrc}/ssd_bwd.cu",
               "none: no Pallas body. The backward of "
               "src/repro/kernels/ssd.py:30 (_ssd_kernel), which the "
@@ -3963,7 +4334,9 @@ def main() -> int:
               passes_ms=ssd_bwd_res["passes_ms"],
               passes_registers=ssd_bwd_regs,
               chunk_64=ssd_bwd_res["mamba2_2_7b"][64],
-              **in_train_step("ssd_bwd", ssd_training)),
+              **in_train_step("ssd_bwd", ssd_training),
+              **in_train_step("ssd_bwd", moe_training, "train_moe_step"),
+              jamba_width=jamba_ssd["backward"]),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):
@@ -3979,6 +4352,8 @@ def main() -> int:
                    "run": training, "resume": resume},
          "train_mamba": {"ssd_bwd": ssd_bwd_res, "grads": ssd_grads,
                          "run": ssd_training},
+         "train_moe": {"ssd_jamba": jamba_ssd, "grads": moe_grads,
+                       "run": moe_training, "dots": dots},
          "phase_s": phase_s,
          **kernels},
         indent=1, default=str))

@@ -13,19 +13,22 @@ Entry points: :func:`init_params` (random frozen parameters from a
 ``torch.Generator``; the trainer turns their gradients on),
 :func:`forward_hidden` / :func:`forward` (full sequence; attention and the
 SSD scan through the hand-written kernels; ``remat=True`` checkpoints each
-period), :func:`chunked_cross_entropy` and :func:`loss_fn` (the training
-loss), :func:`init_decode_state` and :func:`decode_step` (one token, KV
-caches written in place).  The reference's ``act_spec`` belongs to the
+period, ``remat_policy="dots"`` keeping the products' outputs),
+:func:`chunked_cross_entropy` and :func:`loss_fn` (the training loss),
+:func:`init_decode_state` and :func:`decode_step` (one token, KV caches
+written in place).  The reference's ``act_spec`` belongs to the
 distributed slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import functools
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig, LayerSpec
@@ -207,16 +210,35 @@ def _window(spec: LayerSpec, window_cap: int) -> int:
     return window
 
 
-def _remat_policy(name: Optional[str]) -> None:
+#: the products with no batch dimension: ``(B, S, d) @ (d, f)`` reaches
+#: the dispatcher as ``mm``
+_NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of the reference's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep the
+    output of every product with no batch dimension, recompute the rest
+    (batched products, elementwise ops, the kernels' launches).  A ``bmm``
+    over a batch of one is a single product: the MoE's einsum dispatch
+    carries a leading group axis (1 for a training call) that the
+    reference's ``"td,tec->ecd"`` and ``"ecd,tec->td"`` lack."""
+    if op in _NO_BATCH_PRODUCTS or (op is torch.ops.aten.bmm.default and
+                                    args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(name: Optional[str]) -> Optional[Callable]:
     """The reference's ``remat_policy`` names: None and "full" recompute
-    the whole period (``torch.utils.checkpoint``); "dots", which keeps the
-    products' outputs, is not ported yet."""
+    the whole period (``torch.utils.checkpoint``; no policy); "dots" keeps
+    the outputs of the products with no batch dimension
+    (:func:`_dots_with_no_batch_dims_saveable`).  Values do not change,
+    only what the backward keeps."""
     if name is None or name == "full":
-        return
+        return None
     if name == "dots":
-        raise NotImplementedError(
-            'remat_policy="dots" (keep the products\' outputs, recompute the '
-            'rest) is not ported yet: ROADMAP.md Queue A item 11')
+        return _dots_with_no_batch_dims_saveable
     raise ValueError(name)
 
 
@@ -231,7 +253,8 @@ def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
     ``torch.utils.checkpoint`` (non-reentrant), so the backward keeps only
     the hidden state between periods and recomputes the blocks' insides,
     the attention kernel's forward included.  ``remat_policy`` as the
-    reference's (:func:`_remat_policy`).
+    reference's (:func:`_remat_policy`): under "dots" the backward keeps
+    the outputs of the products with no batch dimension as well.
     """
     x = _embed(cfg, params, inputs)
     blocks = list(params.blocks)
@@ -244,12 +267,15 @@ def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
                                   use_kernel=use_kernel)
         return x
 
-    if remat:
-        _remat_policy(remat_policy)
+    kw = {}
+    policy = _remat_policy(remat_policy) if remat else None
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
     for start in range(0, len(blocks), period):
         group = blocks[start:start + period]
         if remat:
-            x = checkpoint(run, x, group, use_reentrant=False)
+            x = checkpoint(run, x, group, use_reentrant=False, **kw)
         else:
             x = run(x, group)
     return rmsnorm(x, params.final_norm)

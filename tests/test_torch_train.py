@@ -310,9 +310,14 @@ def test_remat_and_chunked_cross_entropy_change_nothing():
     with pytest.raises(ValueError, match="divide"):
         models.chunked_cross_entropy(cfg, model, plain, tb["labels"],
                                      chunk=24)
-    with pytest.raises(NotImplementedError, match="dots"):
-        models.loss_fn(cfg, model, tb["inputs"], tb["labels"],
-                       remat_policy="dots")
+    # "dots" keeps the products' outputs: the same loss and gradients
+    full, dots = (models.loss_fn(cfg, model, tb["inputs"], tb["labels"],
+                                 remat_policy=policy)
+                  for policy in ("full", "dots"))
+    assert torch.equal(full, dots)
+    for a, b in zip(torch.autograd.grad(full, leaves),
+                    torch.autograd.grad(dots, leaves)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         models.forward_hidden(cfg, model, tb["inputs"], remat=True,
                               remat_policy="fancy")

@@ -152,27 +152,45 @@ version, and drives every path of the port on the card:
    counted at the dispatcher against the backward without remat (no
    product with no batch dimension recomputed under "dots"), then 3 steps
    under each policy (ms, peak memory, mfu, launches);
+17. the distributed path: (17a) 16c's cell through the sharded step: an
+   NCCL process group of world 1, a (1, 1) ``make_local_mesh``, the
+   parameters and AdamW moments placed by ``param_specs``, the batch by
+   ``data_specs``, ``act_spec`` as ``launch.dryrun.lower_cell`` builds it;
+   the first step held to 16c's unsharded step on the same seed (loss and
+   every parameter within the bf16 train gate, the bits compared), then 7
+   steps timed and one profiled (idle share: ``DTensor`` dispatch is host
+   work), exact launches; (17b) its parameters checkpointed and
+   ``resume_on_mesh``'d onto a fresh (1, 1) mesh, bit for bit; (17c) the
+   dry run of jamba-v0.1-52b's train_4k, prefill_32k and decode_32k at
+   full depth on the 16 x 16 and 2 x 16 x 16 production meshes, two
+   ``python -m repro_torch.launch.dryrun`` children started with the
+   build (per cell: strategy, FLOPs per device analytic and counted,
+   collective bytes by kind, argument and peak bytes, roofline terms on
+   the H100's rates);
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 error, times and bound per kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c, 15c and
-16c and read just after (the paths 9 and 10 launch none of the kernels;
-14c and 15c add to one path, ``train``; 16c is ``train_moe``); the checks
-and timings of phases 2, 5, 6, 14a, 14b, 14d, 15a, 15b, 16a, 16b and 16d,
-and those after each path, are not counted.
+just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c, 15c, 16c
+and 17a and read just after (the paths 9 and 10 launch none of the
+kernels; 14c and 15c add to one path, ``train``; 16c is ``train_moe``, 17a
+``train_sharded``); the checks and timings of phases 2, 5, 6, 14a, 14b,
+14d, 15a, 15b, 16a, 16b, 16d, 17a's unsharded step, 17b and 17c, and
+those after each path, are not counted.
 
 The card's name and power limit print on the line before the last; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits nonzero and prints no result.  Long outputs (the compilers'
 reports, the fitted models, per-config times) go to
-``chiprun_out/chip_smoke/`` (phases 9 to 16 under ``contractions``,
+``chiprun_out/chip_smoke/`` (phases 9 to 17 under ``contractions``,
 ``torch_engine``, ``store``, ``models``, ``serve``, ``train``,
-``train_mamba`` and ``train_moe`` in ``result.json``; the stores as
-``store_*.json``, the scoreboard as ``TOURNAMENT.json``).
+``train_mamba``, ``train_moe`` and ``distributed`` in ``result.json``; the
+stores as ``store_*.json``, the scoreboard as ``TOURNAMENT.json``; the dry
+run's artifacts under ``dryrun_torch/``).
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import subprocess
 import sys
@@ -3803,6 +3821,302 @@ def check_dots(dev, card, run: dict) -> dict:
             "products_backward": counts, "runs": runs}
 
 
+# ----------------------------------------------------------- phase 17 --
+#: 17a: AdamW steps of the sharded step after the first (timed: 2..8)
+SHARDED_STEPS = 8
+#: 17c: the dry run's cells (jamba-v0.1-52b at full depth, both meshes)
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 900
+
+
+def _moe_cell_start(dev):
+    """16c's starting point: the cell's parameters drawn as ``train``
+    draws them (a card generator seeded with the data seed, bfloat16,
+    trainable), its AdamW (lr TRAIN_LR, the "adamw" range marked) and
+    train_4k's batches at batch 1."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train.data import DataConfig
+    cfg = moe_cell_config()
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1,
+                          seed=0)
+    gen = torch.Generator(device=dev).manual_seed(data_cfg.seed)
+    params = init_params(cfg, gen, torch.bfloat16, dev)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return cfg, data_cfg, params, marked_adamw(TRAIN_LR)
+
+
+def unsharded_reference_step(dev) -> dict:
+    """17a's yardstick: 16c's unsharded step (``make_train_step``) from
+    16c's starting point on its first batch; the loss and the updated
+    parameters, on the host."""
+    import gc
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.data import batch_at, to_device
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, data_cfg, params, opt = _moe_cell_start(dev)
+    state = opt.init(list(params.parameters()))
+    batch = to_device(batch_at(data_cfg, 0), dev)
+    params, state, loss = make_train_step(cfg, opt)(params, state, batch)
+    out = {"loss": float(loss),
+           "params": [p.detach().cpu() for p in params.parameters()]}
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_card_group():
+    """An NCCL process group of world 1 (a FileStore in a temporary
+    directory) and a (1, 1) local mesh on the card."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.cuda.set_device(0)
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/s",
+                            world_size=1, rank=0)
+    return make_local_mesh(1, 1)
+
+
+def sharded_train_path(dev, card, ref: dict, unsharded: dict) -> dict:
+    """Phase 17a: train-4096-jamba-l3-4 through the sharded step: 16c's
+    starting point placed on a (1, 1) mesh by ``param_specs`` (DTensor
+    parameters, AdamW moments with their placements, the batch by
+    ``data_specs``, ``act_spec`` as ``lower_cell`` builds it), one step
+    held to 16c's unsharded step (``ref``: loss and every parameter within
+    the train gate, the bits compared), then SHARDED_STEPS - 1 more
+    steps timed (median of steps 2..8) and one under the profiler (idle
+    share; DTensor's dispatch is host work).  ``unsharded`` is 16c's run
+    in this process, printed beside it."""
+    import gc
+    import statistics
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.distributed.sharding import (NamedSharding, Spec,
+                                                  data_specs, placements,
+                                                  simple_batch_spec)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.data import batch_at, to_device
+    mesh = start_card_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, data_cfg, params, opt = _moe_cell_start(dev)
+    params = reshard_tree(params, mesh)
+    state = opt.init(list(params.parameters()))
+    specs = data_specs(mesh, 1)
+    bspec = simple_batch_spec(mesh, 1)
+    act = NamedSharding(mesh, Spec(bspec[0] if len(bspec) else None, None,
+                                   None))
+    step = make_train_step(cfg, opt, act_spec=act)
+
+    def placed(i):
+        return {k: distribute_tensor(v, mesh, placements(specs[k], mesh),
+                                     src_data_rank=None)
+                for k, v in to_device(batch_at(data_cfg, i), dev).items()}
+
+    params, state, loss = step(params, state, placed(0))
+    torch.cuda.synchronize()
+    errs, same = {}, 0
+    names = [n for n, _ in params.named_parameters()]
+    for name, p, want in zip(names, params.parameters(), ref["params"]):
+        got = p.to_local().detach()
+        w = want.to(dev)
+        same += bool(torch.equal(got, w))
+        errs[name] = float((got.float() - w.float()).norm() /
+                           w.float().norm().clamp_min(1e-30))
+        del w
+    loss0 = float(loss)
+    tol = GRAD_TOL["bfloat16"]
+    worst = max(errs, key=errs.get)
+    log(f"  first step against 16c's unsharded step on the same seed: loss "
+        f"{loss0!r} vs {ref['loss']!r} ("
+        f"{'the same bits' if loss0 == ref['loss'] else 'different bits'}); "
+        f"parameters: {same} of {len(errs)} the same bits, normwise worst "
+        f"{errs[worst]:.3e} ({worst}; gate {tol:.0e})")
+    if not (abs(loss0 - ref["loss"]) <= tol * abs(ref["loss"]) and
+            errs[worst] <= tol):
+        raise AssertionError(f"the sharded step differs from the unsharded "
+                             f"one: loss {loss0} vs {ref['loss']}, {errs}")
+    times, losses = [], [loss0]
+    for i in range(1, SHARDED_STEPS):
+        batch = placed(i)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    batch = placed(SHARDED_STEPS)
+    prof = profile_train_step(lambda: step(params, state, batch))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = statistics.median(times)
+    if not all(x == x and abs(x) < 1e9 for x in losses):
+        raise AssertionError(f"sharded losses {losses}")
+    log(f"  {SHARDED_STEPS} sharded steps: losses " + ", ".join(
+        f"{x:.4f}" for x in losses) + f"; step ms after the first: median "
+        f"{ms:.1f}, min {min(times):.1f} (16c unsharded in this run: median "
+        f"{unsharded['step_ms_median']:.1f}; PR 23's 359.8); peak memory "
+        f"{peak / 1e9:.2f} GB")
+    if prof["measured"]:
+        log(f"  one profiled sharded step: wall {prof['wall_ms']:.1f} ms, "
+            f"device busy {prof['busy_ms']:.1f} ms, idle share "
+            f"{100 * prof['idle_share']:.1f} % (16c's: "
+            f"{100 * unsharded['profile'].get('idle_share', float('nan')):.1f}"
+            f" %); by class: " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in sorted(
+                    prof["by_class_ms"].items(), key=lambda kv: -kv[1])))
+    mf = model_flops(cfg, "train", 1, TRAIN_SEQ, ms, card)
+    log_model_flops("the sharded step", mf)
+    return {"cell": "train-4096-jamba-l3-4", "mesh": [1, 1],
+            "first_step": {"loss": loss0, "ref_loss": ref["loss"],
+                           "same_bits_leaves": same, "leaves": len(errs),
+                           "normwise": errs},
+            "losses": losses, "steps_ms": times, "step_ms_median": ms,
+            "step_ms_min": min(times),
+            "unsharded_step_ms_median": unsharded["step_ms_median"],
+            "peak_bytes": peak, "profile": prof, **mf,
+            "state": (mesh, params)}
+
+
+def check_elastic(dev, run: dict) -> dict:
+    """Phase 17b: 17a's parameters checkpointed, then
+    ``resume_on_mesh`` onto a fresh (1, 1) mesh (the tree given as fake
+    tensors, so nothing is allocated twice): every parameter bit for bit,
+    the step as saved.  The moments' placement is the parameters' (held
+    on the CPU, ``tests/test_torch_distributed.py``); they are not
+    written, to keep 27 GB of float32 off the disk.  Ends the process
+    group."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.elastic import resume_on_mesh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.train import checkpoint as ck
+    _, params = run.pop("state")
+    cfg = moe_cell_config()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        ck.save(ckpt, SHARDED_STEPS, params)
+        t_save = time.perf_counter() - t0
+        mesh = make_local_mesh(1, 1, device=dev)
+        dtype = next(params.parameters()).dtype
+        t0 = time.perf_counter()
+        back, step = resume_on_mesh(ckpt, abstract_params(cfg, dtype, dev),
+                                    mesh, step=SHARDED_STEPS)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = sum(torch.equal(a.to_local(), b.to_local())
+                   for a, b in zip(params.parameters(), back.parameters()))
+        n = len(list(params.parameters()))
+        placed = all(p.device_mesh == mesh for p in back.parameters())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+    log(f"  17a's {n} parameters saved in {t_save:.1f} s, resumed onto a "
+        f"fresh (1, 1) mesh in {t_restore:.1f} s at step {step}: {same} of "
+        f"{n} the same bits, all on the new mesh: {placed}")
+    if step != SHARDED_STEPS or same != n or not placed:
+        raise AssertionError(f"elastic resume: step {step}, {same} of {n} "
+                             f"equal, placed {placed}")
+    del back
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"leaves": n, "same_bits": same, "save_s": t_save,
+            "restore_s": t_restore}
+
+
+def start_dryrun() -> dict:
+    """Phase 17c's children, started with the kernels' build (the dry run
+    needs neither a card nor a kernel, and the build leaves the CPU's
+    cores to spare; every timed phase runs after both are done): ``python
+    -m repro_torch.launch.dryrun`` once a production mesh, jamba-v0.1-52b
+    at full depth, DRYRUN_SHAPES, fake CUDA tensors, each child its own
+    process (this process's NCCL group, 17a's, cannot become a fake one
+    of 256 or 512 ranks)."""
+    import os
+    out_dir = OUT / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            MOE_TRAIN_ARCH, "--shape", ",".join(DRYRUN_SHAPES), "--out",
+            str(out_dir)]
+    procs = {mesh: subprocess.Popen(base + flag, cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for mesh, flag in (("16x16", []),
+                                ("2x16x16", ["--multi-pod"]))}
+
+    def stop():        # a phase that fails before 17c leaves none behind
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+    atexit.register(stop)
+    return {"t0": time.perf_counter(), "out_dir": out_dir, "procs": procs}
+
+
+def dryrun_path(run: dict) -> dict:
+    """Phase 17c: the dry run's children (:func:`start_dryrun`) waited
+    for; each cell's artifact read back and summed up.  A non-zero exit
+    fails the phase."""
+    outs, codes = {}, {}
+    for mesh, proc in run["procs"].items():
+        try:
+            outs[mesh] = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        codes[mesh] = proc.returncode
+    wall_s = time.perf_counter() - run["t0"]
+    out_dir = run["out_dir"]
+    for mesh, text in outs.items():
+        (OUT / f"dryrun_torch_{mesh}.log").write_text(text)
+        tail = [ln for ln in text.splitlines()
+                if ln.startswith("dry-run complete")]
+        log(f"  python -m repro_torch.launch.dryrun --arch {MOE_TRAIN_ARCH} "
+            f"--shape {','.join(DRYRUN_SHAPES)}"
+            f"{' --multi-pod' if mesh != '16x16' else ''}: exit "
+            f"{codes[mesh]}; {tail[-1] if tail else 'no summary line'}")
+    log(f"  both meshes' children done {wall_s:.1f} s after they started "
+        f"(with the kernels' build, two processes at once)")
+    if any(codes.values()):
+        raise AssertionError(f"the dry run failed: {codes}\n" + "\n".join(
+            text[-3000:] for text in outs.values()))
+    cells = {}
+    for mesh in ("16x16", "2x16x16"):
+        for shape in DRYRUN_SHAPES:
+            meta = json.loads((out_dir / f"{MOE_TRAIN_ARCH}__{shape}__{mesh}"
+                               f".json").read_text())
+            cells[f"{shape}__{mesh}"] = meta
+            ratio = meta["counted_flops"] / meta["flops"]
+            log(f"  {shape} x {mesh} ({meta['strategy']}; traced in "
+                f"{meta['trace_s']:.1f} s): flops per device analytic "
+                f"{meta['flops']:.4e}, counted {meta['counted_flops']:.4e} "
+                f"(ratio {ratio:.3f}); collective bytes " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in meta["coll_bytes"].items()
+                    if v) + f"; bytes per device (traced) arguments "
+                f"{meta['memory']['argument_bytes']:.3e}, peak "
+                f"{meta['memory']['peak_bytes']:.3e}; roofline on H100 "
+                f"rates: compute {meta['compute_s'] * 1e3:.2f} ms, memory "
+                f"{meta['memory_s'] * 1e3:.2f} ms, collective "
+                f"{meta['collective_s'] * 1e3:.2f} ms ({meta['dominant']})")
+    return {"wall_s": wall_s, "cells": cells}
+
+
 # --------------------------------------------- head dims that pad (6, 12c) --
 #: attention at the head dims the kernels pad: (arch, hq, hkv, D, causal)
 #: of hubert-xlarge (encoder, 1280 / 16) and phi3-mini-3.8b (3072 / 32) at
@@ -3978,6 +4292,7 @@ def main() -> int:
     line = card_line()
     log(f"[1] card: {line}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    dry_run = start_dryrun()
     t0 = time.perf_counter()
     libs = _build.build_all(["matmul", "flash_attention",
                              "flash_attention_bwd", "ssd", "ssd_bwd"])
@@ -4171,6 +4486,30 @@ def main() -> int:
     log("[16d] remat_policy=\"dots\" against \"full\" on 16c's parameters")
     dots = phase("16d", check_dots, dev, the_card, moe_training)
 
+    log(f"[17] distributed path: the sharded train step of "
+        f"train-4096-jamba-l3-4 on a (1, 1) mesh (NCCL, world 1), elastic "
+        f"resume, the dry run of {MOE_TRAIN_ARCH} on the production meshes")
+    log("[17a] 16c's unsharded step, then the sharded step (DTensor "
+        "parameters by param_specs, act_spec)")
+    ref17 = phase("17a check", unsharded_reference_step, dev)
+    sharded = counted("train_sharded", "17a", sharded_train_path, dev,
+                      the_card, ref17, moe_training)
+    del ref17
+    log("[17b] elastic: 17a's parameters resumed onto a fresh (1, 1) mesh")
+    elastic = phase("17b", check_elastic, dev, sharded)
+    log(f"[17c] dry run: {MOE_TRAIN_ARCH} x {DRYRUN_SHAPES} x (16x16, "
+        f"2x16x16), full depth, in two child processes started with the "
+        f"build")
+    dry = phase("17c", dryrun_path, dry_run)
+    exact_launches(f"{SHARDED_STEPS + 1} sharded steps",
+                   {k: launches[k]["train_sharded"] for k in (
+                       "flash_attention", "flash_attention_bwd", "ssd",
+                       "ssd_bwd")},
+                   {"flash_attention": 2 * (SHARDED_STEPS + 1),
+                    "flash_attention_bwd": SHARDED_STEPS + 1,
+                    "ssd": 2 * (SHARDED_STEPS + 1),
+                    "ssd_bwd": SHARDED_STEPS + 1})
+
     regs = {}
     for name, keys in selected_ptxas_keys(
             (bm, bn, bk), attn["choice"], ssd_res["choice"]).items():
@@ -4196,7 +4535,11 @@ def main() -> int:
                        ("flash_attention_bwd", "train"), ("ssd", "train"),
                        ("ssd_bwd", "train"), ("flash_attention", "train_moe"),
                        ("flash_attention_bwd", "train_moe"),
-                       ("ssd", "train_moe"), ("ssd_bwd", "train_moe")):
+                       ("ssd", "train_moe"), ("ssd_bwd", "train_moe"),
+                       ("flash_attention", "train_sharded"),
+                       ("flash_attention_bwd", "train_sharded"),
+                       ("ssd", "train_sharded"),
+                       ("ssd_bwd", "train_sharded")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -4354,6 +4697,8 @@ def main() -> int:
                          "run": ssd_training},
          "train_moe": {"ssd_jamba": jamba_ssd, "grads": moe_grads,
                        "run": moe_training, "dots": dots},
+         "distributed": {"sharded_step": sharded, "elastic": elastic,
+                         "dryrun": dry},
          "phase_s": phase_s,
          **kernels},
         indent=1, default=str))

@@ -15,7 +15,10 @@ model pool's configs and models with attention and the Mamba-2 scan
 through the hand-written kernels (:mod:`repro_torch.configs`,
 :mod:`repro_torch.models`) and serve them, a blocking admission being one
 batched pass through those kernels, under the FIFO or the model-guided
-scheduler (:mod:`repro_torch.serve`).
+scheduler (:mod:`repro_torch.serve`), train them (:mod:`repro_torch.train`)
+and shard them over a mesh of cards, or trace a step on the production
+mesh without one (:mod:`repro_torch.distributed`,
+:mod:`repro_torch.launch`).
 
 The package mirrors ``repro``'s module layout and names so each counterpart
 is easy to find.  It imports ``torch`` and never ``jax`` or ``repro``.

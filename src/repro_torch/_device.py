@@ -17,6 +17,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch._guards
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -34,9 +35,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
     Raises ``RuntimeError`` when CUDA is requested (explicitly or by
     default) and no card is present, and ``ValueError`` for any device
-    type other than ``cuda`` and ``cpu``.
+    type other than ``cuda`` and ``cpu``.  Under a ``FakeTensorMode``
+    (a traced step, :mod:`repro_torch.launch.dryrun`) nothing is
+    allocated, and CUDA needs no card: it resolves to ``cuda:0``.
     """
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and torch._guards.detect_fake_mode() is not None:
+        return torch.device("cuda", 0 if dev.index is None else dev.index)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

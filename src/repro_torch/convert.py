@@ -157,7 +157,7 @@ def model_params_from_reference(cfg, params: Mapping,
             blocks[per * period + pi] = Block(spec, **kw)
     top = {name: tensor(params[name])
            for name in ("embed", "frontend_proj", "head") if name in params}
-    return Model(blocks, tensor(params["final_norm"]), **top)
+    return Model(blocks, tensor(params["final_norm"]), period=period, **top)
 
 
 def model_params_to_reference(cfg, model, tensors=None) -> dict:

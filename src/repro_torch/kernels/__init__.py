@@ -12,7 +12,11 @@
   backward, the fixed-order finish; the reference has no backward kernel)
 
 ``ops`` holds the public wrappers, ``ref`` the plain PyTorch oracles.  The
-kernels are built from ``csrc/`` on first use (:mod:`._build`).
+kernels are built from ``csrc/`` on first use (:mod:`._build`).  The
+attention and SSD forwards and backwards are also ``torch.library``
+operators (``repro_torch::flash_attention_fwd``, ``flash_attention_bwd``,
+``ssd_fwd``, ``ssd_bwd``) with fake implementations, autograd and flop
+formulas, so that a sharded or traced step reaches them.
 """
 
 from . import ops, ref

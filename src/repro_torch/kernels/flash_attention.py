@@ -14,7 +14,12 @@ with the finite ``-1e30`` sentinel, and gemma2's logit softcap.
 launch the kernel (or raise); CPU tensors take
 :func:`flash_attention_plain`, the kernel's kv-block loop in plain PyTorch
 — the counterpart of Pallas ``interpret=True``.  There is no fall back
-from one to the other.
+from one to the other.  The forward and the backward are ``torch.library``
+operators (``repro_torch::flash_attention_fwd`` and ``_bwd``) with fake
+implementations, autograd and flop formulas, so that a sharded step
+(``DTensor`` shards, :mod:`repro_torch.distributed.local`) and a traced
+one (fake tensors, :mod:`repro_torch.launch.dryrun`) reach them; a fake
+tensor runs only the fake implementation.
 
 The kernel skips the kv blocks a mask removes (:func:`attn_kv_range`), so
 :func:`attn_grid_steps` counts the (query block, kv block) pairs it
@@ -51,11 +56,13 @@ from __future__ import annotations
 import ctypes
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from ._card import H100_SMEM_OPTIN, PROXY_BLOCKS
+from ._card import H100_SMEM_OPTIN, PROXY_BLOCKS, card_smem, plain_route
 
 #: block sizes the kernel is instantiated for: bq and bkv (16 x 16 threads,
 #: each owning bq/16 rows and bkv/16 logit columns) and the head dim D
@@ -244,6 +251,9 @@ def _check(q, k, v) -> None:
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
+                         f"{q.device}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -452,8 +462,7 @@ def _card_ready(tensors, what: str) -> int:
                for t in tensors):
         raise ValueError(f"the {what} kernel takes contiguous, 16-byte "
                          f"aligned operands")
-    return torch.cuda.get_device_properties(
-        tensors[0].device).shared_memory_per_block_optin
+    return card_smem(tensors[0])
 
 
 def _forward(q, k, v, bq: int, bkv: int, causal: bool, window: int,
@@ -491,6 +500,121 @@ def _forward(q, k, v, bq: int, bkv: int, causal: bool, window: int,
     return res
 
 
+# ------------------------------------------------------------ operators --
+# The forward and the backward are torch.library operators, so that the
+# dispatcher sees them: a fake tensor (a traced step, ``launch.dryrun``)
+# runs the fake implementation, which only shapes the outputs, and
+# FlopCounterMode reads the formulas below.  The real implementation is
+# the launch above (CUDA) or the plain version (CPU).  The wrappers call
+# the operators for CUDA and fake tensors; a real CPU tensor runs the
+# plain version as it always has, its products visible to a dispatch mode
+# (the "dots" policy, the product counts of the tests).
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bq: int, bkv: int, causal: bool, window: int,
+                  softcap: float, with_lse: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): lse the float32 (B, Hq, Sq) row log-sum-exp, or an
+    empty tensor without ``with_lse``."""
+    out, lse = _forward(q, k, v, bq, bkv, causal, window, softcap, with_lse)
+    return out, (q.new_empty((0,), dtype=torch.float32) if lse is None
+                 else lse)
+
+
+@_attention_op.register_fake
+def _(q, k, v, bq, bkv, causal, window, softcap, with_lse):
+    lse_shape = q.shape[:3] if with_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _attention_setup(ctx, inputs, output) -> None:
+    q, k, v, _, _, causal, window, softcap, _ = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.mask = (causal, window, softcap)
+
+
+def _attention_backward(ctx, dout, _dlse=None):
+    q, k, v, out, lse = ctx.saved_tensors
+    if lse.numel() == 0:
+        raise RuntimeError("the attention backward needs the forward's row "
+                           "log-sum-exp (with_lse=True)")
+    causal, window, softcap = ctx.mask
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                     causal=causal, window=window,
+                                     softcap=softcap)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_attention_op.register_autograd(_attention_backward,
+                                setup_context=_attention_setup)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool, window: int, softcap: float, blk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the three backward kernels on CUDA tensors, the plain
+    backward on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, softcap=softcap,
+                                         bq=blk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CUDA or the CPU, not "
+                         f"{q.device}")
+    _card_ready((q, k, v, o, lse, do), "flash_attention backward")
+
+    def run(qp, kp, vp, op, dop, scale):
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
+        _launch_bwd(qp, kp, vp, op, lse, dop, delta, dq, dk, dv, blk,
+                    causal, window, softcap, scale)
+        return dq, dk, dv
+
+    grads = padded_backward(q, k, v, o, do, run)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+@_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, window, softcap, blk):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def attn_kept_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a mask keeps over one sq x skv head: row i
+    keeps keys max(0, i - window + 1) .. min(i, skv - 1) under
+    ``causal`` (skv - 1 without), as :func:`flash_attention_plain`'s mask
+    does.  Causal and unwindowed at sq = skv = S: S (S + 1) / 2, the
+    average kv length (S + 1) / 2 of ``perf.analytic``."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _attention_flops(q_shape, k_shape, v_shape, bq, bkv, causal, window,
+                     softcap, with_lse, out_shape=None, **kwargs) -> int:
+    """q k^T and p v: 4 D flops per kept (query, key) pair and query
+    head."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * d * attn_kept_pairs(sq, k_shape[2], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _attention_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                         do_shape, causal, window, softcap, blk,
+                         out_shape=None, **kwargs) -> int:
+    """The five products of the backward (s, dP, dV, dK, dQ), 2 D flops a
+    kept pair each: 2.5 times the forward's."""
+    b, hq, s, d = q_shape
+    return 10 * b * hq * d * attn_kept_pairs(s, k_shape[2], causal, window)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, bq: int = 128, bkv: int = 128, causal: bool = True,
                         window: int = 0, softcap: float = 0.0):
@@ -506,15 +630,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"blocks ({bq}, {bkv}) must divide the sequence "
                          f"lengths ({sq}, {skv})")
     with torch.no_grad():
-        return _forward(q, k, v, bq, bkv, causal, window, softcap,
-                        with_lse=True)
+        if plain_route(q):
+            return _forward(q, k, v, bq, bkv, causal, window, softcap, True)
+        return _attention_op(q, k, v, bq, bkv, causal, window, softcap, True)
 
 
 def _bwd_legal(q, k, blk: int) -> None:
     """Raise unless the backward kernels take these operands at ``blk``."""
     s, d = q.shape[2], q.shape[3]
-    limit = torch.cuda.get_device_properties(
-        q.device).shared_memory_per_block_optin
+    limit = card_smem(q)
     if k.shape[2] != s or not attn_bwd_tile_legal(
             s, blk, d, q.element_size(), limit):
         raise ValueError(
@@ -554,58 +678,42 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the attention backward takes Sq = Skv, got {s} "
                          f"and {k.shape[2]}")
     blk = attn_bwd_blocks(s) if blk is None else blk
-    if q.device.type == "cpu":
+    if q.device.type == "cuda":
+        if o.dtype != q.dtype or do.dtype != q.dtype or \
+                lse.dtype != torch.float32:
+            raise TypeError(f"o and do must be {q.dtype} and lse float32, "
+                            f"got {o.dtype}, {do.dtype}, {lse.dtype}")
+        _bwd_legal(q, k, blk)
+    if plain_route(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, softcap=softcap,
                                          bq=blk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on CUDA or the CPU, not "
-                         f"{q.device}")
-    if o.dtype != q.dtype or do.dtype != q.dtype or \
-            lse.dtype != torch.float32:
-        raise TypeError(f"o and do must be {q.dtype} and lse float32, got "
-                        f"{o.dtype}, {do.dtype}, {lse.dtype}")
-    _card_ready((q, k, v, o, lse, do), "flash_attention backward")
-    _bwd_legal(q, k, blk)
-
-    def run(qp, kp, vp, op, dop, scale):
-        delta = torch.empty_like(lse)
-        dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
-        _launch_bwd(qp, kp, vp, op, lse, dop, delta, dq, dk, dv, blk,
-                    causal, window, softcap, scale)
-        return dq, dk, dv
-
-    grads = padded_backward(q, k, v, o, do, run)
-    flash_attention_bwd.launches += 1
-    return grads
+    return _attention_bwd_op(q, k, v, o, lse, do, causal, window, softcap,
+                             blk)
 
 
 flash_attention_bwd.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Attention with a gradient: the forward kernel (or, on the CPU, its
-    plain version) also writes each row's log-sum-exp, and the backward
-    is :func:`flash_attention_bwd`.  q, k and v get gradients; the
-    block, mask and softcap arguments none."""
+    """Attention with a gradient: the forward operator with the rows'
+    log-sum-exp, and the backward operator (:func:`flash_attention_bwd`).
+    A thin caller of the operators' own autograd (``_attention_setup``,
+    ``_attention_backward``).  q, k and v get gradients; the block, mask
+    and softcap arguments none."""
 
     @staticmethod
     def forward(ctx, q, k, v, bq: int, bkv: int, causal: bool, window: int,
                 softcap: float):
-        out, lse = _forward(q, k, v, bq, bkv, causal, window, softcap,
-                            with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window, softcap)
+        inputs = (q, k, v, bq, bkv, causal, window, softcap, True)
+        out, lse = _forward(*inputs) if plain_route(q) else \
+            _attention_op(*inputs)
+        _attention_setup(ctx, inputs, (out, lse))
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        causal, window, softcap = ctx.mask
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), causal=causal,
-                                         window=window, softcap=softcap)
-        return dq, dk, dv, None, None, None, None, None
+        return _attention_backward(ctx, dout)[:8]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -620,8 +728,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hand-written kernel on the current stream — contiguous, 16-byte
     aligned, float32 or bfloat16, blocks legal for the card — and anything
     the kernel does not take raises; CPU tensors run
-    :func:`flash_attention_plain` over the same visited kv blocks.  Both
-    visit only the kv blocks of :func:`attn_kv_range`.
+    :func:`flash_attention_plain` over the same visited kv blocks; fake
+    tensors only shape the output (the operator's fake implementation).
+    All visit only the kv blocks of :func:`attn_kv_range`.
 
     When grad is enabled and an operand requires it, the call goes through
     :class:`FlashAttentionFn`, whose backward is :func:`flash_attention_bwd`
@@ -646,8 +755,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _bwd_legal(q, k, attn_bwd_blocks(sq))
         return FlashAttentionFn.apply(q, k, v, bq, bkv, causal, window,
                                       softcap)
-    return _forward(q, k, v, bq, bkv, causal, window, softcap,
-                    with_lse=False)[0]
+    if plain_route(q):
+        return _forward(q, k, v, bq, bkv, causal, window, softcap, False)[0]
+    return _attention_op(q, k, v, bq, bkv, causal, window, softcap,
+                         False)[0]
 
 
 flash_attention.launches = 0

@@ -23,7 +23,11 @@ dual form; no softplus on dt and no D skip (the kernel's contract).
 :func:`ssd` dispatches on where its operands lie: CUDA tensors launch the
 three kernels (or raise); CPU tensors take :func:`ssd_plain`, the same
 three passes in plain PyTorch — the counterpart of Pallas
-``interpret=True``.  There is no fall back from one to the other.
+``interpret=True``.  There is no fall back from one to the other.  The
+forward and the backward are ``torch.library`` operators
+(``repro_torch::ssd_fwd`` and ``ssd_bwd``) with fake implementations,
+autograd and flop formulas, so that a sharded step and a traced one reach
+them; a fake tensor runs only the fake implementation.
 
 Training.  When grad is enabled and an operand requires it, :func:`ssd`
 runs :class:`SsdFn`: the same forward, which keeps its scratches (``s``
@@ -42,9 +46,10 @@ import ctypes
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from ._card import H100_SMEM_OPTIN, PROXY_BLOCKS
+from ._card import H100_SMEM_OPTIN, PROXY_BLOCKS, card_smem, plain_route
 
 #: head dims P and state sizes N the kernel is instantiated for
 KERNEL_HEAD_DIMS: Tuple[int, ...] = (8, 16, 32, 64)
@@ -458,24 +463,32 @@ def _prepare(x, dt, a_log, b, c, chunk: int, h0) -> int:
     return chunk
 
 
-def _card_ready(ops, l: int, chunk: int, p: int, n: int) -> None:
+def _card_legal(ops, l: int, chunk: int, p: int, n: int) -> None:
     """Raise unless the kernels (forward and backward) take these
-    operands: contiguous float32, 16-byte aligned, a legal chunk and
-    (P, N) whose staging fits the card."""
+    operands' shapes and dtypes: contiguous float32, a legal chunk and
+    (P, N) whose staging fits the card.  Reads no data, so a fake tensor
+    is checked as a real one."""
     if any(t.dtype != torch.float32 for t in ops):
         raise TypeError("the ssd kernels take float32 operands, got "
                         f"{[str(t.dtype) for t in ops]}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops):
+    if not all(t.is_contiguous() for t in ops):
         raise ValueError("the ssd kernels take contiguous, 16-byte aligned "
                          "operands")
-    limit = torch.cuda.get_device_properties(
-        ops[0].device).shared_memory_per_block_optin
+    limit = card_smem(ops[0])
     if not ssd_tile_legal(l, chunk, p, n, limit):
         raise ValueError(
             f"chunk {chunk} at (P, N) = ({p}, {n}) is not legal for the "
             f"kernel: the chunk must be 16, 32 or a multiple of {ROWS}, P in "
             f"{KERNEL_HEAD_DIMS}, N in {KERNEL_STATES}, and the staging "
             f"{ssd_smem_bytes(chunk, p, n)} B must fit {limit} B")
+
+
+def _card_ready(ops, l: int, chunk: int, p: int, n: int) -> None:
+    """:func:`_card_legal`, and every operand 16-byte aligned."""
+    _card_legal(ops, l, chunk, p, n)
+    if not all(t.data_ptr() % 16 == 0 for t in ops):
+        raise ValueError("the ssd kernels take contiguous, 16-byte aligned "
+                         "operands")
 
 
 def _kernel_parts(x, dt, a_log, b, c, chunk: int, h0, want_state: bool):
@@ -539,6 +552,149 @@ def ssd_bwd_legal(l: int, chunk: int, p: int, n: int,
         ssd_bwd_smem_bytes(chunk, p, n) <= smem_limit
 
 
+def _working(x: torch.Tensor) -> torch.dtype:
+    """The dtype of the scan's states and scratches: float64 for float64
+    operands (the plain versions keep it), else float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+# ------------------------------------------------------------ operators --
+# The forward and the backward are torch.library operators, so that the
+# dispatcher sees them: a fake tensor (a traced step, ``launch.dryrun``)
+# runs the fake implementation, which only shapes the outputs, and
+# FlopCounterMode reads the formulas below.  The real implementation is
+# the kernels (CUDA) or the plain passes (CPU).  The wrappers call the
+# operators for CUDA and fake tensors; a real CPU tensor runs the plain
+# passes as it always has, visible to a dispatch mode.
+
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, h0: Optional[torch.Tensor],
+            chunk: int, want_state: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    """(y, h_final, s, h_in): h_final an empty tensor without
+    ``want_state``; s (B, H, L) and h_in (B, H, L / chunk, P, N) the
+    scratches the backward takes."""
+    if x.device.type == "cpu":
+        y, h_final, s, h_in = _plain_parts(x, dt, a_log, b, c, chunk, h0)
+        y, s, h_in = y.contiguous(), s.contiguous(), h_in.contiguous()
+    else:
+        ops = (x, dt, a_log, b, c) + (() if h0 is None else (h0,))
+        _card_ready(ops, x.shape[1], chunk, x.shape[3], b.shape[3])
+        y, h_final, s, h_in = _kernel_parts(x, dt, a_log, b, c, chunk, h0,
+                                            want_state)
+    if not want_state:
+        h_final = s.new_empty((0,))
+    return y, h_final, s, h_in
+
+
+@_ssd_op.register_fake
+def _(x, dt, a_log, b, c, h0, chunk, want_state):
+    bsz, l, h, p = x.shape
+    n = b.shape[3]
+    work = dict(dtype=_working(x), device=x.device)
+    h_final = x.new_empty((bsz, h, p, n) if want_state else (0,),
+                          dtype=work["dtype"])
+    return (torch.empty_like(x), h_final, x.new_empty((bsz, h, l), **work),
+            x.new_empty((bsz, h, l // chunk, p, n), **work))
+
+
+def _ssd_setup(ctx, inputs, output) -> None:
+    x, dt, a_log, b, c, h0, chunk, _ = inputs
+    _, _, s, h_in = output
+    ctx.save_for_backward(x, dt, a_log, b, c, s, h_in)
+    ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+
+
+def _ssd_backward(ctx, dy, dh_final, *_):
+    x, dt, a_log, b, c, s, h_in = ctx.saved_tensors
+    dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+    if dh_final is not None:
+        dh_final = dh_final.contiguous()
+    dx, ddt, da_log, db, dc, dh0 = ssd_bwd(
+        x, dt, a_log, b, c, s, h_in, dy, dh_final, chunk=ctx.chunk)
+    return (dx, ddt, da_log, db, dc, dh0 if ctx.has_h0 else None, None,
+            None)
+
+
+_ssd_op.register_autograd(_ssd_backward, setup_context=_ssd_setup)
+
+
+@torch.library.custom_op("repro_torch::ssd_bwd", mutates_args=())
+def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                h_in: torch.Tensor, dy: torch.Tensor,
+                dh_final: Optional[torch.Tensor], chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, ddt, da_log, db, dc, dh0): the four backward kernels on CUDA
+    tensors, :func:`ssd_bwd_plain` on CPU tensors."""
+    if x.device.type == "cpu":
+        return tuple(t.contiguous() for t in ssd_bwd_plain(
+            x, dt, a_log, b, c, s, h_in, dy, dh_final, chunk=chunk))
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = l // chunk
+    ops = (x, dt, a_log, b, c, s, h_in, dy) + \
+        (() if dh_final is None else (dh_final,))
+    _card_ready(ops, l, chunk, p, n)
+    rep = h // g
+    heads = ssd_bwd_heads(h, g)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nq = chunk // _rows(chunk)
+    d_s = torch.empty((bsz, h, nc, p, n), **f32)
+    dsq_pass = torch.empty((bsz, h, nc, ssd_bwd_pass_blocks(p, n)), **f32)
+    dsq_scan = torch.empty((bsz, h, nc, nq), **f32)
+    ds, ddt_part = (torch.empty((bsz, h, l), **f32) for _ in range(2))
+    db_part, dc_part = (torch.empty((bsz, l, g * (rep // heads), n), **f32)
+                        for _ in range(2))
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    da_log = torch.empty_like(a_log)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    dh0 = torch.empty((bsz, h, p, n), **f32)
+    _call("repro_ssd_bwd", "backward",
+          (x, dt, a_log, b, c, dy, s, h_in, dh_final, d_s, dsq_pass,
+           dsq_scan, ds, ddt_part, db_part, dc_part, dx, ddt, da_log, db, dc,
+           dh0),
+          (bsz, l, h, g, p, n, chunk, heads), x.device, lib_name="ssd_bwd")
+    ssd_bwd.launches += 1
+    return dx, ddt, da_log, db, dc, dh0
+
+
+@_ssd_bwd_op.register_fake
+def _(x, dt, a_log, b, c, s, h_in, dy, dh_final, chunk):
+    bsz, _, h, p = x.shape
+    dh0 = x.new_empty((bsz, h, p, b.shape[3]), dtype=_working(x))
+    return tuple(torch.empty_like(t) for t in (x, dt, a_log, b, c)) + (dh0,)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_fwd)
+def _ssd_flops(x_shape, dt_shape, a_log_shape, b_shape, c_shape, h0_shape,
+               chunk, want_state, out_shape=None, **kwargs) -> int:
+    """What ``perf.analytic._ssm_flops_per_token`` counts for the scan, a
+    token: the two Q x Q products of its chunk, 2 Q H (N + P), and the
+    state update and inter-chunk read, 6 H N P."""
+    bsz, l, h, p = x_shape
+    n = b_shape[3]
+    return bsz * l * (2 * chunk * h * (n + p) + 6 * h * n * p)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd)
+def _ssd_bwd_flops(x_shape, dt_shape, a_log_shape, b_shape, c_shape,
+                   s_shape, h_in_shape, dy_shape, dh_final_shape, chunk,
+                   out_shape=None, **kwargs) -> int:
+    """The backward kernels' work per head and chunk, as the kernel
+    table's bound reckons it: C B^T, dY X^T, G^T dY, M B and M^T C over
+    the Q (Q + 1) / 2 kept pairs (2 N, 2 P, 2 P, 2 N and 2 N flops a
+    pair), and D_c, dY h_in, X dS and B dS^T (2 Q P N each)."""
+    bsz, l, h, p = x_shape
+    n = b_shape[3]
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2 * pairs * (3 * n + 2 * p) + 8 * chunk * p * n
+    return per_chunk * bsz * h * (l // chunk)
+
+
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             b: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
             h_in: torch.Tensor, dy: torch.Tensor,
@@ -573,79 +729,49 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             f"{(bsz, h, nc, p, n)} and dh_final {(bsz, h, p, n)}, got "
             f"{tuple(dy.shape)}, {tuple(s.shape)}, {tuple(h_in.shape)}, "
             f"{None if dh_final is None else tuple(dh_final.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type == "cuda":
+        ops = (x, dt, a_log, b, c, s, h_in, dy) + \
+            (() if dh_final is None else (dh_final,))
+        if len({t.device for t in ops}) != 1:
+            raise ValueError("ssd_bwd's operands lie on more than one "
+                             "device")
+        _card_legal(ops, l, chunk, p, n)
+        limit = card_smem(x)
+        if ssd_bwd_smem_bytes(chunk, p, n) > limit:
+            raise ValueError(f"the ssd backward's staging "
+                             f"{ssd_bwd_smem_bytes(chunk, p, n)} B at chunk "
+                             f"{chunk}, (P, N) = ({p}, {n}) does not fit "
+                             f"{limit} B")
+    if plain_route(x):
         return ssd_bwd_plain(x, dt, a_log, b, c, s, h_in, dy, dh_final,
                              chunk=chunk)
-    ops = (x, dt, a_log, b, c, s, h_in, dy) + \
-        (() if dh_final is None else (dh_final,))
-    if len({t.device for t in ops}) != 1:
-        raise ValueError("ssd_bwd's operands lie on more than one device")
-    _card_ready(ops, l, chunk, p, n)
-    limit = torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin
-    if ssd_bwd_smem_bytes(chunk, p, n) > limit:
-        raise ValueError(f"the ssd backward's staging "
-                         f"{ssd_bwd_smem_bytes(chunk, p, n)} B at chunk "
-                         f"{chunk}, (P, N) = ({p}, {n}) does not fit {limit}"
-                         f" B")
-    rep = h // g
-    heads = ssd_bwd_heads(h, g)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    nq = chunk // _rows(chunk)
-    d_s = torch.empty((bsz, h, nc, p, n), **f32)
-    dsq_pass = torch.empty((bsz, h, nc, ssd_bwd_pass_blocks(p, n)), **f32)
-    dsq_scan = torch.empty((bsz, h, nc, nq), **f32)
-    ds, ddt_part = (torch.empty((bsz, h, l), **f32) for _ in range(2))
-    db_part, dc_part = (torch.empty((bsz, l, g * (rep // heads), n), **f32)
-                        for _ in range(2))
-    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
-    da_log = torch.empty_like(a_log)
-    db, dc = torch.empty_like(b), torch.empty_like(c)
-    dh0 = torch.empty((bsz, h, p, n), **f32)
-    _call("repro_ssd_bwd", "backward",
-          (x, dt, a_log, b, c, dy, s, h_in, dh_final, d_s, dsq_pass,
-           dsq_scan, ds, ddt_part, db_part, dc_part, dx, ddt, da_log, db, dc,
-           dh0),
-          (bsz, l, h, g, p, n, chunk, heads), x.device, lib_name="ssd_bwd")
-    ssd_bwd.launches += 1
-    return dx, ddt, da_log, db, dc, dh0
+    return _ssd_bwd_op(x, dt, a_log, b, c, s, h_in, dy, dh_final, chunk)
 
 
 ssd_bwd.launches = 0
 
 
 class SsdFn(torch.autograd.Function):
-    """The SSD scan with a gradient: ``(y, h_final)``.  The forward is the
-    three kernels (or, on the CPU, their plain version) and keeps their
-    scratches, ``s`` and the chunk-entry states (41.9 MB a layer at
-    mamba2-2.7b's width and chunk 256, held only while a layer's remat is
-    differentiated), so the backward recomputes neither; the backward is
-    :func:`ssd_bwd`.  x, dt, a_log, b, c and h0 get gradients; y's or the
-    final state's gradient may be absent."""
+    """The SSD scan with a gradient: ``(y, h_final)``.  The forward
+    operator keeps its scratches, ``s`` and the chunk-entry states (41.9
+    MB a layer at mamba2-2.7b's width and chunk 256, held only while a
+    layer's remat is differentiated), so the backward recomputes neither;
+    the backward is :func:`ssd_bwd`.  A thin caller of the operator's own
+    autograd (``_ssd_setup``, ``_ssd_backward``).  x, dt, a_log, b, c and
+    h0 get gradients; y's or the final state's gradient may be absent."""
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b, c, h0, chunk: int):
-        if x.device.type == "cpu":
-            y, h_final, s, h_in = _plain_parts(x, dt, a_log, b, c, chunk,
-                                               h0)
-        else:
-            y, h_final, s, h_in = _kernel_parts(x, dt, a_log, b, c, chunk,
-                                                h0, want_state=True)
-        ctx.save_for_backward(x, dt, a_log, b, c, s, h_in)
-        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        inputs = (x, dt, a_log, b, c, h0, chunk, True)
+        out = _plain_parts(x, dt, a_log, b, c, chunk, h0) \
+            if plain_route(x) else _ssd_op(*inputs)
+        _ssd_setup(ctx, inputs, out)
         ctx.set_materialize_grads(False)
-        return y, h_final
+        return out[0], out[1]
 
     @staticmethod
     def backward(ctx, dy, dh_final):
-        x, dt, a_log, b, c, s, h_in = ctx.saved_tensors
-        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
-        if dh_final is not None:
-            dh_final = dh_final.contiguous()
-        dx, ddt, da_log, db, dc, dh0 = ssd_bwd(
-            x, dt, a_log, b, c, s, h_in, dy, dh_final, chunk=ctx.chunk)
-        return (dx, ddt, da_log, db, dc, dh0 if ctx.has_h0 else None,
-                None)
+        return _ssd_backward(ctx, dy, dh_final)[:7]
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -671,22 +797,19 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     chunk = _prepare(x, dt, a_log, b, c, chunk, h0)
     ops = (x, dt, a_log, b, c) + (() if h0 is None else (h0,))
     if x.device.type == "cuda":
-        _card_ready(ops, x.shape[1], chunk, x.shape[3], b.shape[3])
+        _card_legal(ops, x.shape[1], chunk, x.shape[3], b.shape[3])
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
         if x.device.type == "cuda" and not ssd_bwd_legal(
-                x.shape[1], chunk, x.shape[3], b.shape[3],
-                torch.cuda.get_device_properties(
-                    x.device).shared_memory_per_block_optin):
+                x.shape[1], chunk, x.shape[3], b.shape[3], card_smem(x)):
             raise ValueError(f"the ssd backward kernels do not take chunk "
                              f"{chunk} at (P, N) = ({x.shape[3]}, "
                              f"{b.shape[3]}) on this card")
         y, h_final = SsdFn.apply(x, dt, a_log, b, c, h0, chunk)
         return (y, h_final) if return_state else y
-    if x.device.type == "cpu":
+    if plain_route(x):
         return ssd_plain(x, dt, a_log, b, c, chunk=chunk, h0=h0,
                          return_state=return_state)
-    y, h_final, _, _ = _kernel_parts(x, dt, a_log, b, c, chunk, h0,
-                                     return_state)
+    y, h_final, _, _ = _ssd_op(x, dt, a_log, b, c, h0, chunk, return_state)
     return (y, h_final) if return_state else y
 
 

@@ -1,4 +1,5 @@
-"""repro_torch.launch — the port of ``repro.launch``: the train step
-(:mod:`.steps`), the training CLI (:mod:`.train`) and the serving CLI
-(:mod:`.serve`).  The mesh and dry-run launchers belong to the
-distributed slice."""
+"""repro_torch.launch — the port of ``repro.launch``: the step functions
+and abstract inputs (:mod:`.steps`), the production and local meshes
+(:mod:`.mesh`), the dry run of every cell on the production mesh
+(:mod:`.dryrun`), the training CLI (:mod:`.train`) and the serving CLI
+(:mod:`.serve`)."""

@@ -29,6 +29,7 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
+from ..distributed import local
 from ..kernels.flash_attention import (KERNEL_BLOCKS, flash_attention,
                                        flash_attention_plain)
 from .layers import apply_rope, normal, softcap
@@ -85,14 +86,20 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: int, attn_softcap: float,
            use_kernel: bool = True) -> torch.Tensor:
     """Self-attention over (B, H, S, D) operands without a cache: the
-    flash-attention kernel (or, ``use_kernel=False``, its plain version)."""
+    flash-attention kernel (or, ``use_kernel=False``, its plain version).
+    ``DTensor`` operands run it on their local shards
+    (:func:`repro_torch.distributed.local.attention`)."""
     blk = attn_blocks(q.shape[2])
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if not use_kernel:
-        return flash_attention_plain(q, k, v, bq=blk, bkv=blk, causal=causal,
-                                     window=window, softcap=attn_softcap)
-    return flash_attention(q, k, v, bq=blk, bkv=blk, causal=causal,
-                           window=window, softcap=attn_softcap)
+    kernel = flash_attention if use_kernel else flash_attention_plain
+
+    def run(q, k, v):
+        return kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                      bq=blk, bkv=blk, causal=causal, window=window,
+                      softcap=attn_softcap)
+
+    if local.is_sharded(q):
+        return local.attention(run, q, k, v)
+    return run(q, k, v)
 
 
 class AttnParams(nn.Module):
@@ -143,9 +150,9 @@ def attn_forward(cfg: ArchConfig, p: AttnParams, x: torch.Tensor, *,
     """
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    q = local.split_last(x @ p.wq, cfg.n_heads, hd)
+    k = local.split_last(x @ p.wk, cfg.n_kv_heads, hd)
+    v = local.split_last(x @ p.wv, cfg.n_kv_heads, hd)
     if positions is None:
         positions = torch.arange(s, device=x.device)
         if cache_index is not None:
@@ -161,12 +168,19 @@ def attn_forward(cfg: ArchConfig, p: AttnParams, x: torch.Tensor, *,
         ck, cv = kv_cache
         # the reference's dynamic_update_slice clamps the start to fit
         start = min(cache_index, ck.shape[2] - s)
-        ck[:, :, start:start + s] = k.to(ck.dtype)
-        cv[:, :, start:start + s] = v.to(cv.dtype)
         cache = (ck, cv)
         off = cache_index if mask_offset is None else mask_offset
-        out = chunked_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                causal=True, window=window,
-                                attn_softcap=cfg.attn_softcap, q_offset=off)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+        if local.is_sharded(ck):
+            if s != 1:
+                raise ValueError("a sharded decode step takes one token")
+            out = local.decode_attention(q, k, v, ck, cv, start, off,
+                                         window, cfg.attn_softcap)
+        else:
+            ck[:, :, start:start + s] = k.to(ck.dtype)
+            cv[:, :, start:start + s] = v.to(cv.dtype)
+            out = chunked_attention(q, ck.to(q.dtype), cv.to(q.dtype),
+                                    causal=True, window=window,
+                                    attn_softcap=cfg.attn_softcap,
+                                    q_offset=off)
+    out = local.merge_last(out.transpose(1, 2))
     return out @ p.wo, cache

@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -56,8 +57,14 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     (...) int."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
-    return logz - gold
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    if isinstance(gold, DTensor):
+        # over vocab-sharded logits the gather is a masked partial sum,
+        # whose mask has the gather's shape: reduce it (an all-reduce)
+        # before the squeeze
+        gold = gold.redistribute(gold.device_mesh,
+                                 [Replicate()] * gold.device_mesh.ndim)
+    return logz - gold.squeeze(-1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

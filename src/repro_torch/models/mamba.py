@@ -33,6 +33,7 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
+from ..distributed import local
 from ..kernels.ssd import ssd, ssd_plain
 from .layers import normal
 
@@ -80,6 +81,21 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return z, x, b, c, dt
 
 
+def _recurrence(x, dt, a_log, b, c, state):
+    """One decode step of the recurrence: x (B, 1, H, P), dt (B, 1, H)
+    float32, b, c (B, 1, G, N), state (B, H, P, N) float32 -> (y (B, 1,
+    H, P) float32, the new state)."""
+    rep = x.shape[2] // b.shape[2]
+    a = -torch.exp(a_log)
+    decay = torch.exp(a[None, :] * dt[:, 0])                  # (B, H)
+    b1 = b[:, 0].repeat_interleave(rep, dim=1)                # (B, H, N)
+    c1 = c[:, 0].repeat_interleave(rep, dim=1)
+    new_state = state * decay[..., None, None] + (
+        (dt[:, 0, :, None] * x[:, 0])[..., None] * b1[..., None, :])
+    y = torch.einsum("bhpn,bhn->bhp", new_state, c1.float())[:, None]
+    return y, new_state
+
+
 def mamba_forward(cfg: ArchConfig, p: MambaParams, x_in: torch.Tensor, *,
                   state: Optional[torch.Tensor] = None,
                   return_state: bool = False, use_kernel: bool = True):
@@ -93,20 +109,13 @@ def mamba_forward(cfg: ArchConfig, p: MambaParams, x_in: torch.Tensor, *,
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
     z, xi, bb, cc, dt = _split_proj(cfg, x_in @ p.in_proj)
-    xh = xi.reshape(bsz, S, h, pdim)
-    bg = bb.reshape(bsz, S, g, n)
-    cg = cc.reshape(bsz, S, g, n)
+    xh = local.split_last(xi, h, pdim)
+    bg = local.split_last(bb, g, n)
+    cg = local.split_last(cc, g, n)
     dt = F.softplus(dt.float() + p.dt_bias)
 
     if S == 1 and state is not None:
-        rep = h // g
-        a = -torch.exp(p.a_log)
-        decay = torch.exp(a[None, :] * dt[:, 0])              # (B, H)
-        b1 = bg[:, 0].repeat_interleave(rep, dim=1)           # (B, H, N)
-        c1 = cg[:, 0].repeat_interleave(rep, dim=1)
-        new_state = state * decay[..., None, None] + (
-            (dt[:, 0, :, None] * xh[:, 0])[..., None] * b1[..., None, :])
-        y = torch.einsum("bhpn,bhn->bhp", new_state, c1.float())[:, None]
+        ops, h0, run = (xh, dt, p.a_log, bg, cg), state, _recurrence
     else:
         chunk = min(cfg.ssm_chunk, S)
         if S % chunk:
@@ -114,13 +123,28 @@ def mamba_forward(cfg: ArchConfig, p: MambaParams, x_in: torch.Tensor, *,
         ops = [t.float().contiguous() for t in (xh, dt, p.a_log, bg, cg)]
         h0 = None if state is None else state.float().contiguous()
         scan = ssd if use_kernel else ssd_plain
-        y, new_state = scan(*ops, chunk=chunk, h0=h0, return_state=True)
+
+        def run(x, dt, a_log, b, c, h0=None):
+            return scan(x, dt, a_log, b, c, chunk=chunk, h0=h0,
+                        return_state=True)
+
+    if local.is_sharded(xh):
+        y, new_state = local.ssd(run, *ops, h0)
+    else:
+        y, new_state = run(*ops, h0)
 
     y = y + p.d_skip[None, None, :, None] * xh.float()
-    y = y.reshape(bsz, S, cfg.d_inner).to(x_in.dtype)
+    y = local.merge_last(y).to(x_in.dtype)
     # gated RMSNorm (Mamba-2 norm before out_proj)
     yf = y.float() * F.silu(z.float())
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if local.is_sharded(yf):
+        # sharded over the heads, the mean is a partial sum: reduced (as
+        # a sum, which DTensor's backward can take) onto the block input's
+        # layout, batch-sharded and replicated over the heads
+        var = local.like(torch.sum(yf * yf, dim=-1, keepdim=True), x_in) \
+            / yf.shape[-1]
+    else:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
     yf = yf * torch.rsqrt(var + 1e-6) * (1.0 + p.norm_g.float())
     out = yf.to(x_in.dtype) @ p.out_proj
     if return_state:

@@ -18,6 +18,7 @@ from typing import List, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import local
 from .transformer import Model, _block_forward, _embed, _head
 
 
@@ -34,8 +35,11 @@ def _cache_ctx(cfg: ArchConfig, spec, s: int) -> int:
 def prefill(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
             use_kernel: bool = True) -> Tuple[torch.Tensor, List]:
     """Returns (last-token logits (B, 1, V), decode caches, one per
-    layer)."""
-    x = _embed(cfg, params, inputs)
+    layer).  Sharded inputs pin the hidden state to their batch sharding
+    (:func:`repro_torch.distributed.local.batch_sharding`) after the
+    embedding and every block."""
+    act = local.batch_sharding(inputs)
+    x = local.redistribute(_embed(cfg, params, inputs), act)
     s = x.shape[1]
     caches = []
     for blk in params.blocks:
@@ -47,6 +51,7 @@ def prefill(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
                          cfg.long_context_kv_cap)
         x, cache = _block_forward(cfg, blk, x, window=window,
                                   use_kernel=use_kernel)
+        x = local.redistribute(x, act)
         if spec.mixer == "attn":
             ctx = _cache_ctx(cfg, spec, s)
             # a copy, so the full-length k and v are freed

@@ -16,8 +16,9 @@ SSD scan through the hand-written kernels; ``remat=True`` checkpoints each
 period, ``remat_policy="dots"`` keeping the products' outputs),
 :func:`chunked_cross_entropy` and :func:`loss_fn` (the training loss),
 :func:`init_decode_state` and :func:`decode_step` (one token, KV caches
-written in place).  The reference's ``act_spec`` belongs to the
-distributed slice.
+written in place).  Sharded parameters and inputs (``DTensor``s,
+:mod:`repro_torch.distributed`) run the same code: the kernels on local
+shards, ``act_spec`` pinning the hidden state's sharding.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig, LayerSpec
+from ..distributed import local
 from .attention import AttnParams, attn_forward, init_attn
 from .layers import normal, rmsnorm, softcap, swiglu, token_nll
 from .mamba import MambaParams, init_mamba, init_ssm_state, mamba_forward
@@ -79,13 +81,17 @@ class Block(nn.Module):
 class Model(nn.Module):
     """The whole model: ``embed`` (vocab, d_model) for token models, or
     ``frontend_proj`` (frontend_dim, d_model) and ``head`` (d_model, vocab)
-    for a modality frontend; ``blocks`` over layers; ``final_norm``."""
+    for a modality frontend; ``blocks`` over layers; ``final_norm``.
+    ``period`` is ``len(cfg.block_pattern)``: layer ``l`` is position
+    ``l % period`` of its period, the reference's ``blocks/p{pi}`` leaf
+    (the sharding rules read it)."""
 
     def __init__(self, blocks: List[Block], final_norm: torch.Tensor, *,
-                 embed: Optional[torch.Tensor] = None,
+                 period: int, embed: Optional[torch.Tensor] = None,
                  frontend_proj: Optional[torch.Tensor] = None,
                  head: Optional[torch.Tensor] = None):
         super().__init__()
+        self.period = period
         self.embed = _frozen(embed)
         self.frontend_proj, self.head = _frozen(frontend_proj), _frozen(head)
         self.blocks = nn.ModuleList(blocks)
@@ -136,7 +142,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     n_periods(cfg)
     blocks = [_init_block(cfg, spec, generator, dtype, device)
               for spec in cfg.layer_specs()]
-    return Model(blocks, torch.zeros((d,), dtype=dtype, device=device), **kw)
+    return Model(blocks, torch.zeros((d,), dtype=dtype, device=device),
+                 period=len(cfg.block_pattern), **kw)
 
 
 # ---------------------------------------------------------------- forward --
@@ -159,7 +166,7 @@ def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor,
                                 groups=h.shape[1]).transpose(0, 1)
         else:
             y = y + moe_forward(cfg, blk.moe, h)
-    return x + y
+    return x + local.like(y, x)
 
 
 def _block_forward(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
@@ -168,7 +175,19 @@ def _block_forward(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
                    route_by_position: bool = False):
     """One block; returns (x, cache): the attention layer's (K, V) — the
     updated ring with a cache given, else the call's own — or the SSM
-    layer's state.  ``route_by_position`` as in :func:`_ffn`."""
+    layer's state.  ``route_by_position`` as in :func:`_ffn`.  Sharded,
+    the block's weights are all-gathered over the batch's mesh axes
+    first (FSDP, :func:`repro_torch.distributed.local.gathered`)."""
+    with local.gathered(blk, x):
+        return _block_body(cfg, blk, x, window=window, cache=cache,
+                           cache_index=cache_index, positions=positions,
+                           mask_offset=mask_offset, use_kernel=use_kernel,
+                           route_by_position=route_by_position)
+
+
+def _block_body(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
+                window: int, cache, cache_index, positions, mask_offset,
+                use_kernel: bool, route_by_position: bool):
     h = rmsnorm(x, blk.ln1)
     if blk.spec.mixer == "attn":
         y, new_cache = attn_forward(cfg, blk.attn, h, window=window,
@@ -180,27 +199,32 @@ def _block_forward(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
         y, new_cache = mamba_forward(cfg, blk.ssm, h, state=cache,
                                      return_state=True,
                                      use_kernel=use_kernel)
-    return _ffn(cfg, blk, x + y, route_by_position), new_cache
+    return _ffn(cfg, blk, x + local.like(y, x), route_by_position), \
+        new_cache
 
 
 def _embed(cfg: ArchConfig, params: Model,
            inputs: torch.Tensor) -> torch.Tensor:
     if cfg.frontend == "none":
+        if local.is_sharded(inputs):
+            return local.embedding(params.embed, inputs)
         return params.embed[inputs]
-    return inputs.to(params.frontend_proj.dtype) @ params.frontend_proj
+    return inputs.to(params.frontend_proj.dtype) @ \
+        local.gathered_weight(params.frontend_proj, inputs)
 
 
 def _head_logits(cfg: ArchConfig, params: Model,
                  x: torch.Tensor) -> torch.Tensor:
     if cfg.frontend == "none":
-        logits = x @ params.embed.T
+        logits = x @ local.gathered_weight(params.embed, x).T
     else:
-        logits = x @ params.head
+        logits = x @ local.gathered_weight(params.head, x)
     return softcap(logits, cfg.logit_softcap)
 
 
 def _head(cfg: ArchConfig, params: Model, x: torch.Tensor) -> torch.Tensor:
-    return _head_logits(cfg, params, rmsnorm(x, params.final_norm))
+    return _head_logits(cfg, params, rmsnorm(
+        x, local.gathered_weight(params.final_norm, x)))
 
 
 def _window(spec: LayerSpec, window_cap: int) -> int:
@@ -244,8 +268,8 @@ def _remat_policy(name: Optional[str]) -> Optional[Callable]:
 
 def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
                    window_cap: int = 0, use_kernel: bool = True,
-                   remat: bool = False,
-                   remat_policy: Optional[str] = None) -> torch.Tensor:
+                   remat: bool = False, remat_policy: Optional[str] = None,
+                   act_spec=None) -> torch.Tensor:
     """Embedding + blocks + final norm -> hidden states (B, S, d).
 
     ``remat=True`` applies per-period activation checkpointing: each
@@ -255,8 +279,15 @@ def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
     the attention kernel's forward included.  ``remat_policy`` as the
     reference's (:func:`_remat_policy`): under "dots" the backward keeps
     the outputs of the products with no batch dimension as well.
+
+    ``act_spec`` (a :class:`repro_torch.distributed.sharding.
+    NamedSharding` of the (B, S, d) hidden state; sharded parameters and
+    inputs) redistributes the hidden state to it after the embedding and
+    after every block, the reference's ``with_sharding_constraint``
+    points: without it the propagation may keep activations replicated and
+    turn the FSDP weight sharding into per-product reductions.
     """
-    x = _embed(cfg, params, inputs)
+    x = local.redistribute(_embed(cfg, params, inputs), act_spec)
     blocks = list(params.blocks)
     period = len(cfg.block_pattern)
 
@@ -265,6 +296,7 @@ def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
             x, _ = _block_forward(cfg, blk, x,
                                   window=_window(blk.spec, window_cap),
                                   use_kernel=use_kernel)
+            x = local.redistribute(x, act_spec)
         return x
 
     kw = {}
@@ -278,7 +310,7 @@ def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
             x = checkpoint(run, x, group, use_reentrant=False, **kw)
         else:
             x = run(x, group)
-    return rmsnorm(x, params.final_norm)
+    return rmsnorm(x, local.gathered_weight(params.final_norm, x))
 
 
 def forward(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
@@ -318,13 +350,15 @@ def chunked_cross_entropy(cfg: ArchConfig, params: Model, x: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, params: Model, inputs: torch.Tensor,
             labels: torch.Tensor, *, remat_policy: Optional[str] = None,
-            use_kernel: bool = True) -> torch.Tensor:
+            use_kernel: bool = True, act_spec=None) -> torch.Tensor:
     """The training loss: the forward with per-period remat, then the
     chunked cross entropy.  ``use_kernel=False`` sends attention and the
     SSD to their plain versions on any device (autograd differentiates
-    them), to compare the kernels' gradients with."""
+    them), to compare the kernels' gradients with; ``act_spec`` as
+    :func:`forward_hidden`'s."""
     x = forward_hidden(cfg, params, inputs, remat=True,
-                       remat_policy=remat_policy, use_kernel=use_kernel)
+                       remat_policy=remat_policy, use_kernel=use_kernel,
+                       act_spec=act_spec)
     return chunked_cross_entropy(cfg, params, x, labels)
 
 
@@ -362,7 +396,8 @@ def decode_step(cfg: ArchConfig, params: Model, caches: list,
     being the absolute position; the SSM states are replaced.
     """
     index = int(index)
-    x = _embed(cfg, params, token)
+    act = local.batch_sharding(token)
+    x = local.redistribute(_embed(cfg, params, token), act)
     pos = torch.tensor([index], device=x.device)
     new = []
     for blk, cache in zip(params.blocks, caches):
@@ -373,5 +408,6 @@ def decode_step(cfg: ArchConfig, params: Model, caches: list,
                       mask_offset=min(index, ctx - 1))
         x, nc = _block_forward(cfg, blk, x, window=blk.spec.window,
                                cache=cache, **kw)
+        x = local.redistribute(x, act)
         new.append(nc)
     return _head(cfg, params, x), new

@@ -14,18 +14,30 @@ a :class:`Card` (the H100 SXM's unless another is given): compute term =
 FLOPs / the card's bf16 tensor peak, memory term = bytes / its HBM rate,
 collective term = collective operand bytes / its link rate.
 :func:`collective_bytes` parses compiled HLO text, as the reference's
-does, and :func:`model_flops_for` counts 6 N D.  The reference's
-``extract``, which reads a compiled XLA executable, has no counterpart
-yet.
+does, and :func:`model_flops_for` counts 6 N D.
+
+PyTorch has no compiled executable to read, so :func:`extract` takes the
+record of one traced step (:class:`StepRecorder`, a dispatch mode over a
+step run on fake tensors): the FLOPs that ``FlopCounterMode``'s formulas
+give for every local operation (the kernels' operators included), the
+bytes each non-view operation reads and writes, and the collectives'
+operand bytes by kind, on the reference's convention (all-gather operand
+= result / g, reduce-scatter operand = result x g).  ``DTensor``
+operations are left to ``DTensor``, so the record holds what one rank's
+shards compute and send.
 """
 
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+import sys
+import weakref
+from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 
 @dataclass(frozen=True)
@@ -229,6 +241,145 @@ class RooflineTerms:
             "useful_ratio": self.useful_ratio,
             "roofline_fraction": self.roofline_fraction,
         }
+
+
+# --------------------------------------------------- traced-step record --
+
+#: the functional collectives ``DTensor`` issues, by the reference's kinds
+_FUNCOL_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _nbytes(x) -> int:
+    """Bytes of a tensor, or of the tensors of a list or tuple."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(t) for t in x)
+    return 0
+
+
+def _in_shape_inference() -> bool:
+    """Whether ``DTensor``'s output-shape inference is on the stack."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        if frame.f_code.co_name == "_propagate_tensor_meta_non_cached":
+            return True
+        frame = frame.f_back
+    return False
+
+
+@dataclass
+class StepRecord:
+    """What one rank's traced step did: FLOPs, bytes read and written,
+    collective operand bytes by kind, peak bytes of the tensors it made
+    (live at once)."""
+
+    flops: float = 0.0
+    bytes: float = 0.0
+    coll_bytes: Dict[str, int] = field(
+        default_factory=lambda: {k: 0 for k in _COLLECTIVES})
+    coll_calls: Dict[str, int] = field(
+        default_factory=lambda: {k: 0 for k in _COLLECTIVES})
+    peak_new_bytes: int = 0
+    flops_by_op: Dict[str, float] = field(default_factory=dict)
+
+
+class StepRecorder(TorchDispatchMode):
+    """Records a step into :attr:`record` (a :class:`StepRecord`).
+
+    Operations on ``DTensor``s are handed back to ``DTensor``
+    (``NotImplemented``), which runs them as local operations and
+    functional collectives that this mode then sees: so every count is
+    one rank's.  FLOPs come from ``torch.utils.flop_counter``'s formulas
+    (``FlopCounterMode``'s registry, the kernels' operators included);
+    bytes are each non-view operation's tensor operands and outputs,
+    each once; a collective's operand bytes are its input's (all-gather:
+    result / g; reduce-scatter: result x g, as the reference counts);
+    live bytes follow the storages the step creates, each counted until
+    it is freed.  ``DTensor`` infers its outputs' shapes by running each
+    new operation once on fake tensors of the global shapes (in
+    ``ShardingPropagator._propagate_tensor_meta_non_cached``): those runs
+    are not the step's work and are not recorded.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.record = StepRecord()
+        self._live = 0
+        self._seen: Dict[int, int] = {}
+
+    def _track(self, out) -> None:
+        for t in (out if isinstance(out, (list, tuple)) else (out,)):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._seen:
+                continue
+            self._seen[key] = st.nbytes()
+            self._live += st.nbytes()
+            self.record.peak_new_bytes = max(self.record.peak_new_bytes,
+                                             self._live)
+            weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self._live -= self._seen.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if _in_shape_inference():
+            return out
+        packet = func._overloadpacket
+        rec = self.record
+        if packet in flop_registry:
+            n = flop_registry[packet](*args, **kwargs, out_val=out)
+            rec.flops += n
+            name = str(packet)
+            rec.flops_by_op[name] = rec.flops_by_op.get(name, 0) + n
+        kind = _FUNCOL_KINDS.get(packet.__name__) \
+            if func.namespace == "_c10d_functional" else None
+        if kind is not None:
+            rec.coll_bytes[kind] += _nbytes(args[0])
+            rec.coll_calls[kind] += 1
+        if not func.is_view:
+            rec.bytes += _nbytes(list(args)) + _nbytes(
+                list(kwargs.values())) + _nbytes(out)
+            if not func._schema.is_mutable:   # in place: no new storage
+                self._track(out)
+        return out
+
+
+def extract(record: StepRecord, n_devices: int, model_flops: float = 0.0,
+            analytic=None, card: Card = H100_SXM) -> RooflineTerms:
+    """:class:`RooflineTerms` of one traced step on ``card``'s rates, as
+    the reference's ``extract`` builds them from a compiled executable:
+    ``record.flops`` and ``record.bytes`` stand for its ``cost_analysis``
+    (``hlo_flops``, ``hlo_bytes``; per device, as the record is one
+    rank's), the record's collective bytes for its parsed HLO.  With
+    ``analytic`` (a ``perf.analytic.CellCost``, GLOBAL counts) flops and
+    bytes are ``analytic.flops / n_devices`` and ``analytic.hbm_bytes /
+    n_devices``."""
+    if analytic is not None:
+        flops = analytic.flops / n_devices
+        nbytes = analytic.hbm_bytes / n_devices
+    else:
+        flops, nbytes = record.flops, record.bytes
+    return RooflineTerms(flops=flops, bytes_accessed=nbytes,
+                         coll_bytes=dict(record.coll_bytes),
+                         n_devices=n_devices, model_flops=model_flops,
+                         hlo_flops=record.flops, hlo_bytes=record.bytes,
+                         card=card)
 
 
 def model_flops_for(cfg, shape) -> float:

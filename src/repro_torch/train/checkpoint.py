@@ -24,7 +24,10 @@ or dict (keys sorted, as JAX flattens them) of trees; the trainer saves
 ``(model, AdamWState)``.  numpy has no bfloat16, so a bfloat16 leaf is
 stored as its ``uint16`` view with ``"bfloat16"`` in the manifest, and
 restored bit for bit.  :func:`restore` writes into the tensors of the tree
-it is given, in place, on their devices.
+it is given, in place, on their devices, or, given ``shardings``, places
+each leaf on a mesh as a ``DTensor`` (the elastic restart,
+:mod:`repro_torch.distributed.elastic`).  A tree with ``DTensor`` leaves
+is gathered on every rank of its mesh and written by rank 0.
 """
 
 from __future__ import annotations
@@ -55,9 +58,48 @@ def leaves(tree: Any) -> List[torch.Tensor]:
     raise TypeError(f"not a checkpoint tree leaf: {type(tree)}")
 
 
+def rebuild(tree: Any, new_leaves: List[torch.Tensor]) -> Any:
+    """``tree`` with its leaves, in :func:`leaves` order, replaced by
+    ``new_leaves``: a model's parameters are set in place (each keeps its
+    ``requires_grad``) and the model returned; lists, tuples and dicts are
+    built anew."""
+    it = iter(new_leaves)
+
+    def one(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if isinstance(t, torch.nn.Module):
+            for name, p in list(t.named_parameters()):
+                *path, leaf = name.split(".")
+                owner = t.get_submodule(".".join(path))
+                owner._parameters[leaf] = torch.nn.Parameter(
+                    next(it), requires_grad=p.requires_grad)
+            return t
+        if isinstance(t, dict):
+            return {k: one(t[k]) for k in sorted(t)}
+        items = [one(x) for x in t]
+        return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
+
+    out = one(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def _writes() -> bool:
+    """Whether this process writes the checkpoint files: rank 0 of the
+    default process group, or the only process when there is none."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as the host array that is stored (a copy), and its dtype's
-    name."""
+    name.  A ``DTensor`` is gathered to its full value first (a
+    collective: every rank of its mesh takes part)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), _BF16
@@ -96,9 +138,13 @@ def _write(ckpt_dir: str, step: int, arrays: List[Tuple[np.ndarray, str]],
     return final
 
 
-def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> Path:
-    """Synchronous checkpoint save with atomic commit."""
-    return _write(ckpt_dir, step, [_host(x) for x in leaves(tree)], keep)
+def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3
+         ) -> Optional[Path]:
+    """Synchronous checkpoint save with atomic commit.  Under a process
+    group every rank calls it (``DTensor`` leaves are gathered) and rank 0
+    writes; the others return None."""
+    arrays = [_host(x) for x in leaves(tree)]
+    return _write(ckpt_dir, step, arrays, keep) if _writes() else None
 
 
 def _gc(base: Path, keep: int) -> None:
@@ -138,12 +184,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, tree_like: Any,
-            step: Optional[int] = None) -> Tuple[Any, int]:
+def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
+            shardings: Optional[List[Any]] = None) -> Tuple[Any, int]:
     """Restore into ``tree_like``'s leaves, in place; returns (tree_like,
     step).  ``step`` None takes :func:`latest_step`; a checkpoint that
     fails its CRC check raises ``IOError``, one that does not fit the
-    tree (leaf count, shape or dtype) ``ValueError``."""
+    tree (leaf count, shape or dtype) ``ValueError``.
+
+    ``shardings`` (one :class:`repro_torch.distributed.sharding.
+    NamedSharding` a leaf, in :func:`leaves` order) re-places the tree on
+    a (possibly different) mesh, the elastic-restart path: each leaf
+    becomes a ``DTensor`` under its placements, its local shard filled
+    from the saved array on every rank, and the tree is rebuilt around
+    them (:func:`rebuild`)."""
     base = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -157,7 +210,11 @@ def restore(ckpt_dir: str, tree_like: Any,
     if len(targets) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint {ckpt} holds {manifest['n_leaves']} "
                          f"leaves, the tree {len(targets)}")
-    for e, target in zip(manifest["leaves"], targets):
+    if shardings is not None and len(shardings) != len(targets):
+        raise ValueError(f"{len(shardings)} shardings for {len(targets)} "
+                         f"leaves")
+    placed = []
+    for i, (e, target) in enumerate(zip(manifest["leaves"], targets)):
         arr = np.load(ckpt / e["file"], allow_pickle=False)
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"{e['file']}: shape {arr.shape} does not fit "
@@ -169,7 +226,19 @@ def restore(ckpt_dir: str, tree_like: Any,
         if t.dtype != target.dtype:
             raise ValueError(f"{e['file']}: dtype {e['dtype']} does not fit "
                              f"{target.dtype}")
-        target.copy_(t)
+        if shardings is None:
+            target.copy_(t)
+        else:
+            from torch.distributed.tensor import distribute_tensor
+            sh = shardings[i]
+            dev = torch.device(sh.mesh.device_type, target.device.index
+                               if target.device.type == sh.mesh.device_type
+                               else None)
+            placed.append(distribute_tensor(t.to(dev), sh.mesh,
+                                            sh.placements,
+                                            src_data_rank=None))
+    if shardings is not None:
+        return rebuild(tree_like, placed), step
     return tree_like, step
 
 
@@ -188,6 +257,8 @@ class AsyncCheckpointer:
         updates do not reach it), then write on a thread."""
         self.wait()
         arrays = [_host(x) for x in leaves(tree)]
+        if not _writes():
+            return
 
         def work():
             try:

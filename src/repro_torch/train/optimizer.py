@@ -15,10 +15,19 @@ moments *in place* and returns a state holding the same tensors, and it
 works through large tensors in slices of :data:`SLICE` elements, so its
 float32 temporaries stay small.  Slicing an elementwise update changes no
 value.  Everything runs under ``torch.no_grad()``.
+
+Sharded parameters (``DTensor``s, :mod:`repro_torch.distributed`): the
+moments take their parameter's placements, a gradient is first brought to
+its parameter's placements (the reduction its ``Partial`` entries owe),
+and the update runs on each local shard, so nothing is gathered.  The
+global norm is one reduction over the mesh of the per-shard float32
+squared sums, each divided by the number of ranks that hold the same
+shard.  Plain tensors take the arithmetic above bit for bit.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -43,8 +52,7 @@ class AdamW(NamedTuple):
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
         params = list(params)
-        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in params]
+        zeros = [zeros_f32(p) for p in params]
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=params[0].device),
             mu=zeros, nu=[torch.zeros_like(z) for z in zeros])
@@ -61,22 +69,22 @@ class AdamW(NamedTuple):
         ranks, :func:`repro_torch.launch.steps.decayed`)."""
         if decay is None:
             decay = [p.dim() > 1 for p in params]
+        grads = [_placed_like(g, p) for g, p in zip(grads, params)]
         step = state.step + 1
         if self.grad_clip > 0:
-            gsq = sum(torch.sum(torch.square(g.float())) for g in grads)
-            gnorm = torch.sqrt(gsq)
+            gnorm = torch.sqrt(_squared_norm(grads))
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         else:
             scale = 1.0
-        stepf = step.float()
+        stepf = _local(step).float()
         bc1 = 1 - torch.tensor(self.b1, device=stepf.device) ** stepf
         bc2 = 1 - torch.tensor(self.b2, device=stepf.device) ** stepf
         updates = []
         for g, m, v, p, dec in zip(grads, state.mu, state.nu, params,
                                    decay):
             u = torch.empty_like(p)
-            flat = [t.reshape(-1) for t in (g, m, v, p, u)]
-            for lo in range(0, p.numel(), SLICE):
+            flat = [_local(t).reshape(-1) for t in (g, m, v, p, u)]
+            for lo in range(0, flat[0].numel(), SLICE):
                 self._update_slice(*(t[lo:lo + SLICE] for t in flat),
                                    decay=dec, scale=scale, bc1=bc1, bc2=bc2)
             updates.append(u)
@@ -93,11 +101,65 @@ class AdamW(NamedTuple):
         u.copy_((-self.lr * upd).to(u.dtype))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (a view: writing it writes the
+    ``DTensor``); a plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """Float32 zeros of ``p``'s shape on its device (for a ``DTensor``,
+    with its placements)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient on its parameter's placements (a ``DTensor`` gradient's
+    pending reduction done); a plain gradient itself."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor) and tuple(g.placements) != \
+            tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _squared_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The float32 sum of every gradient's squares.  Plain tensors: the
+    sum over the list in order.  ``DTensor``s: the per-shard sums, each
+    divided by the ranks that hold the same shard, added in the same
+    order, then one all-reduce over the mesh (over each of its
+    dimensions when the mesh is smaller than the world)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    sharded = [g for g in grads if isinstance(g, DTensor)]
+    if not sharded:
+        return sum(torch.sum(torch.square(g.float())) for g in grads)
+    mesh = sharded[0].device_mesh
+
+    def copies(g) -> int:
+        return math.prod(n for n, pl in zip(g.device_mesh.shape,
+                                            g.placements)
+                         if isinstance(pl, Replicate))
+
+    local = sum(torch.sum(torch.square(_local(g).float())) / copies(g)
+                for g in grads)
+    if mesh.size() == dist.get_world_size():       # one all-reduce
+        out = funcol.all_reduce(local, "sum", dist.group.WORLD)
+        return out.wait() if hasattr(out, "wait") else out
+    return DTensor.from_local(local, mesh, [Partial()] * mesh.ndim
+                              ).full_tensor()
+
+
 @torch.no_grad()
 def apply_updates(params: Sequence[torch.Tensor],
                   updates: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
     """``p + u`` for each pair, in place (the sum rounded once to the
     parameter's dtype, as the reference's add); returns ``params``."""
     for p, u in zip(params, updates):
-        p.add_(u)
+        _local(p).add_(_local(u))
     return params

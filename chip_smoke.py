@@ -431,17 +431,19 @@ def ptxas_table(log_text: str) -> dict:
 def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
     """The ptxas_table keys of each kernel's instantiations at its selected
     config: {kernel: [(what, key), ...]}.  The matmul's (bm, bn, bk) is
-    instantiated as (bm / 64, bn / 64, bk), attention's (bq, bkv, d) as
-    (bq, bkv, d) / 16, and the SSD's (chunk, p, n) as its three passes:
-    chunk state (p, n), the state pass (no template) and chunk scan (p, n,
-    min(chunk, 64))."""
+    instantiated as (bm / 64, bn / 64, bk); attention's two routes are
+    reported, the mma.sync route at the float32 family's selected (bq,
+    bkv, d) and the wgmma route at the models' bfloat16 WGMMA_MAIN_KEY;
+    the SSD's (chunk, p, n) as its three passes: chunk state (p, n), the
+    state pass (no template) and chunk scan (p, n, min(chunk, 64))."""
     bm, bn, bk = matmul_cfg
     chunk, p, n = ssd_cfg
     return {
         "matmul": [("matmul", ("matmul_kernel", "float32",
                                (bm // 64, bn // 64, bk)))],
-        "flash_attention": [("attention", (
-            "attn_kernel", "float32", tuple(c // 16 for c in attn_cfg)))],
+        "flash_attention": [
+            ("mma_sync", ("attn_sync_kernel", "float32", tuple(attn_cfg))),
+            ("wgmma", ("attn_wgmma_kernel", "bfloat16", WGMMA_MAIN_KEY))],
         "ssd": [("chunk_state", ("ssd_chunk_state_kernel", "float32",
                                  (p, n))),
                 ("state_pass", ("ssd_state_pass_kernel", "float32", ())),
@@ -449,14 +451,41 @@ def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
                                 (p, n, min(chunk, 64))))]}
 
 
-def bound(flops: float, nbytes: float, peak_flops: float, card) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the peak rate and the bytes over the memory rate."""
+#: results the special-function unit (MUFU: ex2, rcp, ...) issues a clock
+#: on one SM of the H100: 16, four a sub-partition
+MUFU_PER_CLOCK_SM = 16
+_MUFU_RATE = []
+
+
+def mufu_per_s(card) -> float:
+    """The card's MUFU rate, results a second, at its maximum SM clock as
+    ``nvidia-smi`` reads it."""
+    if not _MUFU_RATE:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
+        _MUFU_RATE.append(MUFU_PER_CLOCK_SM * card.sms * mhz * 1e6)
+    return _MUFU_RATE[0]
+
+
+def bound(flops: float, nbytes: float, peak_flops: float, card,
+          mufu_ops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the operations
+    over the peak rate, the special-function results (``mufu_ops``) over
+    the MUFU rate, and the bytes over the memory rate.  ``bound_by`` names
+    the term that binds: "products", "MUFU" or "bytes" (the kernels line
+    writes the first two as "operations")."""
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / card.hbm_bytes_per_s * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_ms": t_ops, "bytes_ms": t_bytes}
+    t_mufu = mufu_ops / mufu_per_s(card) * 1e3 if mufu_ops else 0.0
+    terms = {"products": t_ops, "MUFU": t_mufu, "bytes": t_bytes}
+    by = max(terms, key=terms.get)
+    out = {"bound_ms": terms[by], "bound_by": by, "ops_ms": t_ops,
+           "bytes_ms": t_bytes}
+    if mufu_ops:
+        out.update(mufu_ms=t_mufu, mufu_ops=mufu_ops)
+    return out
 
 
 def attn_pairs(s: int, causal: bool, window: int) -> int:
@@ -467,12 +496,48 @@ def attn_pairs(s: int, causal: bool, window: int) -> int:
                for i in range(s))
 
 
-def attn_work(b, hq, hkv, s, d, causal, window, itemsize):
-    """(flops, bytes) attention needs: 4 d flops per kept pair (q k^T and
-    p v), q, k, v read once and o written once."""
-    flops = 4.0 * b * hq * d * attn_pairs(s, causal, window)
+#: MUFU results the function needs a kept pair: the ex2 of p's expf, and
+#: with a softcap tanhf's ex2 and rcp.  The division by the cap needs none:
+#: the cap is the same for every pair, so one reciprocal and an FMA
+#: correction give the rounded quotient.  Phase 6 logs the wgmma kernel's
+#: own static count beside it (check_fwd_sass), which spends more
+FWD_MUFU = {False: 1, True: 3}
+
+
+def attn_work(b, hq, hkv, s, d, causal, window, itemsize, softcap=0.0):
+    """(flops, bytes, MUFU results) attention needs: 4 d flops per kept
+    pair (q k^T and p v), q, k, v read once and o written once, and
+    FWD_MUFU special-function results a pair."""
+    pairs = b * hq * attn_pairs(s, causal, window)
+    flops = 4.0 * d * pairs
     nbytes = float(itemsize) * b * s * d * (2 * hq + 2 * hkv)
-    return flops, nbytes
+    return flops, nbytes, float(pairs * FWD_MUFU[softcap > 0])
+
+
+def attn_fwd_bound(b, hq, hkv, s, d, causal, window, dtype, card,
+                   softcap=0.0) -> dict:
+    """The forward's bound on the route it takes: bfloat16 products at the
+    tensor cores' bfloat16 rate, float32 ones as three TF32 products (the
+    FFMA bound beside it as ``bound_ms_ffma``); with the MUFU term."""
+    import torch
+    flops, nbytes, mufu = attn_work(b, hq, hkv, s, d, causal, window,
+                                    dtype.itemsize, softcap)
+    if dtype == torch.bfloat16:
+        bd = bound(flops, nbytes, card.bf16_tensor_flops, card, mufu)
+        bd["bound_terms"] = (f"{flops / 1e9:.1f} GFLOP at "
+                             f"{card.bf16_tensor_flops / 1e12:.0f} TFLOP/s")
+    else:
+        bd = bound(3 * flops, nbytes, card.tf32_tensor_flops, card, mufu)
+        bd["bound_ms_ffma"] = bound(flops, nbytes, card.fp32_flops,
+                                    card)["bound_ms"]
+        bd["bound_terms"] = (f"3xTF32 {3 * flops / 1e9:.1f} GFLOP at "
+                             f"{card.tf32_tensor_flops / 1e12:.0f} TFLOP/s;"
+                             f" FFMA bound {bd['bound_ms_ffma']:.3f}")
+    bd["bound_terms"] += (f"; MUFU {mufu / 1e9:.2f} G results at "
+                          f"{mufu_per_s(card) / 1e12:.2f} T/s "
+                          f"{bd['mufu_ms']:.3f} ms; bound by {bd['bound_by']}")
+    bd["flops"] = flops
+    return bd
 
 
 def ssd_work(b, l, h, p, g, n, chunk):
@@ -765,25 +830,30 @@ def transfer_shares(models, h2d, d2h) -> dict:
 
 
 # ------------------------------------------------------------ phase 6 --
-def check_attention(card) -> dict:
+def check_attention(card, sass_run) -> dict:
     """Flash attention against its plain version: the reference tests'
-    cases, then gemma2-27b's local and global layers at 8192 tokens in
-    both dtypes, each timed beside its bound."""
+    cases; every instantiated (bq, bkv, d) in both dtypes on a small shape,
+    so both routes in both of their dtypes; a config no route takes
+    refused; then gemma2-27b's local and global layers at 8192 tokens in
+    both dtypes on the routes the models take (bfloat16 also on the
+    mma.sync route), each timed beside its bound; and the SASS gate of the
+    forward's routes (check_fwd_sass)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import (attn_grid_steps,
-                                                     flash_attention,
-                                                     flash_attention_plain)
-    from repro_torch.perf.roofline import peak_flops
+    from repro_torch.kernels.flash_attention import (
+        ATTN_ROUTES, KERNEL_BLOCKS, KERNEL_HEAD_DIMS, attn_grid_steps,
+        attn_route, flash_attention, flash_attention_fwd,
+        flash_attention_plain)
 
     rng = np.random.default_rng(7)
+    gates = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
     def operands(shapes, dtype):
         return [torch.from_numpy(rng.standard_normal(sh).astype(
             np.float32)).to("cuda", dtype) for sh in shapes]
 
     for hq, hkv, sl, d, kw in ATTN_CASES:
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        for dtype, tol in gates.items():
             q, k, v = operands(((2, hq, sl, d), (2, hkv, sl, d),
                                 (2, hkv, sl, d)), dtype)
             out = flash_attention(q, k, v, bq=32, bkv=32, **kw)
@@ -798,25 +868,91 @@ def check_attention(card) -> dict:
                 raise AssertionError(f"flash_attention disagrees with its "
                                      f"plain version at {hq, hkv, sl, d, kw}"
                                      f" {dtype}")
+    # every instantiation: both routes, both dtypes, every head dim, two
+    # masks, against the plain version at the same kv block (output at the
+    # cases' elementwise gate, lse within 1e-5 (1 + |plain|)); the plain
+    # loop over every query row at once, which the blocks the kernel skips
+    # leave exact
+    counts = flash_attention.route_launches
+    worst = {}
+    for dtype, tol in gates.items():
+        for d in KERNEL_HEAD_DIMS:
+            q, k, v = operands(((2, 4, 256, d), (2, 2, 256, d),
+                                (2, 2, 256, d)), dtype)
+            for bkv in KERNEL_BLOCKS:
+                for kw in (dict(causal=True, window=96, softcap=20.0),
+                           dict(causal=False)):
+                    ref, ref_lse = flash_attention_plain(
+                        q, k, v, bkv=bkv, return_lse=True, **kw)
+                    for bq in KERNEL_BLOCKS:
+                        route = attn_route(dtype, bq, bkv, d)
+                        before = dict(counts)
+                        out, lse = flash_attention_fwd(q, k, v, bq=bq,
+                                                       bkv=bkv, **kw)
+                        torch.cuda.synchronize()
+                        took = [r for r in ATTN_ROUTES
+                                if counts[r] != before[r]]
+                        ratio = float(((out.float() - ref.float()).abs() /
+                                       (tol + tol * ref.float().abs())).max())
+                        lse_ratio = float(((lse - ref_lse).abs() / (
+                            1e-5 + 1e-5 * ref_lse.abs())).max())
+                        if took != [route] or not (ratio <= 1.0 and
+                                                   lse_ratio <= 1.0):
+                            raise AssertionError(
+                                f"flash_attention at ({bq}, {bkv}), d {d}, "
+                                f"{dtype}, {kw}: route {took} (table "
+                                f"{route}), ratio {ratio:.3f}, lse ratio "
+                                f"{lse_ratio:.3f} (bounds 1)")
+                        key = f"{route}/{str(dtype)[6:]}"
+                        worst[key] = max(worst.get(key, 0.0), ratio)
+    log(f"  every (bq, bkv, d) in {KERNEL_BLOCKS}^2 x {KERNEL_HEAD_DIMS} in "
+        f"both dtypes, (2, 4, 2, 256, d), causal with window 96 and softcap "
+        f"20 and unmasked: each on its route, within the cases' gates; "
+        f"worst max |diff| / (tol + tol |plain|) by route: " +
+        ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+    if sorted(worst) != ["mma_sync/bfloat16", "mma_sync/float32",
+                         "wgmma/bfloat16"]:
+        raise AssertionError(f"the routes checked are {sorted(worst)}")
+    # the library's route table (route_of, at the padded head dim the
+    # wrapper passes) is attn_route's, also where neither routes
+    import ctypes
+    from repro_torch.kernels import _build
+    lib_route = _build.load("flash_attention").repro_flash_attention_route
+    lib_route.argtypes = [ctypes.c_int] * 4
+    names = {0: None, 1: "wgmma", 2: "mma_sync"}
+    blocks = (8,) + KERNEL_BLOCKS + (256,)
+    differ = [(str(dtype)[6:], bq, bkv, d)
+              for code, dtype in enumerate(gates) for bq in blocks
+              for bkv in blocks for d in KERNEL_HEAD_DIMS + (256,)
+              if names[lib_route(code, bq, bkv, d)] !=
+              attn_route(dtype, bq, bkv, d)]
+    if differ:
+        raise AssertionError(f"the library's route table differs from "
+                             f"attn_route at {differ}")
+    q, k, v = operands(((1, 2, 512, 128),) * 3, torch.bfloat16)
+    try:
+        flash_attention(q, k, v, bq=256, bkv=128)
+    except ValueError as e:
+        if "route table" not in str(e):
+            raise
+        log(f"  blocks (256, 128) refused: {str(e)[:90]}...")
+    else:
+        raise AssertionError("a config no route takes was launched")
+
     rows = []
     hq, hkv, d, cap = GEMMA["hq"], GEMMA["hkv"], GEMMA["d"], GEMMA["softcap"]
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = operands(((1, hq, GEMMA_S, d), (1, hkv, GEMMA_S, d),
                             (1, hkv, GEMMA_S, d)), dtype)
         name = str(dtype)[6:]
+        # the models' blocks, and in bfloat16 also the mma.sync route at
+        # the same kv block (so the same rounding of p)
+        blocks = [(128, 128)] + ([(32, 128)] if dtype == torch.bfloat16
+                                 else [])
         for window in GEMMA["windows"]:
             kw = dict(causal=True, window=window, softcap=cap)
-            out = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            ref = flash_attention_plain(q, k, v, bkv=128, **kw)
-            err = rel_err(out, ref)
-            max_abs = float((out.float() - ref.float()).abs().max())
             layer = "local" if window else "global"
-            if not err <= WIDE_TOL[name]:
-                raise AssertionError(
-                    f"flash_attention disagrees with its plain version on "
-                    f"gemma2-27b's {layer} layer ({name}): normwise "
-                    f"{err:.3e} above {WIDE_TOL[name]:.3e}")
+            ref = flash_attention_plain(q, k, v, bkv=128, **kw)
             fault = None
             if dtype == torch.bfloat16:
                 # the plain loop on the same values in float32 leaves p
@@ -832,30 +968,44 @@ def check_attention(card) -> dict:
                         f"the bfloat16 bound {WIDE_TOL[name]:.3e} would "
                         f"pass a version that leaves p unrounded "
                         f"({fault:.3e})")
-            del out, ref
-            ms = event_ms(lambda: flash_attention(q, k, v, **kw), 3)
             plain_ms = event_ms(lambda: flash_attention_plain(
                 q, k, v, bkv=128, **kw), 3)
-            flops, nbytes = attn_work(1, hq, hkv, GEMMA_S, d, True, window,
-                                      q.element_size())
-            bd = bound(flops, nbytes, peak_flops(card, dtype), card)
-            visits = attn_grid_steps(1, hq, GEMMA_S, GEMMA_S, 128, 128,
-                                     causal=True, window=window)
-            log(f"  gemma2-27b {layer} layer (window {window}), s={GEMMA_S},"
-                f" {name}, blocks (128, 128), visits {visits} of "
-                f"{hq * (GEMMA_S // 128) ** 2} kv blocks: normwise {err:.3e} "
-                f"(bound {WIDE_TOL[name]:.3e}), max_abs_err {max_abs:.3e}; "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
-                f"{flops / 1e9:.1f} GFLOP at "
-                f"{peak_flops(card, dtype) / 1e12:.0f} TFLOP/s)")
-            rows.append({"layer": layer, "window": window, "dtype": name,
-                         "s": GEMMA_S, "visited_blocks": visits,
-                         "normwise": err, "max_abs_err": max_abs,
-                         "unrounded_p_normwise": fault, "kernel_ms": ms,
-                         "plain_ms": plain_ms, **bd})
+            bd = attn_fwd_bound(1, hq, hkv, GEMMA_S, d, True, window, dtype,
+                                card, softcap=cap)
+            for bq, bkv in blocks:
+                route = attn_route(dtype, bq, bkv, d)
+                out = flash_attention(q, k, v, bq=bq, bkv=bkv, **kw)
+                torch.cuda.synchronize()
+                err = rel_err(out, ref)
+                max_abs = float((out.float() - ref.float()).abs().max())
+                if not err <= WIDE_TOL[name]:
+                    raise AssertionError(
+                        f"flash_attention ({route}) disagrees with its "
+                        f"plain version on gemma2-27b's {layer} layer "
+                        f"({name}): normwise {err:.3e} above "
+                        f"{WIDE_TOL[name]:.3e}")
+                del out
+                ms = event_ms(lambda: flash_attention(q, k, v, bq=bq,
+                                                      bkv=bkv, **kw), 3)
+                visits = attn_grid_steps(1, hq, GEMMA_S, GEMMA_S, bq, bkv,
+                                         causal=True, window=window)
+                log(f"  gemma2-27b {layer} layer (window {window}), "
+                    f"s={GEMMA_S}, {name}, blocks ({bq}, {bkv}) on the "
+                    f"{route} route, visits {visits} kv blocks: normwise "
+                    f"{err:.3e} (bound {WIDE_TOL[name]:.3e}), max_abs_err "
+                    f"{max_abs:.3e}; kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+                    f"({bd['bound_terms']})")
+                rows.append({"layer": layer, "window": window, "dtype": name,
+                             "s": GEMMA_S, "blocks": [bq, bkv],
+                             "route": route, "visited_blocks": visits,
+                             "normwise": err, "max_abs_err": max_abs,
+                             "unrounded_p_normwise": fault, "kernel_ms": ms,
+                             "plain_ms": plain_ms, **bd})
+            del ref
         del q, k, v
-    return {"gemma2_27b": rows}
+    return {"gemma2_27b": rows, "routes_worst_ratio": worst,
+            "fwd_sass": check_fwd_sass(sass_run)}
 
 
 def ssd_inputs(problem, rng, model_like: bool):
@@ -1072,10 +1222,12 @@ def ssd_path(session) -> dict:
 def finish_attention(tuned: dict, card) -> dict:
     """Phase 7's checks and the attention row of the kernels line: every
     legal block at (1, 32, 4096, 4096, 128) causal float32, then the
-    selected one beside its plain version and PyTorch's SDPA (TF32 off)."""
+    selected one beside its plain version and PyTorch's SDPA (TF32 off);
+    then every legal block in bfloat16 (:func:`bf16_blocks`)."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import (attn_grid_steps,
+                                                     attn_route,
                                                      flash_attention,
                                                      flash_attention_plain)
     b, h, sq, skv, d = ATTN_PROBLEM
@@ -1107,22 +1259,80 @@ def finish_attention(tuned: dict, card) -> dict:
     library_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True), TIME_REPS)
     lib_err = rel_err(sdpa(q, k, v, is_causal=True),
                       flash_attention_plain(q, k, v, bkv=bkv))
-    flops, nbytes = attn_work(b, h, h, sq, d, True, 0, 4)
-    bd = bound(flops, nbytes, card.fp32_flops, card)
+    bd = attn_fwd_bound(b, h, h, sq, d, True, 0, torch.float32, card)
     steps = attn_grid_steps(b, h, sq, skv, bq, bkv)
     grid = b * h * (sq // bq) * (skv // bkv)
     log(f"  attention {ATTN_PROBLEM} causal f32 at the selected "
-        f"({bq}, {bkv}), visiting {steps} of {grid} kv blocks (normwise "
+        f"({bq}, {bkv}) on the {attn_route(torch.float32, bq, bkv, d)} "
+        f"route, visiting {steps} of {grid} kv blocks (normwise "
         f"{skip_err:.1e} from the plain loop over them): kernel_ms "
         f"{kernel_ms:.3f}, plain_ms {plain_ms:.3f}, "
         f"library_ms {library_ms:.3f} (SDPA, normwise {lib_err:.1e} from "
         f"the plain version), bound_ms {bd['bound_ms']:.3f} "
-        f"({bd['bound_by']}); {flops / kernel_ms / 1e9:.1f} TFLOP/s on the "
-        f"kept pairs")
+        f"({bd['bound_terms']}); {bd['flops'] / kernel_ms / 1e9:.1f} "
+        f"TFLOP/s on the kept pairs")
     res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                library_normwise=lib_err, visited_blocks=steps,
-               skip_normwise=skip_err, **bd)
+               skip_normwise=skip_err,
+               route=attn_route(torch.float32, bq, bkv, d), **bd)
+    res["bfloat16_blocks"] = bf16_blocks(q, k, v, card)
     return res
+
+
+def bf16_blocks(q, k, v, card) -> dict:
+    """Phase 7 in bfloat16: every legal (bq, bkv) at ATTN_PROBLEM causal,
+    held against the plain version at its bkv (WIDE_TOL normwise), then
+    timed three times each and ranked by the median; the block attn_blocks
+    picks, its rank, and whether another is faster by more than the run's
+    spread (the largest max - min over the blocks)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attn_route,
+                                                     attn_tile_legal,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models.attention import attn_blocks
+    b, h, sq, skv, d = ATTN_PROBLEM
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    times, errs = {}, {}
+    for bkv in ATTN_BLOCKS:
+        ref = flash_attention_plain(qb, kb, vb, bkv=bkv)
+        for bq in ATTN_BLOCKS:
+            if attn_tile_legal(sq, skv, bq, bkv, d, limit, torch.bfloat16):
+                errs[(bq, bkv)] = rel_err(flash_attention(
+                    qb, kb, vb, bq=bq, bkv=bkv), ref)
+        del ref
+    bad = {c: e for c, e in errs.items() if not e <= WIDE_TOL["bfloat16"]}
+    if bad:
+        raise AssertionError(f"bfloat16 attention at {ATTN_PROBLEM} causal "
+                             f"disagrees with its plain version at blocks "
+                             f"{bad} (normwise, bound "
+                             f"{WIDE_TOL['bfloat16']:.3e})")
+    for bq, bkv in errs:
+        times[(bq, bkv)] = [event_ms(lambda: flash_attention(
+            qb, kb, vb, bq=bq, bkv=bkv), 5) for _ in range(3)]
+    med = {c: sorted(t)[1] for c, t in times.items()}
+    order = sorted(med, key=med.get)
+    spread = max(max(t) - min(t) for t in times.values())
+    pick = (attn_blocks(sq), attn_blocks(skv))
+    rank = order.index(pick) + 1
+    beaten = med[pick] - med[order[0]] > spread
+    bd = attn_fwd_bound(b, h, h, sq, d, True, 0, torch.bfloat16, card)
+    log(f"  attention {ATTN_PROBLEM} causal bfloat16, every legal block "
+        f"within {WIDE_TOL['bfloat16']:.3e} of the plain version (worst "
+        f"{max(errs.values()):.3e} at {max(errs, key=errs.get)}), median of "
+        f"three (ms): " + ", ".join(
+            f"{c} {attn_route(torch.bfloat16, *c, d)} {med[c]:.3f}"
+            for c in order))
+    log(f"  attn_blocks picks {pick} ({med[pick]:.3f} ms): rank {rank} of "
+        f"{len(order)}; fastest {order[0]} ({med[order[0]]:.3f} ms); spread "
+        f"{spread:.3f} ms; another block faster by more than the spread: "
+        f"{beaten}; bound {bd['bound_ms']:.3f} ms ({bd['bound_terms']})")
+    return {"times_ms": {f"{c[0]}x{c[1]}": t for c, t in times.items()},
+            "median_ms": {f"{c[0]}x{c[1]}": m for c, m in med.items()},
+            "normwise": {f"{c[0]}x{c[1]}": e for c, e in errs.items()},
+            "pick": list(pick), "pick_rank": rank, "fastest": list(order[0]),
+            "spread_ms": spread, "pick_beaten": beaten, **bd}
 
 
 def finish_ssd(tuned: dict, card) -> dict:
@@ -1817,7 +2027,7 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "attn_bwd" in low:
         return "flash_attention_bwd"
-    if "attn_kernel" in low:
+    if "attn_sync_kernel" in low or "attn_wgmma_kernel" in low:
         return "flash_attention"
     if "ssd_bwd" in low:
         return "ssd_bwd"
@@ -2571,23 +2781,95 @@ def start_sass(lib) -> tuple:
     return proc, out
 
 
-def hmma_counts(sass_run) -> dict:
-    """Tensor-core instructions (HMMA) in each kernel of the library whose
-    SASS ``sass_run`` (:func:`start_sass`) writes: {mangled name: count}."""
+_SASS = {}
+
+
+def sass_functions(sass_run) -> dict:
+    """{mangled name: SASS text} of each kernel in the library whose SASS
+    ``sass_run`` (:func:`start_sass`) writes, read and split once."""
     import re
     proc, out = sass_run
-    if proc.wait(timeout=300):
-        raise AssertionError(f"cuobjdump -sass exited {proc.returncode}")
-    sass = out.read_text()
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
-    return counts
+    if out not in _SASS:
+        if proc.wait(timeout=300):
+            raise AssertionError(f"cuobjdump -sass exited {proc.returncode}")
+        parts = re.split(r"Function : (\S+)", out.read_text())
+        _SASS[out] = dict(zip(parts[1::2], parts[2::2]))
+    return _SASS[out]
+
+
+def hmma_counts(sass_run, op: str = "HMMA") -> dict:
+    """Instructions whose opcode starts with ``op`` (tensor-core HMMA by
+    default) in each kernel of the library whose SASS ``sass_run``
+    (:func:`start_sass`) writes: {mangled name: count}."""
+    import re
+    pattern = re.compile(r"\b" + re.escape(op))
+    return {name: len(pattern.findall(body))
+            for name, body in sass_functions(sass_run).items()}
+
+
+def sass_registers(sass_run, kernel: str) -> dict:
+    """One more than the highest general register (``R<n>``) that the SASS
+    of each kernel whose mangled name holds ``kernel`` names, in the
+    library whose SASS ``sass_run`` (:func:`start_sass`) writes:
+    {mangled name: registers}.  A kernel names registers past its launch
+    allocation only after ``setmaxnreg.inc``."""
+    import re
+    return {name: 1 + max(map(int, re.findall(r"\bR(\d+)\b", body)),
+                          default=-1)
+            for name, body in sass_functions(sass_run).items()
+            if kernel in name}
+
+
+#: the forward's instantiations the SASS gate reads: the wgmma route's at
+#: the models' (bq, bkv, D), bfloat16; the mma.sync route's at float32's
+#: (128, 128, 128) and at the serving heads' smallest bfloat16 blocks
+WGMMA_MAIN_KEY = (128, 128, 128)
+SYNC_MAIN_KEYS = {"float32": (128, 128, 128), "bfloat16": (16, 16, 128)}
+
+
+def check_fwd_sass(sass_run) -> dict:
+    """The forward's SASS gate: HGMMA in the wgmma route's instantiation
+    at WGMMA_MAIN_KEY, HMMA in the mma.sync route's at SYNC_MAIN_KEYS in
+    both dtypes (``sass_run`` from :func:`start_sass` on the forward's
+    library); and the special-function (MUFU) instructions of the wgmma
+    kernel, per logit a consumer thread computes in a kv block."""
+    def one(counts, kernel, tag, key):
+        mangled = "".join(f"Li{c}E" for c in key)
+        names = [n for n in counts if kernel in n and f"{tag}{mangled}" in n]
+        if len(names) != 1:
+            raise AssertionError(f"no single SASS function for {kernel} "
+                                 f"{tag} {key}: {names}")
+        return counts[names[0]]
+
+    hgmma, hmma = hmma_counts(sass_run, "HGMMA"), hmma_counts(sass_run)
+    found = {"wgmma/bfloat16": one(hgmma, "attn_wgmma_kernel", "I",
+                                   WGMMA_MAIN_KEY)}
+    for dtype, tag in (("float32", "If"),
+                       ("bfloat16", "I13__nv_bfloat16")):
+        found[f"mma_sync/{dtype}"] = one(hmma, "attn_sync_kernel", tag,
+                                         SYNC_MAIN_KEYS[dtype])
+    if not all(found.values()):
+        raise AssertionError(f"the forward's SASS lacks tensor-core "
+                             f"instructions: {found}")
+    mufu = {op: one(hmma_counts(sass_run, op), "attn_wgmma_kernel", "I",
+                    WGMMA_MAIN_KEY)
+            for op in ("MUFU.EX2", "MUFU.RCP", "MUFU.TANH", "MUFU.LG2",
+                       "MUFU")}
+    logits = WGMMA_MAIN_KEY[1] * 64 // 128   # a consumer thread, a kv block
+    per_logit = mufu["MUFU"] / logits
+    regs = one(sass_registers(sass_run, "attn_wgmma_kernel"),
+               "attn_wgmma_kernel", "I", WGMMA_MAIN_KEY)
+    log(f"  forward SASS: HGMMA in the wgmma route at {WGMMA_MAIN_KEY} "
+        f"{found['wgmma/bfloat16']}, HMMA in the mma.sync route at "
+        f"{SYNC_MAIN_KEYS}: float32 {found['mma_sync/float32']}, bfloat16 "
+        f"{found['mma_sync/bfloat16']} (cuobjdump -sass); MUFU in the wgmma "
+        f"kernel {mufu}, {per_logit:.2f} per logit of a kv block "
+        f"({logits} a consumer thread; the softcap path's ex2 and rcp "
+        f"included, FWD_MUFU counts {FWD_MUFU}); its SASS names registers "
+        f"R0-R{regs - 1} (past the launch's allocation only after "
+        f"setmaxnreg.inc)")
+    return {**found, "mufu": mufu, "mufu_per_logit": per_logit,
+            "wgmma_sass_registers": regs}
 
 
 #: the backward's instantiations gemma2-27b's layers run: (warps of 16
@@ -2632,9 +2914,9 @@ def check_attention_bwd(card, sass_run) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import (
-        BWD_BLOCKS, KERNEL_HEAD_DIMS, attn_bwd_blocks, flash_attention,
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_plain)
+        BWD_BLOCKS, KERNEL_HEAD_DIMS, attn_bwd_blocks, attn_route,
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd, flash_attention_plain)
 
     rng = np.random.default_rng(19)
 
@@ -2789,17 +3071,40 @@ def check_attention_bwd(card, sass_run) -> dict:
                        "library_ms": library_ms, "library_normwise": lib_err,
                        "blk": blk, **bd}
         if dtype == torch.bfloat16:
+            # the forward on the wgmma route, the models' blocks
+            route = attn_route(dtype, 128, 128, d)
+            fwd_out = flash_attention(q, k, v)
+            fwd_ref = flash_attention_plain(q, k, v, bkv=128)
+            fwd_err = float((fwd_out.float() - fwd_ref.float()).abs().max())
+            fwd_normwise = rel_err(fwd_out, fwd_ref)
+            del fwd_out, fwd_ref
+            if not fwd_normwise <= WIDE_TOL[name]:
+                raise AssertionError(
+                    f"the bfloat16 forward at {ATTN_PROBLEM} causal, blocks "
+                    f"(128, 128), disagrees with its plain version: "
+                    f"normwise {fwd_normwise:.3e} (bound "
+                    f"{WIDE_TOL[name]:.3e})")
             fwd_ms = event_ms(lambda: flash_attention(q, k, v), TIME_REPS)
+            fwd_plain_ms = event_ms(lambda: flash_attention_plain(
+                q, k, v, bq=128, bkv=128), 3)
             sdpa_fwd_ms = event_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=True), TIME_REPS)
-            timed["forward_bfloat16"] = {"kernel_ms": fwd_ms,
-                                         "library_ms": sdpa_fwd_ms,
-                                         "blocks": [128, 128]}
+            fbd = attn_fwd_bound(b, h, h, s, d, True, 0, dtype, card)
+            timed["forward_bfloat16"] = {
+                "kernel_ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                "library_ms": sdpa_fwd_ms, "err": fwd_err,
+                "normwise": fwd_normwise,
+                "blocks": [128, 128], "route": route, **fbd}
             log(f"  attention forward {ATTN_PROBLEM} causal bfloat16, blocks"
-                f" (128, 128): kernel_ms {fwd_ms:.3f}, library_ms "
+                f" (128, 128) on the {route} route: normwise "
+                f"{fwd_normwise:.3e} (bound {WIDE_TOL[name]:.3e}), max_abs_err "
+                f"{fwd_err:.3e}; kernel_ms {fwd_ms:.3f}, plain_ms "
+                f"{fwd_plain_ms:.3f}, library_ms "
                 f"{sdpa_fwd_ms:.3f} (scaled_dot_product_attention, "
-                f"is_causal=True)")
+                f"is_causal=True), bound_ms {fbd['bound_ms']:.3f} "
+                f"({fbd['bound_terms']}); {fbd['flops'] / fwd_ms / 1e9:.1f} "
+                f"TFLOP/s on the kept pairs")
         del q, k, v, do, o, lse, leaves, sdpa_out
     sass = check_bwd_sass(sass_run)
     return {"small": small, "gemma2_27b": wide, **timed["float32"],
@@ -4137,7 +4442,6 @@ def check_padded_attention(card) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
                                                      padded_head_dim)
-    from repro_torch.perf.roofline import peak_flops
     rng = np.random.default_rng(21)
     rows = []
     for arch, hq, hkv, d, own_causal in PAD_ATTN:
@@ -4174,25 +4478,23 @@ def check_padded_attention(card) -> dict:
                         .scaled_dot_product_attention(qs, ks, vs,
                                                       is_causal=causal),
                         TIME_REPS)
-                    flops, nbytes = attn_work(1, hq, hkv, PAD_S, d, causal,
-                                              0, q.element_size())
-                    row.update(bound(flops, nbytes, peak_flops(card, dtype),
-                                     card))
+                    row.update(attn_fwd_bound(1, hq, hkv, PAD_S, d, causal,
+                                              0, dtype, card))
                     row["padded_work"] = padded_head_dim(d) / d
                     log(f"  {arch} attention (1, {hq}, {PAD_S}, {PAD_S}, {d})"
                         f" {'causal' if causal else 'non-causal'} {name}, "
                         f"padded to {padded_head_dim(d)}: normwise "
-                        f"{err:.3e} (bound {WIDE_TOL[name]:.0e}); kernel "
+                        f"{err:.3e} (bound {WIDE_TOL[name]:.3e}); kernel "
                         f"{row['kernel_ms']:.3f} ms, plain "
                         f"{row['plain_ms']:.3f} ms, SDPA at D {d} "
                         f"{row['library_ms']:.3f} ms, bound at the true D "
-                        f"{row['bound_ms']:.3f} ms ({row['bound_by']}); the "
-                        f"padded route does {row['padded_work']:.2f}x the "
-                        f"needed work")
+                        f"{row['bound_ms']:.3f} ms "
+                        f"({row['bound_terms']}); the padded route does "
+                        f"{row['padded_work']:.2f}x the needed work")
                 else:
                     log(f"  {arch} attention at D {d}, "
                         f"{'causal' if causal else 'non-causal'} {name}: "
-                        f"normwise {err:.3e} (bound {WIDE_TOL[name]:.0e})")
+                        f"normwise {err:.3e} (bound {WIDE_TOL[name]:.3e})")
                 rows.append(row)
             del q, k, v
     return {"padded_head_dims": rows}
@@ -4314,9 +4616,11 @@ def main() -> int:
         log(f"    ptxas {name}: {len(rows)} instantiations, registers "
             f"{min(r[0] for r in rows)}-{max(r[0] for r in rows)}, "
             f"{sum(1 for r in rows if r[1])} spill")
-    # the backward libraries' SASS for phases 14a and 15a, dumped meanwhile
+    # the attention libraries' SASS for phases 6 and 14a and the SSD
+    # backward's for 15a, dumped meanwhile
     sass_runs = {name: start_sass(libs[name])
-                 for name in ("flash_attention_bwd", "ssd_bwd")}
+                 for name in ("flash_attention", "flash_attention_bwd",
+                              "ssd_bwd")}
     the_card = card_of(dev)
     phase_s = {}
 
@@ -4336,6 +4640,9 @@ def main() -> int:
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd}
     launches = {name: {} for name in wrappers}
+    # the attention forward's launches per route and path
+    routes = flash_attention.route_launches
+    route_launches = {}
 
     def counted(path, label, fn, *args):
         """Run ``fn`` as phase ``label`` with every count set to 0 just
@@ -4343,9 +4650,14 @@ def main() -> int:
         train path is 14c and 15c)."""
         for w in wrappers.values():
             w.launches = 0
+        for r in routes:
+            routes[r] = 0
         out = phase(label, fn, *args)
         for name, w in wrappers.items():
             launches[name][path] = launches[name].get(path, 0) + w.launches
+        into = route_launches.setdefault(path, dict.fromkeys(routes, 0))
+        for r, n in routes.items():
+            into[r] += n
         return out
 
     log(f"[3] paper path: potrf at n={N}, b in {BLOCK_SIZES}")
@@ -4377,7 +4689,8 @@ def main() -> int:
 
     log("[6] kernel check (CUDA flash attention and SSD vs their plain "
         "versions)")
-    wide = phase("6 attention", check_attention, the_card)
+    wide = phase("6 attention", check_attention, the_card,
+                 sass_runs["flash_attention"])
     wide.update(phase("6 padded", check_padded_attention, the_card))
     wide.update(phase("6 ssd", check_ssd, the_card))
 
@@ -4521,11 +4834,22 @@ def main() -> int:
             r = regs[name][what] = dict(zip(
                 ("registers", "spill_store_bytes", "spill_load_bytes"),
                 ptxas[key]))
-            log(f"  {name} at its selected config: {key[0]}<{key[2]}> uses "
+            log(f"  {name} ({what}) at its selected config: "
+                f"{key[0]}<{key[2]}> ({key[1]}) uses "
                 f"{r['registers']} registers, spills "
                 f"{r['spill_store_bytes']} B stored / "
                 f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
+    log(f"  the attention forward's launches per route and path: "
+        f"{route_launches}")
+    # every attention call of gemma2-27b's prefill (12) and of the train
+    # steps (14c, 16c, 17a) takes the wgmma route
+    for path in ("models", "train", "train_moe", "train_sharded"):
+        got = route_launches[path]
+        if got["mma_sync"] or got["wgmma"] != \
+                launches["flash_attention"][path]:
+            raise AssertionError(f"attention on path {path} did not all "
+                                 f"take the wgmma route: {got}")
     for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
                        ("ssd", "ssd_chunks"), ("matmul", "store"),
                        ("flash_attention", "store"), ("ssd", "store"),
@@ -4551,7 +4875,9 @@ def main() -> int:
                 "launches_by_path": launches[name],
                 "max_abs_err": res["err"], "ms": res["kernel_ms"],
                 "kernel_ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
-                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "bound_ms": res["bound_ms"],
+                "bound_by": "bytes" if res["bound_by"] == "bytes"
+                else "operations",
                 "library_ms": res["library_ms"], **registers, **extra}
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -4623,12 +4949,33 @@ def main() -> int:
               config=[bm, bn, bk]),
         entry("flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:37 (_attn_kernel)",
-              attn, regs["flash_attention"]["attention"],
+              attn, regs["flash_attention"]["mma_sync"],
               library="torch.nn.functional.scaled_dot_product_attention"
               " (is_causal=True, float32, TF32 off)",
               shape=list(ATTN_PROBLEM), dtype="float32",
               config=list(attn["choice"]),
+              route_detail="two routes by an explicit table: wgmma "
+              "(bfloat16 at bq, bkv in {64, 128}, D in {64, 128}; TMA from a "
+              "producer warp, m64nNk16, O in the tensor core) and mma.sync "
+              "(the rest; bfloat16 m16n8k16, float32 3xTF32, short chains); "
+              "this row is float32 on mma.sync, 'bfloat16' the wgmma route",
+              routes={"mma_sync": {
+                  "dtype": "float32", "config": list(attn["choice"]),
+                  "kernel_ms": attn["kernel_ms"],
+                  "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
+                  "registers": regs["flash_attention"]["mma_sync"]},
+                  "wgmma": {
+                      "dtype": "bfloat16", "config": list(WGMMA_MAIN_KEY),
+                      "kernel_ms": attn_bwd["forward_bfloat16"]["kernel_ms"],
+                      "bound_ms": attn_bwd["forward_bfloat16"]["bound_ms"],
+                      "bound_by": attn_bwd["forward_bfloat16"]["bound_by"],
+                      "registers": regs["flash_attention"]["wgmma"]}},
+              launches_by_route=route_launches,
+              bound_ms_ffma=attn["bound_ms_ffma"],
+              bound_terms=attn["bound_terms"],
+              fwd_sass=wide["fwd_sass"],
               bfloat16=attn_bwd["forward_bfloat16"],
+              bfloat16_blocks=attn["bfloat16_blocks"],
               head_dim_96=[r for r in wide["padded_head_dims"]
                            if r["d"] == 96 and "kernel_ms" in r],
               **in_prefill("flash_attention"),

@@ -3,8 +3,9 @@
 * ``matmul`` — tiled FP32-FFMA matmul (the dgemm analogue; tunable tiles),
   replacing ``repro/kernels/matmul.py::_matmul_kernel``
 * ``flash_attention`` — online-softmax attention (GQA, causal, sliding
-  window, softcap), replacing ``repro/kernels/flash_attention.py::
-  _attn_kernel``, and its gradient ``flash_attention_bwd`` (three kernels:
+  window, softcap) on the tensor cores by two routes (``wgmma`` for the
+  models' bfloat16 blocks, ``mma.sync`` for the rest), replacing
+  ``repro/kernels/flash_attention.py::_attn_kernel``, and its gradient ``flash_attention_bwd`` (three kernels:
   delta, dK/dV, dQ; the reference has no backward kernel)
 * ``ssd`` — the Mamba-2 chunked SSD scan, replacing
   ``repro/kernels/ssd.py::_ssd_kernel``, and its gradient ``ssd_bwd``

@@ -1,14 +1,20 @@
 """Flash attention: the hand-written Hopper kernel and its plain version.
 
 The counterpart of ``repro/kernels/flash_attention.py``.  The kernel is
-``csrc/flash_attention.cu`` (FP32 FFMA; one thread block per (batch, query
-head, query block) looping over the kv blocks that hold a kept (query,
-key) pair, with the online-softmax state in registers, 16-byte vector
-loads from shared memory and cp.async copies of k and v that overlap the
-FFMAs; its note says what bounds it and why it is built so).  One kernel
-covers every flavour the reference covers: GQA by index (kv head
-``h // (Hq / Hkv)``, nothing repeated), causal and sliding-window masks
-with the finite ``-1e30`` sentinel, and gemma2's logit softcap.
+``csrc/flash_attention.cu``, on the tensor cores: one thread block per
+(batch, query head, query block) loops over the kv blocks that hold a kept
+(query, key) pair, with the online-softmax state in registers; its note
+says what bounds it (the tensor cores, and the special-function unit for
+exp and softcap's tanh) and why it is built so.  It has two routes, chosen
+by an explicit table (:func:`attn_route`), neither a fall back for the
+other: ``"wgmma"`` for bfloat16 at bq, bkv in :data:`WGMMA_BLOCKS` and a
+head dim in :data:`WGMMA_HEAD_DIMS` (TMA copies from a producer warp,
+warpgroup products, the models' blocks), ``"mma_sync"`` for every other
+legal config (a warp a 16 query rows, bfloat16 as m16n8k16, float32 as
+three TF32 products with short accumulation chains).  Both cover every
+flavour the reference covers: GQA by index (kv head ``h // (Hq / Hkv)``,
+nothing repeated), causal and sliding-window masks with the finite
+``-1e30`` sentinel, and gemma2's logit softcap.
 
 :func:`flash_attention` dispatches on where its operands lie: CUDA tensors
 launch the kernel (or raise); CPU tensors take
@@ -64,15 +70,27 @@ from torch.utils.flop_counter import register_flop_formula
 from . import _build
 from ._card import H100_SMEM_OPTIN, PROXY_BLOCKS, card_smem, plain_route
 
-#: block sizes the kernel is instantiated for: bq and bkv (16 x 16 threads,
-#: each owning bq/16 rows and bkv/16 logit columns) and the head dim D
-#: (each thread owns D/16 accumulator columns)
+#: block sizes the kernel is instantiated for: bq and bkv (a warp a 16
+#: query rows on the mma.sync route, a warpgroup a 64 on the wgmma route)
+#: and the head dim D
 KERNEL_BLOCKS: Tuple[int, ...] = (16, 32, 64, 128)
 KERNEL_HEAD_DIMS: Tuple[int, ...] = (16, 32, 64, 128)
+#: the wgmma route's blocks and head dims, bfloat16 only
+WGMMA_BLOCKS: Tuple[int, ...] = (64, 128)
+WGMMA_HEAD_DIMS: Tuple[int, ...] = (64, 128)
+#: the forward's routes, in the order of the table
+ATTN_ROUTES: Tuple[str, ...] = ("wgmma", "mma_sync")
+#: stages of the kernel's K and V ring (both routes)
+KV_STAGES = 2
+#: kv rows a float32 stage of the mma.sync route holds (one online-softmax
+#: step); a bfloat16 stage holds the whole kv block
+F32_STAGE_ROWS = 32
+#: the wgmma route's staging beyond its tiles: 1024 bytes to align them to
+#: the 128-byte swizzle's period, and its mbarriers (8 bytes each: one for
+#: q, four a stage)
+WGMMA_SMEM_EXTRA = 1024 + 8 * (1 + 4 * KV_STAGES)
 #: the reference kernel's finite mask sentinel
 NEG_INF = -1e30
-#: widest column chunk of the probability tile the kernel stages at once
-PROB_CHUNK = 64
 #: the backward's blocks (bq = bkv): 16 rows a warp, two warps a row group;
 #: its dK and dV accumulators would not fit in registers at the forward's 128
 BWD_BLOCKS: Tuple[int, ...] = (32, 64)
@@ -123,32 +141,65 @@ def padded_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                           for g in grads)
 
 
-def attn_smem_bytes(bq: int, bkv: int, d: int) -> int:
-    """Shared memory one block stages, in float32 (bfloat16 operands
-    stage half as much for q, k and v): one q tile (bq x d), one k tile
-    and one v tile (bkv x d each; the next block's k and v land in them
-    while the other product runs), and the probability tile in column
-    chunks of at most :data:`PROB_CHUNK`, at the padded head dim
-    (:func:`padded_head_dim`).  bq = bkv = d = 128 takes 229,376 bytes,
-    within the H100's opt-in limit."""
+def attn_route(dtype: torch.dtype, bq: int, bkv: int,
+               d: int) -> Optional[str]:
+    """The forward kernel's route for ``dtype`` operands at blocks
+    ``(bq, bkv)`` and head dim ``d`` (reckoned at :func:`padded_head_dim`):
+    ``"wgmma"`` for bfloat16 at bq and bkv in :data:`WGMMA_BLOCKS` and a
+    padded head dim in :data:`WGMMA_HEAD_DIMS`, ``"mma_sync"`` for every
+    other instantiated config, None where nothing is instantiated.
+    ``csrc/flash_attention.cu``'s ``route_of`` is the same table."""
+    width = padded_head_dim(d) if d > 0 else None
+    if bq not in KERNEL_BLOCKS or bkv not in KERNEL_BLOCKS or \
+            width is None or dtype not in _DTYPE_CODES:
+        return None
+    if dtype == torch.bfloat16 and bq in WGMMA_BLOCKS and \
+            bkv in WGMMA_BLOCKS and width in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma_sync"
+
+
+def attn_route_table() -> str:
+    """The route table, for the message of a config it does not route."""
+    return (f"wgmma: bfloat16, bq and bkv in {WGMMA_BLOCKS}, head dim in "
+            f"{WGMMA_HEAD_DIMS}; mma_sync: float32 or bfloat16, bq and bkv "
+            f"in {KERNEL_BLOCKS}, head dim padded to one of "
+            f"{KERNEL_HEAD_DIMS}, where wgmma does not take it")
+
+
+def attn_smem_bytes(bq: int, bkv: int, d: int,
+                    dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory one forward block stages on its route
+    (:func:`attn_route`), at the padded head dim (:func:`padded_head_dim`):
+    the q tile (bq x d) and :data:`KV_STAGES` stages of k and v.  A wgmma
+    stage holds the kv block (bkv x d each), plus
+    :data:`WGMMA_SMEM_EXTRA`; an mma.sync stage holds the kv block in
+    bfloat16 and :data:`F32_STAGE_ROWS` of its rows at most in float32.
+    float32 at bq = bkv = d = 128 takes 131,072 bytes, bfloat16 on the
+    wgmma route 164,936; every route stays within the H100's opt-in
+    limit."""
     d = padded_head_dim(d) or d
-    return 4 * ((bq + 2 * bkv) * d + bq * min(bkv, PROB_CHUNK))
+    itemsize = dtype.itemsize
+    if attn_route(dtype, bq, bkv, d) == "wgmma":
+        return itemsize * d * (bq + 2 * KV_STAGES * bkv) + WGMMA_SMEM_EXTRA
+    rows = min(bkv, F32_STAGE_ROWS) if dtype == torch.float32 else bkv
+    return itemsize * d * (bq + 2 * KV_STAGES * rows)
 
 
 def attn_tile_legal(sq: int, skv: int, bq: int, bkv: int, d: int,
-                    smem_limit: int = H100_SMEM_OPTIN) -> bool:
+                    smem_limit: int = H100_SMEM_OPTIN,
+                    dtype: torch.dtype = torch.float32) -> bool:
     """Can the kernel run sequence lengths ``(sq, skv)`` at head dim
-    ``d`` with blocks ``(bq, bkv)``?  The blocks must divide the
-    sequences, ``(bq, bkv)`` must be instantiated and ``d`` pad to an
-    instantiated head dim (any ``d`` up to 128), and the staging at the
-    padded width must fit ``smem_limit`` — the card's opt-in shared
-    memory per block."""
+    ``d`` with blocks ``(bq, bkv)`` in ``dtype``?  The blocks must divide
+    the sequences, :func:`attn_route` must route the config (bq, bkv
+    instantiated, ``d`` padding to an instantiated head dim: any ``d`` up
+    to 128), and the route's staging at the padded width must fit
+    ``smem_limit`` — the card's opt-in shared memory per block."""
     if min(sq, skv, bq, bkv, d) <= 0 or sq % bq or skv % bkv:
         return False
-    if bq not in KERNEL_BLOCKS or bkv not in KERNEL_BLOCKS or \
-            padded_head_dim(d) is None:
+    if attn_route(dtype, bq, bkv, d) is None:
         return False
-    return attn_smem_bytes(bq, bkv, d) <= smem_limit
+    return attn_smem_bytes(bq, bkv, d, dtype) <= smem_limit
 
 
 def attn_kv_range(qblk: int, bq: int, bkv: int, skv: int, causal: bool,
@@ -479,13 +530,16 @@ def _forward(q, k, v, bq: int, bkv: int, causal: bool, window: int,
                          f"{q.device}")
     limit = _card_ready((q, k, v), "flash_attention")
     sq, d, skv = q.shape[2], q.shape[3], k.shape[2]
-    if not attn_tile_legal(sq, skv, bq, bkv, d, limit):
+    route = attn_route(q.dtype, bq, bkv, d)
+    if route is None:
+        raise ValueError(
+            f"no route of the kernel takes blocks ({bq}, {bkv}) at head dim "
+            f"{d} in {q.dtype}; the route table: {attn_route_table()}")
+    if not attn_tile_legal(sq, skv, bq, bkv, d, limit, q.dtype):
         raise ValueError(
             f"blocks ({bq}, {bkv}) at head dim {d} are not legal for the "
-            f"kernel: bq, bkv must be in {KERNEL_BLOCKS}, d at most "
-            f"{max(KERNEL_HEAD_DIMS)} (run at the next of "
-            f"{KERNEL_HEAD_DIMS}), and the staging "
-            f"{attn_smem_bytes(bq, bkv, d)} B must fit {limit} B")
+            f"kernel's {route} route: the staging "
+            f"{attn_smem_bytes(bq, bkv, d, q.dtype)} B must fit {limit} B")
 
     def run(qp, kp, vp, scale):
         out = torch.empty_like(qp)
@@ -497,6 +551,7 @@ def _forward(q, k, v, bq: int, bkv: int, causal: bool, window: int,
 
     res = padded_forward(q, k, v, run)
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return res
 
 
@@ -737,7 +792,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (Sq = Skv only; on CUDA the backward kernels must take the shape, which
     is checked here); otherwise no row statistics are written and nothing
     is saved.  ``flash_attention.launches`` counts forward kernel
-    launches.
+    launches, and ``flash_attention.route_launches`` splits them by route
+    (:func:`attn_route`).
     """
     _check(q, k, v)
     sq = q.shape[2]
@@ -762,3 +818,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+#: forward kernel launches per route (:func:`attn_route`)
+flash_attention.route_launches = dict.fromkeys(ATTN_ROUTES, 0)

@@ -283,19 +283,30 @@ def test_attn_proxy_fills_the_card(bq, bkv):
 
 
 def test_attn_tile_legality_is_instantiation_and_shared_memory():
-    # one q, one k and one v tile and the probability tile in chunks of at
-    # most 64 columns: every block at every head dim fits the H100
+    # the q tile and two stages of k and v: on the mma.sync route a float32
+    # stage holds 32 kv rows at most and a bfloat16 stage the kv block; on
+    # the wgmma route (bfloat16 at the large blocks) a stage holds the kv
+    # block, plus the alignment and the barriers.  Every block at every head
+    # dim fits the H100 in both dtypes
+    bf16 = torch.bfloat16
     assert attn_smem_bytes(128, 128, 128) == \
-        4 * (3 * 128 * 128 + 128 * 64) == 229_376 <= H100_SMEM_OPTIN
-    assert attn_smem_bytes(128, 64, 128) == 4 * (2 * 128 * 128 + 128 * 64)
-    assert attn_smem_bytes(64, 32, 16) == 4 * (128 * 16 + 64 * 32)
-    assert all(attn_tile_legal(4096, 4096, bq, bkv, d)
+        4 * 128 * (128 + 4 * 32) == 131_072 <= H100_SMEM_OPTIN
+    assert attn_smem_bytes(128, 128, 128, bf16) == \
+        2 * 128 * (128 + 4 * 128) + 1024 + 8 * 9 == 164_936 <= \
+        H100_SMEM_OPTIN
+    assert attn_smem_bytes(128, 64, 128) == 4 * 128 * (128 + 4 * 32)
+    assert attn_smem_bytes(64, 32, 16) == 4 * 16 * (64 + 4 * 32)
+    assert attn_smem_bytes(32, 128, 128, bf16) == 2 * 128 * (32 + 4 * 128)
+    assert all(attn_tile_legal(4096, 4096, bq, bkv, d, dtype=dtype)
                for bq in KERNEL_BLOCKS for bkv in KERNEL_BLOCKS
-               for d in (16, 32, 64, 128))
+               for d in (16, 32, 64, 128)
+               for dtype in (torch.float32, bf16))
     assert not attn_tile_legal(4096, 4096, 128, 128, 128,
-                               smem_limit=200_000)    # over the limit
-    assert attn_tile_legal(4096, 4096, 64, 64, 128, smem_limit=200_000)
-    assert attn_tile_legal(4096, 4096, 128, 64, 128, smem_limit=200_000)
+                               smem_limit=120_000)    # over the limit
+    assert not attn_tile_legal(4096, 4096, 128, 128, 128, dtype=bf16,
+                               smem_limit=150_000)
+    assert attn_tile_legal(4096, 4096, 64, 64, 128, smem_limit=120_000)
+    assert attn_tile_legal(4096, 4096, 64, 128, 128, smem_limit=120_000)
     assert not attn_tile_legal(4096, 4096, 256, 128, 128)   # not built
     # a head dim between the instantiated ones runs padded to the next
     assert attn_tile_legal(4096, 4096, 128, 128, 96)        # at 128

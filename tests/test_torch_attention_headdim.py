@@ -30,7 +30,7 @@ from repro.models.attention import chunked_attention  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     KERNEL_HEAD_DIMS, attn_bwd_smem_bytes, attn_bwd_tile_legal,
-    attn_smem_bytes, attn_tile_legal, flash_attention_bwd_plain,
+    attn_route, attn_smem_bytes, attn_tile_legal, flash_attention_bwd_plain,
     flash_attention_plain, pad_head_dim, padded_backward, padded_forward,
     padded_head_dim)
 
@@ -82,8 +82,11 @@ def test_head_dims_pad_to_the_next_instantiated_width():
         # legality and staging are reckoned at the padded width
         assert attn_tile_legal(4096, 4096, 64, 64, d) == \
             attn_tile_legal(4096, 4096, 64, 64, padded_head_dim(d))
-        assert attn_smem_bytes(64, 64, d) == \
-            attn_smem_bytes(64, 64, padded_head_dim(d))
+        for dtype in (torch.float32, torch.bfloat16):
+            assert attn_smem_bytes(64, 64, d, dtype) == \
+                attn_smem_bytes(64, 64, padded_head_dim(d), dtype)
+            assert attn_route(dtype, 64, 64, d) == \
+                attn_route(dtype, 64, 64, padded_head_dim(d))
         assert attn_bwd_tile_legal(4096, 64, d, 2) == \
             attn_bwd_tile_legal(4096, 64, padded_head_dim(d), 2)
         assert attn_bwd_smem_bytes(64, d) == \

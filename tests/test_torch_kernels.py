@@ -192,18 +192,20 @@ def test_numpy_torch_helpers_round_trip(dtype):
 
 
 def test_every_kernel_source_ships_as_package_data():
-    """Each ``csrc/*.cu`` that ``_build`` compiles is package data, so an
-    installed port can build its kernels as a checkout does."""
+    """Each ``csrc/*.cu`` that ``_build`` compiles, and each header they
+    include, is package data, so an installed port can build its kernels
+    as a checkout does."""
     import fnmatch
     import tomllib
     from repro_torch.kernels import _build
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert {"matmul", "flash_attention", "ssd"} <= set(names)
+    names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
+    assert {"matmul.cu", "flash_attention.cu", "ssd.cu",
+            "mma_tools.cuh"} <= set(names)
     with open(ROOT / "pyproject.toml", "rb") as f:
         patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
             "repro_torch"]
     for name in names:
-        rel = f"kernels/csrc/{name}.cu"
+        rel = f"kernels/csrc/{name}"
         assert (ROOT / "src" / "repro_torch" / rel).is_file()
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
 
@@ -221,7 +223,8 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
     """chip_smoke reads each selected instantiation's registers from the
     compilers' ``-Xptxas -v`` reports by key: every key it builds must be
     found under the mangled names nvcc gives those instantiations (the
-    SSD's three passes included, one of them not a template)."""
+    attention forward's two routes and the SSD's three passes included,
+    one of them not a template)."""
     smoke = _chip_smoke()
     prefix = "_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_aa245fc2"
     names = {
@@ -229,8 +232,12 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
          "Li2ELi2ELi64EEEvPKT_S4_PS2_iiii"): (161, 0, 0),
         ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_c44b2bfd13matmul_kernelI13"
          "__nv_bfloat16Li2ELi2ELi64EEEvPKT_S4_PS2_iiii"): (150, 0, 0),
-        ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1811"
-         "attn_kernelIfLi8ELi8ELi8EEEvPKT_S4_S4_PS2_iiiiifiif"): (255, 0, 0),
+        ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_e37e835c16"
+         "attn_sync_kernelIfLi128ELi128ELi128EEEvPKT_S3_S3_PS1_PfiiiiiNS_5"
+         "LogitE"): (255, 0, 0),
+        ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_e37e835c17"
+         "attn_wgmma_kernelILi128ELi128ELi128EEEv14CUtensorMap_stS1_S1_P13"
+         "__nv_bfloat16PfiiiiiNS_5LogitE"): (168, 12, 8),
         (prefix + "22ssd_chunk_state_kernelILi64ELi128EEEvPKfS2_S2_S2_PfS3_"
          "iiii"): (80, 4, 4),
         prefix + "21ssd_state_pass_kernelEPfPKfiiii": (48, 0, 0),
@@ -255,7 +262,10 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
                                                  "state_pass", "chunk_scan"]
     found = {what: table[key] for kernel in keys.values()
              for what, key in kernel}
-    assert found == {"matmul": (161, 0, 0), "attention": (255, 0, 0),
+    assert [what for what, _ in keys["flash_attention"]] == ["mma_sync",
+                                                             "wgmma"]
+    assert found == {"matmul": (161, 0, 0), "mma_sync": (255, 0, 0),
+                     "wgmma": (168, 12, 8),
                      "chunk_state": (80, 4, 4), "state_pass": (48, 0, 0),
                      "chunk_scan": (128, 0, 0)}
     # chunk 32 selects the 32-row scan instantiation

@@ -33,13 +33,15 @@ version, and drives every path of the port on the card:
    phi3-mini-3.8b's 96, causal, at 4096 tokens, both dtypes and both
    masks, each architecture's own mask timed beside SDPA at the same head
    dim and the bound at the true one) and at mamba2-2.7b's SSD width, each
-   timed beside its bound;
+   timed beside its bound; the SSD forward's SASS gate (tensor-core
+   instructions in its chunk-state and chunk-scan kernels);
 7. the attention tile path: sweep the legal (bq, bkv, 128) blocks on their
    proxies and rank them for gemma2-27b's query heads at 4096 tokens; then
    run every legal block there, check and time it, and compare orders;
 8. the SSD chunk path: the same for the (chunk, 64, 128) configs and
-   mamba2-2.7b's 80 heads at 4096 tokens, then the selected chunk's three
-   passes (chunk state, state pass, chunk scan) timed one by one;
+   mamba2-2.7b's 80 heads at 4096 tokens, then the three passes (chunk
+   state, state pass, chunk scan) timed one by one at the selected chunk
+   and at the model's 256;
 9. the contraction path (Ch. 6) through one ``backend="torch"`` session
    whose warm/cold classes are decided against the card's L2: the skewed
    ``abc=ai,ibc`` at a = b = c = 512, i = 8; the batched ``bij,bjk->bik``
@@ -541,14 +543,16 @@ def attn_fwd_bound(b, hq, hkv, s, d, causal, window, dtype, card,
 
 
 def ssd_work(b, l, h, p, g, n, chunk):
-    """(flops, bytes) the SSD scan needs, per head and chunk: C B^T and
-    G X over the Q (Q + 1) / 2 pairs i >= j that causality keeps (2 N and
-    2 P flops a pair; the upper triangle is zero, so, as in attn_work,
-    only kept pairs count), C h^T and X^T (B w) (2 Q P N each); x, dt,
-    a_log, b, c read once and y written once."""
+    """(flops, bytes) the SSD scan needs: per head and chunk G X over the Q
+    (Q + 1) / 2 pairs i >= j that causality keeps (2 P flops a pair; the
+    upper triangle is zero, so, as in attn_work, only kept pairs count), C
+    h^T and X^T (B w) (2 Q P N each); and C B^T over the kept pairs (2 N a
+    pair) once a (batch, group, chunk), since C and B belong to the group;
+    x, dt, a_log, b, c read once and y written once."""
+    nc = l // chunk
     pairs = chunk * (chunk + 1) // 2
-    per_chunk = 2.0 * pairs * (n + p) + 4.0 * chunk * p * n
-    flops = per_chunk * b * h * (l // chunk)
+    per_head = 2.0 * pairs * p + 4.0 * chunk * p * n
+    flops = b * nc * (h * per_head + g * 2.0 * pairs * n)
     nbytes = 4.0 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n)
     return flops, nbytes
 
@@ -1028,10 +1032,43 @@ def ssd_inputs(problem, rng, model_like: bool):
     return [torch.from_numpy(a).to("cuda") for a in (x, dt, a_log, bb, cc)]
 
 
-def check_ssd(card) -> dict:
+#: the SSD forward's instantiations its SASS gate reads: mamba2-2.7b's
+#: (P, N) for the chunk state and (P, N, R) for the chunk scan
+SSD_MAIN_KEY = (64, 128, 64)
+
+
+def check_ssd_sass(sass_run) -> dict:
+    """The SASS gate of the SSD forward (``sass_run`` from
+    :func:`start_sass` on its library): the chunk-state and chunk-scan
+    kernels at SSD_MAIN_KEY hold tensor-core instructions and fewer than
+    two FFMA an HMMA.  The same products on FFMA would take about 11 an
+    HMMA (an m16n8k8 is 1,024 multiply-adds, 32 FFMA a warp, and a 3xTF32
+    product issues three), so an FFMA product loop cannot pass; the FFMA
+    left are the exps' range reductions."""
+    hmma, ffma = hmma_counts(sass_run), hmma_counts(sass_run, "FFMA")
+    p, n, r = SSD_MAIN_KEY
+    found = {}
+    for kern, tag in (("ssd_chunk_state_kernel", f"ILi{p}ELi{n}EE"),
+                      ("ssd_chunk_scan_kernel", f"ILi{p}ELi{n}ELi{r}EE")):
+        names = [k for k in hmma if kern in k and tag in k]
+        if len(names) != 1:
+            raise AssertionError(f"no single SASS function for {kern} at "
+                                 f"{SSD_MAIN_KEY}: {names}")
+        found[kern] = {"HMMA": hmma[names[0]], "FFMA": ffma[names[0]]}
+    log(f"  SSD forward SASS at (P, N, R) = {SSD_MAIN_KEY}: {found} "
+        f"(cuobjdump -sass)")
+    if not all(0 < v["HMMA"] and v["FFMA"] < 2 * v["HMMA"]
+               for v in found.values()):
+        raise AssertionError(f"the SSD forward's SASS at {SSD_MAIN_KEY} "
+                             f"lacks tensor-core products: {found}")
+    return found
+
+
+def check_ssd(card, sass_run) -> dict:
     """The SSD kernel against its plain version and the sequential oracle
     on the reference test's cases, then against its plain version at
-    mamba2-2.7b's width, timed beside its bound."""
+    mamba2-2.7b's width, timed beside its bound; then its SASS gate
+    (:func:`check_ssd_sass`)."""
     import numpy as np
     import torch
     from repro_torch.kernels.ref import ssd_ref
@@ -1087,17 +1124,18 @@ def check_ssd(card) -> dict:
     ms = event_ms(lambda: ssd(*ops, chunk=chunk), 3)
     plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), 3)
     flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
-    bd = bound(flops, nbytes, card.fp32_flops, card)
+    bd = bwd_bound(flops, nbytes, torch.float32, card)
     log(f"  mamba2-2.7b SSD {SSD_PROBLEM}, chunk {chunk}, model-like dt and "
         f"a_log: normwise {err:.3e} (bound {WIDE_TOL['float32']:.0e}), "
         f"max_abs_err {max_abs:.3e} (max |plain| "
         f"{float(ref.abs().max()):.1f}); kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']}, {flops / 1e9:.1f} GFLOP)")
+        f"({bd['bound_by']}, {bd['route']})")
     return {"mamba2_2_7b": {"chunk": chunk, "normwise": err,
                             "state_normwise": state_errs,
                             "max_abs_err": max_abs, "kernel_ms": ms,
-                            "plain_ms": plain_ms, **bd}}
+                            "plain_ms": plain_ms, **bd},
+            "ssd_sass": check_ssd_sass(sass_run)}
 
 
 # -------------------------------------------------------- phases 7, 8 --
@@ -1338,16 +1376,19 @@ def bf16_blocks(q, k, v, card) -> dict:
 def finish_ssd(tuned: dict, card) -> dict:
     """Phase 8's checks and the SSD row of the kernels line: every legal
     chunk at mamba2-2.7b's (1, 4096, 80, 64, 1, 128) with the family's
-    operands, then the selected one beside its plain version, each of its
-    three passes timed, and the state scratch's bytes."""
+    operands, then the selected one beside its plain version and its
+    3xTF32 bound (the FFMA bound beside), each of its three passes timed at
+    the selected chunk and at the model's, and the state scratch's
+    bytes."""
     import numpy as np
     import torch
     from repro_torch.kernels.ssd import (_launch_chunk_scan,
                                          _launch_chunk_state,
                                          _launch_state_pass, ssd,
                                          ssd_grid_steps, ssd_plain,
-                                         ssd_scan_blocks, ssd_scratch,
-                                         ssd_scratch_bytes)
+                                         ssd_scan_blocks, ssd_scan_heads,
+                                         ssd_scratch, ssd_scratch_bytes,
+                                         ssd_state_heads)
     ops = ssd_inputs(SSD_PROBLEM, np.random.default_rng(17),
                      model_like=False)
 
@@ -1360,33 +1401,43 @@ def finish_ssd(tuned: dict, card) -> dict:
     kernel_ms = event_ms(lambda: ssd(*ops, chunk=chunk), TIME_REPS)
     plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), TIME_REPS)
     flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
-    bd = bound(flops, nbytes, card.fp32_flops, card)
+    bd = bwd_bound(flops, nbytes, torch.float32, card)
     x, dt, a_log, bb, cc = ops
-    s, states = ssd_scratch(x, bb, chunk)
-    y = torch.empty_like(x)
-    passes = dict(zip(("chunk_state", "state_pass", "chunk_scan"), pass_ms(
-        [lambda: _launch_chunk_state(x, dt, a_log, bb, s, states, chunk),
-         lambda: _launch_state_pass(s, states, chunk),
-         lambda: _launch_chunk_scan(x, dt, bb, cc, s, states, y, chunk)],
-        TIME_REPS)))
-    b, l, h, p, _, n = SSD_PROBLEM
+    b, l, h, p, g, n = SSD_PROBLEM
+    heads = {"chunk_state": ssd_state_heads(h, g),
+             "chunk_scan": ssd_scan_heads(h, g)}
+
+    def passes_at(c):
+        s, states = ssd_scratch(x, bb, c)
+        y = torch.empty_like(x)
+        return dict(zip(("chunk_state", "state_pass", "chunk_scan"), pass_ms(
+            [lambda: _launch_chunk_state(x, dt, a_log, bb, s, states, c),
+             lambda: _launch_state_pass(s, states, c),
+             lambda: _launch_chunk_scan(x, dt, bb, cc, s, states, y, c)],
+            TIME_REPS)))
+
+    passes = {c: passes_at(c) for c in sorted({chunk, SSD_MODEL_CHUNK})}
     scratch = ssd_scratch_bytes(b, l, h, p, n, chunk)
     # pass 1 writes the scratch, pass 2 reads and writes it, pass 3 reads it
     scratch_ms = 4 * scratch / card.hbm_bytes_per_s * 1e3
     log(f"  ssd {SSD_PROBLEM} at the selected chunk {chunk}: kernel "
         f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, no library call, "
-        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
-        f"{flops / 1e9:.1f} GFLOP)")
-    log(f"  ssd passes at chunk {chunk}, in sequence: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in passes.items()) +
-        f" (sum {sum(passes.values()):.3f}); blocks of pass 1 "
-        f"{ssd_grid_steps(b, l, h, chunk)}, of pass 3 "
-        f"{ssd_scan_blocks(b, l, h, chunk)}; state scratch "
-        f"{scratch / 1e6:.1f} MB, its four passes over HBM "
-        f"{scratch_ms:.3f} ms at {card.hbm_bytes_per_s / 1e12:.2f} TB/s")
+        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['route']})")
+    for c, ms in passes.items():
+        log(f"  ssd passes at chunk {c}, in sequence: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ms.items()) +
+            f" (sum {sum(ms.values()):.3f}); blocks of pass 1 "
+            f"{ssd_grid_steps(b, l, h // heads['chunk_state'], c)} "
+            f"({heads['chunk_state']} heads a block), of pass 3 "
+            f"{ssd_scan_blocks(b, l, h, c, heads['chunk_scan'])} "
+            f"({heads['chunk_scan']} heads a block)")
+    log(f"  ssd state scratch at chunk {chunk}: {scratch / 1e6:.1f} MB, its "
+        f"four passes over HBM {scratch_ms:.3f} ms at "
+        f"{card.hbm_bytes_per_s / 1e12:.2f} TB/s")
     res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-               passes_ms=passes, scratch_bytes=scratch,
-               scratch_hbm_ms=scratch_ms, **bd)
+               passes_ms=passes[chunk],
+               passes_ms_model_chunk=passes[SSD_MODEL_CHUNK], heads=heads,
+               scratch_bytes=scratch, scratch_hbm_ms=scratch_ms, **bd)
     return res
 
 
@@ -2743,10 +2794,11 @@ def attn_bwd_work(b, hq, hkv, s, d, causal, window, itemsize):
 
 
 def bwd_bound(flops, nbytes, dtype, card) -> dict:
-    """The backward's bound on the route it takes: bfloat16 products at the
-    tensor cores' bfloat16 rate; float32 ones as three TF32 products each
-    at the TF32 rate, with the FFMA bound (the FP32 rate outside the
-    tensor cores) beside it as ``bound_ms_ffma``."""
+    """A tensor-core kernel's bound on the route it takes (the backwards
+    and the SSD forward): bfloat16 products at the tensor
+    cores' bfloat16 rate; float32 ones as three TF32 products each at the
+    TF32 rate, with the FFMA bound (the FP32 rate outside the tensor cores)
+    beside it as ``bound_ms_ffma``."""
     import torch
     if dtype == torch.bfloat16:
         bd = bound(flops, nbytes, card.bf16_tensor_flops, card)
@@ -3342,15 +3394,17 @@ SSD_BWD_MAIN_KEY = (64, 128, 64)   # the chunk pass at mamba2's (P, N, R)
 
 
 def ssd_bwd_work(b, l, h, p, g, n, chunk):
-    """(flops, bytes) the SSD's gradient needs, per head and chunk: over
-    the Q (Q + 1) / 2 kept pairs C B^T, dY X^T, G^T dY, M B and M^T C (2 N,
-    2 P, 2 P, 2 N and 2 N flops a pair), and D_c, dY h_in, X dS and B dS^T
-    (2 Q P N each); x, dy, dt, a_log, b, c, the forward's s and h_in read
-    once, dx, ddt, da_log, db, dc and dh0 written once."""
+    """(flops, bytes) the SSD's gradient needs: per head and chunk, over
+    the Q (Q + 1) / 2 kept pairs dY X^T, G^T dY, M B and M^T C (2 P, 2 P, 2
+    N and 2 N flops a pair), and D_c, dY h_in, X dS and B dS^T (2 Q P N
+    each); and C B^T over the kept pairs (2 N a pair) once a (batch, group,
+    chunk), since C and B belong to the group; x, dy, dt, a_log, b, c, the
+    forward's s and h_in read once, dx, ddt, da_log, db, dc and dh0
+    written once."""
     nc = l // chunk
     pairs = chunk * (chunk + 1) // 2
-    per_chunk = 2.0 * pairs * (3 * n + 2 * p) + 8.0 * chunk * p * n
-    flops = per_chunk * b * h * nc
+    per_head = 2.0 * pairs * (2 * n + 2 * p) + 8.0 * chunk * p * n
+    flops = b * nc * (h * per_head + g * 2.0 * pairs * n)
     reads = 2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n + \
         b * h * l + b * h * nc * p * n
     writes = b * l * h * p + b * l * h + h + 2 * b * l * g * n + b * h * p * n
@@ -3832,12 +3886,12 @@ def check_jamba_ssd(card) -> dict:
     ms = event_ms(lambda: ssd(*fwd_ops, chunk=chunk), TIME_REPS)
     plain_ms = event_ms(lambda: ssd_plain(*fwd_ops, chunk=chunk), 3)
     flops, nbytes = ssd_work(*MOE_SSD_PROBLEM, chunk)
-    bd = bound(flops, nbytes, card.fp32_flops, card)
+    bd = bwd_bound(flops, nbytes, torch.float32, card)
     log(f"  jamba-v0.1-52b SSD forward {MOE_SSD_PROBLEM}, chunk {chunk}, two "
         f"calls bit for bit: normwise {err:.3e} from ssd_plain (bound "
         f"{tol:.0e}), max_abs_err {max_abs:.3e}; kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']},"
-        f" {flops / 1e9:.1f} GFLOP at FP32)")
+        f" {bd['route']})")
     fwd = {"shape": list(MOE_SSD_PROBLEM), "chunk": chunk, "normwise": err,
            "err": max_abs, "deterministic": True, "kernel_ms": ms,
            "plain_ms": plain_ms, "library_ms": None, **bd}
@@ -4616,11 +4670,11 @@ def main() -> int:
         log(f"    ptxas {name}: {len(rows)} instantiations, registers "
             f"{min(r[0] for r in rows)}-{max(r[0] for r in rows)}, "
             f"{sum(1 for r in rows if r[1])} spill")
-    # the attention libraries' SASS for phases 6 and 14a and the SSD
-    # backward's for 15a, dumped meanwhile
+    # the attention libraries' SASS for phases 6 and 14a, the SSD
+    # forward's for 6 and its backward's for 15a, dumped meanwhile
     sass_runs = {name: start_sass(libs[name])
                  for name in ("flash_attention", "flash_attention_bwd",
-                              "ssd_bwd")}
+                              "ssd", "ssd_bwd")}
     the_card = card_of(dev)
     phase_s = {}
 
@@ -4692,7 +4746,7 @@ def main() -> int:
     wide = phase("6 attention", check_attention, the_card,
                  sass_runs["flash_attention"])
     wide.update(phase("6 padded", check_padded_attention, the_card))
-    wide.update(phase("6 ssd", check_ssd, the_card))
+    wide.update(phase("6 ssd", check_ssd, the_card, sass_runs["ssd"]))
 
     session = tuned["session"]
     log(f"[7] attention tile path: (bq, bkv, 128) blocks for "
@@ -5004,7 +5058,16 @@ def main() -> int:
               regs["ssd"]["chunk_scan"], library="none",
               shape=list(SSD_PROBLEM), dtype="float32",
               config=list(ssd_res["choice"]),
-              passes_ms=ssd_res["passes_ms"], passes_registers=regs["ssd"],
+              route_detail="mma.sync: float32 as 3xTF32 in the chunk state "
+              f"({ssd_res['heads']['chunk_state']} heads a block, B staged "
+              "once) and the chunk scan (C B^T formed once for the "
+              f"{ssd_res['heads']['chunk_scan']} heads of a block); the "
+              "state pass elementwise",
+              bound_ms_ffma=ssd_res["bound_ms_ffma"],
+              sass_counts=wide["ssd_sass"],
+              passes_ms=ssd_res["passes_ms"],
+              passes_ms_model_chunk=ssd_res["passes_ms_model_chunk"],
+              passes_registers=regs["ssd"],
               **in_prefill("ssd"), **in_admission("ssd"),
               **in_train_step("ssd", ssd_training),
               **in_train_step("ssd", moe_training, "train_moe_step"),

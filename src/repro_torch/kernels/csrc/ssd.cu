@@ -1,5 +1,6 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a), FP32 FFMA, hand-written,
-// in Mamba-2's chunk-parallel three-pass form.
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), float32 on the tensor cores
+// (3xTF32 mma.sync), hand-written, in Mamba-2's chunk-parallel three-pass
+// form.
 //
 // Replaces: src/repro/kernels/ssd.py::_ssd_kernel, the Pallas TPU kernel
 // that runs the state-space-duality scan over a (B, H, L/chunk) grid,
@@ -20,81 +21,118 @@
 //
 // Design.  The TPU walks the chunks of a head in order because its grid
 // runs in order and carries the state in VMEM.  On Hopper that chain would
-// leave one block per (b, h) -- 80 blocks for mamba2-2.7b at batch 1 on 132
-// SMs -- walking 16 to 128 dependent chunks.  The state recurrence is
-// linear, so the chain splits into three passes, and only the middle one
-// is sequential:
+// leave one block per (b, h) walking 16 to 128 dependent chunks.  The state
+// recurrence is linear, so the chain splits into three passes, and only the
+// middle one is sequential:
 //
-//  1. ssd_chunk_state_kernel, one block per (b, h, chunk): the chunk's
-//     cumulative log-decay s by a block-wide scan, written to a float32
-//     scratch (B, H, L) so pass 3 does not scan again, and the chunk's own
-//     state contribution S_c = X^T (B * w), a (P, N) tile, written to a
-//     scratch (B, H, L/Q, P, N).  2 Q P N flops a block: bound by
-//     operations.  X and B stream through a 3-stage cp.async ring of
-//     16-row slabs, one barrier a slab.  128 threads each own 2 x 2 quads
-//     (8 x 8 outputs at (P, N) = (64, 128)) and per step read two X
-//     float4s (broadcasts) and two B float4s (neighbouring threads,
-//     neighbouring addresses) for 64 FFMAs, where 4 x 8 tiles over 256
-//     threads need three loads for 32.
+//  1. ssd_chunk_state_kernel, one block per (b, chunk, two heads of one
+//     group): each head's cumulative log-decay s by a block-wide scan,
+//     written to a float32 scratch (B, H, L) so pass 3 does not scan again,
+//     and its own state contribution S_c = (X o w)^T B, a (P, N) tile over
+//     depth Q, written to a scratch (B, H, L/Q, P, N).  B is staged once for
+//     both heads.
 //  2. ssd_state_pass_kernel, one thread per four state elements of a
 //     (b, h): walks the chunks in order, writes h_in[c] = h over S_c in
 //     place and updates h = exp(s_Q of chunk c) h + S_c.  h starts at the
 //     caller's h0 (B, H, P, N) where one is given, else at 0, and the h
 //     after the last chunk goes to h_final (B, H, P, N) where one is asked
-//     for: a model's prefill continues from the one and leaves the other
-//     as its decode state.  Elementwise, 16-byte loads prefetched one
-//     chunk ahead: bound by bytes (it reads and writes the scratch once).
-//  3. ssd_chunk_scan_kernel, one block per (b, h, chunk, R-row query
-//     tile), R = min(chunk, 64): y = sum over key slabs of (C B^T o decay
-//     o dt^T) X, plus exp(s) o (C h_in[c]^T).  Bound by operations.
+//     for.  Elementwise, 16-byte loads prefetched one chunk ahead: bound by
+//     bytes (it reads and writes the scratch once).
+//  3. ssd_chunk_scan_kernel, one block per (b, chunk, R-row query tile,
+//     HB heads of one group), R = min(chunk, 64): y = exp(s) o (C h_in^T)
+//     plus, over the key slabs on and below the diagonal, (C B^T o decay o
+//     dt^T) X.
 //
-// The skip rule.  Query tile t (rows t R .. t R + R - 1 of the chunk)
-// visits only the key slabs 0 .. t: a slab above the diagonal holds no pair
-// i >= j.  Only the diagonal slab has pairs i < j, and only there does the
-// mask select; exp is taken of s_i - s_j only where i >= j.  The query
-// tiles launch heaviest first (tile nq - 1, with nq slabs, is outermost in
-// the block index), so the one-slab tiles fill the tail of the last wave.
-// ssd_query_tiles and ssd_key_slabs in kernels/ssd.py say the same, and
-// the CPU tests hold them against brute force over the mask.
+// What bounds it on the H100 (700 W).  At mamba2-2.7b's (1, 4096, 80, 64, 1,
+// 128) and chunk 256 the function needs 16.3 GFLOP: per head and chunk G X
+// over the kept pairs (2 P a pair), C h_in^T and (X o w)^T B (2 Q P N
+// each), and C B^T over the kept pairs (2 N a pair) once a (b, group,
+// chunk), not once a head -- C and B belong to the group.  Against 0.17 GB
+// read or written once that is bound by operations: 0.099 ms as three TF32
+// products at 495 TFLOP/s (this file), 0.243 ms on FFMA at 67 TFLOP/s (the
+// design this replaced, which also formed C B^T once a head: 8.4 of each
+// head's 21.0 MFLOP a chunk).  Pass 2 and the state scratch's four passes
+// over HBM (41.9 MB at chunk 256) are bytes.
 //
-// Shared memory and the staging budget of pass 3.  Each block stages the C
-// rows of its query tile once (R x N), then per key slab the B rows (R x N)
-// and X rows (R x P), and the decayed G^T tile (R x R).  Two stages of B
-// and X would take 144 KB at (P, N, R) = (64, 128, 64), one block an SM.
-// Instead the B slab and the X slab take turns as each other's second
-// stage: the X slab of slab k is in flight while G of slab k is formed from
-// B, and the B slab of slab k + 1 while G X of slab k runs, so every copy
-// overlaps a product, with two barriers a slab.  The C h^T term comes
-// first: h_in[c] (P x N) is staged in the space the X slab and G^T take
-// later, and the first B slab is in flight while C h^T is formed.  So pass
-// 3 takes 2 R N + max(R (P + R), P N) floats plus s and dt of the chunk:
-// 100,352 bytes at chunk 256, (64, 128), and two blocks fit an SM
-// (__launch_bounds__(256, 2): at most 128 registers; larger register tiles
-// over fewer threads, or split sums over two halves of the block, spill or
-// leave too few warps at that cap and ran slower).  Pass 1 takes 3 * 16
-// (P + N) floats plus 2 Q + 4 (38,928 bytes at chunk 256).
+// What the design does about it.
+//  * Every product of passes 1 and 3 runs on the tensor cores as 3xTF32
+//    mma.sync m16n8k8 (csrc/mma_tools.cuh): each float32 operand is split
+//    a = hi + lo, hi the nearest TF32 and lo = a - hi (of which the tensor
+//    core reads the top 19 bits), and hi hi + hi lo + lo hi summed, as in
+//    the backward (ssd_bwd.cu).  A product of TF32 parts is exact, and the
+//    dropped lo lo term and lo's truncation are below float32's rounding of
+//    each operand, so the sums meet the float32 gates (1e-5 normwise
+//    against the plain version at mamba2's width, 2e-4 elementwise against
+//    the sequential oracle) where one TF32 product (10 mantissa bits) would
+//    not (tests/test_torch_ssd_tc.py emulates both).
+//  * Tensor-core accumulators truncate, so every chain into an output is
+//    short: C h_in^T in chains of at most 64 of depth, each slab's G X (a
+//    depth of R <= 64) and each 32-step slab of pass 1 from zero, added to
+//    the float32 sums by FADD (round to nearest); the C B^T tile keeps its
+//    small hi lo and lo hi terms in an accumulator of their own, so its
+//    chain of hi hi products is a third as long.
+//  * C B^T once for the heads of a block.  A pass-3 block takes HB
+//    consecutive heads of one group: the largest divisor of H / G up to
+//    kMaxHeads = 4 (kernels/ssd.py: ssd_scan_heads).  Its eight warps (at
+//    R = 64) are four row groups of 16 query rows times two head lanes; per
+//    key slab the two warps of a row group form the C B^T rows of their
+//    group, each half of the slab's key columns, and swap the halves
+//    through shared memory, so every warp holds its 16 x R rows of C B^T in
+//    registers in the accumulator's layout.  For each head the warp applies
+//    the head's decay and dt to a copy, element by element at the row and
+//    column each accumulator element has, converts it into the A fragment
+//    of G X (an m16n8 accumulator tile is an m16k8 A fragment in a permuted
+//    depth order, which the k-major X operand is read in), and adds the
+//    slab's G X to the head's y, kept in registers across the slabs (two
+//    heads a warp).  So C B^T costs once a block what it cost once a head.
+//  * Pass 1 runs two heads of a group in one block, one a head lane: the B
+//    rows of a 32-step slab are staged once for both, and each warp forms
+//    its 16 rows of P of its head's S_c over all of N.  The two heads'
+//    decays are read and scanned in one pass (each in the order a scan of
+//    it alone takes), so the block waits on one chain of loads and
+//    barriers before its first slab, not two.
+//  * The skip rule.  Query tile t (rows t R .. t R + R - 1 of the chunk)
+//    visits only the key slabs 0 .. t: a slab above the diagonal holds no
+//    pair i >= j.  In the diagonal slab a warp skips the C B^T n-tiles and
+//    the G X depth steps wholly above its 16 rows.  The query tiles launch
+//    heaviest first (tile nq - 1 is outermost in the block index), so the
+//    one-slab tiles fill the tail of the last wave.  ssd_query_tiles and
+//    ssd_key_slabs in kernels/ssd.py say the same.
+//  * Staging goes through cp.async (16 bytes a thread; dt, H floats apart,
+//    4 bytes) into row-major tiles whose 16-byte chunks are XOR-swizzled by
+//    the row (mma_tools.cuh's Swizzled), so the ldmatrix rows and the
+//    4-byte k-major reads fall in distinct bank groups.  A pass-3 block
+//    keeps its query tile's C rows and, per step, double-buffers either the
+//    h_in of a pair of heads (the state term first) or a key slab's B rows
+//    with the X rows, s and dt of a pair of heads: the B rows are read only
+//    by the pair that forms C B^T.  183,296 bytes at (P, N, R) = (64, 128,
+//    64), one block an SM (kernels/ssd.py: ssd_smem_bytes).
+//  * mma.sync, not wgmma: wgmma takes TF32 operands only K-major from
+//    shared memory, and G X's X rows and pass 1's X and B rows lie N-major
+//    as they are read (j rows of P or N values); they would have to be
+//    staged transposed.
 //
-// Shared-memory reads are 16-byte loads.  In pass 3, 256 threads own 4 x 4
-// quads of each output tile (QuadMap).  C B^T and C h^T read C, B and h_in
-// along N,
-// row-major as they lie in device memory (so every copy is a 16-byte
-// cp.async), with the 16-byte chunks of row r at chunk c ^ ((r / 4) & 7):
-// the rows 4 q + e that the 8 threads of a load phase read fall in 8
-// distinct bank groups.  G^T is stored in the same swizzle, so G X reads a
-// float4 of 4 query rows (a broadcast) and a float4 of X per key step.
+// What is left.  Timed on the H100 (PERF.md; tools/ssd_pass3_probe.py
+// times pass 3 without its copies and without its products), pass 3 is
+// bound by its products as mma.sync issues them, not by its copies, which
+// overlap them: eight warps an SM (252 registers a thread, 183 KB a block)
+// with two warps a scheduler.  Four heads a block ran faster than two and
+// one (tools/ssd_forward_times.py).  None of these ran faster: a
+// four-stage ring of smaller steps (h_in by halves of N, the B rows
+// alone), C B^T read from shared memory in a runtime loop over the depth
+// steps, the diagonal's depth steps as compile-time counts, the query
+// tiles of a chunk side by side, the three TF32 terms issued term by term
+// or the small ones into an accumulator of their own.  Pass 1 runs no
+// faster than the FFMA pass it replaced: eight warps an SM at 224
+// registers, and a block waits on its decay scan before its first slab;
+// two blocks an SM (128 registers), sixteen warps a block and both heads
+// in each warp ran slower.  The way on is wgmma with the transposed
+// staging above.
 //
 // Instantiations: pass 1 for P in {8, 16, 32, 64} and N in {8, 16, 32, 64,
 // 128}; pass 3 for those and R in {16, 32, 64} (register arrays need
 // compile-time sizes); pass 2 is one kernel.  The chunk is a runtime
 // multiple of R (16, 32 or a multiple of 64).
-//
-// Work at mamba2-2.7b's (1, 4096, 80, 64, 1, 128): passes 1 and 3 launch
-// B H L / Q and B H L / R blocks (1,280 and 5,120 at chunk 256), and the
-// state scratch is B H (L / Q) P N floats, 41.9 MB at chunk 256 and 335.5
-// MB at chunk 32: pass 1 writes it, pass 2 reads and writes it, pass 3
-// reads it, bytes the function itself does not need.  Arithmetic is float32
-// FFMA (67 TFLOP/s outside the tensor cores, 700 W): the reference is held
-// to float32 tolerances, which TF32 cannot meet.
 //
 // The launchers allocate nothing (the wrapper allocates both scratches),
 // never synchronise, launch on the stream they are given, and return
@@ -106,233 +144,302 @@
 #include <cstddef>
 #include <type_traits>
 
+#include "mma_tools.cuh"
+
 namespace {
 
-constexpr int kStateThreads = 128;  // pass 1
-constexpr int kScanThreads = 256;   // pass 3
 constexpr int kWarp = 32;
 constexpr int kPassThreads = 128;  // pass 2
-constexpr int kSlab = 16;          // pass 1: rows of a slab
-constexpr int kStages = 3;         // pass 1: slabs in the cp.async ring
+constexpr int kStateSlab = 32;     // pass 1: steps of a slab
+constexpr int kLanes = 2;          // head lanes: warps of a row group
+constexpr int kMaxHeads = 4;       // pass 3: heads of a block
+constexpr int kHeadsPerWarp = kMaxHeads / kLanes;
 
-// 4 x 4 quads of an M x C output tile over NT threads: thread (ty, tx),
-// tid = ty TX + tx, owns row quads ty + TY a (a < GM) and column quads
-// tx + TX t (t < GN); threads from kActive on own none
-template <int M, int C, int NT>
-struct QuadMap {
-  static constexpr int QM = M / 4;
-  static constexpr int QC = C / 4;
-  static constexpr int TX = QC < 16 ? QC : 16;
-  static constexpr int TY = QM < NT / TX ? QM : NT / TX;
-  static constexpr int GM = QM / TY;
-  static constexpr int GN = QC / TX;
-  static constexpr int kActive = TX * TY;
-};
+// ---------------------------------------------------------------- copies --
 
-// offset of 16-byte chunk c of row r in a row-major tile of W floats whose
-// chunks are XOR-swizzled by the row's quad
-template <int W>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int kMask = (W / 4 < 8 ? W / 4 : 8) - 1;
-  return r * W + ((c ^ ((r >> 2) & kMask)) << 2);
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ float dot4(float4 u, float4 v, float acc) {
-  acc = fmaf(u.x, v.x, acc);
-  acc = fmaf(u.y, v.y, acc);
-  acc = fmaf(u.z, v.z, acc);
-  return fmaf(u.w, v.w, acc);
-}
-__device__ __forceinline__ void unpack4(float4 v, float* out) {
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(smem)),
                "l"(gmem));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
-// cp.async of `rows` rows of W floats, row r read at src + r * stride
-// (floats), into a row-major tile, swizzled or as they lie, by NT threads
-template <int W, bool kSwizzle, int NT>
+// cp.async of `rows` rows of W floats (row r at src + r stride) into a
+// swizzled tile, by the NT threads of the block
+template <int W, int NT>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int rows, size_t stride, int tid) {
-  constexpr int kCpr = W / 4;
-  for (int idx = tid; idx < rows * kCpr; idx += NT) {
-    const int r = idx / kCpr, c = idx % kCpr;
-    cp_async16(dst + (kSwizzle ? swz<W>(r, c) : r * W + 4 * c),
+                                          size_t stride, int rows, int tid) {
+  using S = Swizzled<float, W>;
+  for (int idx = tid; idx < rows * S::kCpr; idx += NT) {
+    const int r = idx / S::kCpr, c = idx % S::kCpr;
+    cp_async16(dst + r * W + ((c ^ (r & S::kMask)) << 2),
                src + r * stride + 4 * c);
   }
 }
+// n contiguous floats (n a multiple of 4, src 16-byte aligned)
+template <int NT>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int n,
+                                         int tid) {
+  for (int idx = tid; idx < n / 4; idx += NT)
+    cp_async16(dst + 4 * idx, src + 4 * idx);
+}
+// n floats `stride` apart
+template <int NT>
+__device__ __forceinline__ void load_strided(float* dst, const float* src,
+                                             size_t stride, int n, int tid) {
+  for (int idx = tid; idx < n; idx += NT)
+    cp_async4(dst + idx, src + idx * stride);
+}
 
-// in-place inclusive prefix sum of v[0 .. n) by the whole block: each
-// thread sums a run of ceil(n / kStateThreads) neighbours, the runs are
-// scanned across a warp by shuffles and across the warps through `sums`;
-// ends with a barrier
-__device__ void block_inclusive_scan(float* v, int n, float* sums) {
-  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  const int per = (n + kStateThreads - 1) / kStateThreads;
-  const int lo = min(tid * per, n), hi = min(lo + per, n);
-  float run = 0.0f;
-  for (int t = lo; t < hi; ++t) {
-    run += v[t];
-    v[t] = run;
-  }
-  float incl = run;
+// ------------------------------------------------------------ fragments --
+// (mma_tools.cuh holds the pair loaders; these take one n-tile or a run of
+// them, and the scaled k-major A of pass 1.)
+
+// B fragments of the JT n-tiles [n0, n0 + 8 JT) at depth [k0, k0 + 8) of a
+// swizzled tile whose rows are n and whose depth runs along the row
+template <int D, int JT>
+__device__ __forceinline__ void load_b_run(TfB (&b)[JT], const float* tile,
+                                           int n0, int k0, int lane) {
+  if constexpr (JT == 1) {
+    using S = Swizzled<float, D>;
+    const int g = lane >> 2, t = lane & 3;
+    split_tf32(tile[S::at(n0 + g, k0 + t)], b[0].hi[0], b[0].lo[0]);
+    split_tf32(tile[S::at(n0 + g, k0 + t + 4)], b[0].hi[1], b[0].lo[1]);
+  } else {
+    static_assert(JT % 2 == 0, "one n-tile or pairs");
 #pragma unroll
-  for (int off = 1; off < kWarp; off *= 2) {
-    const float up = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += up;
+    for (int u = 0; u < JT; u += 2)
+      load_b<D>(b[u], b[u + 1], tile, n0 + 8 * u, k0, lane);
   }
-  if (lane == kWarp - 1) sums[warp] = incl;
+}
+// The same from a tile whose rows are the depth (k-major), in the permuted
+// depth order of load_bt and a_from_acc
+template <int D, int JT>
+__device__ __forceinline__ void load_bt_run(TfB (&b)[JT], const float* tile,
+                                            int k0, int n0, int lane) {
+  if constexpr (JT == 1) {
+    using S = Swizzled<float, D>;
+    const int g = lane >> 2, r = k0 + 2 * (lane & 3);
+    split_tf32(tile[S::at(r, n0 + g)], b[0].hi[0], b[0].lo[0]);
+    split_tf32(tile[S::at(r + 1, n0 + g)], b[0].hi[1], b[0].lo[1]);
+  } else {
+    static_assert(JT % 2 == 0, "one n-tile or pairs");
+#pragma unroll
+    for (int u = 0; u < JT; u += 2)
+      load_bt<D>(b[u], b[u + 1], tile, k0, n0 + 8 * u, lane);
+  }
+}
+
+// A of rows [m0, m0 + 16) from a k-major swizzled tile (rows the depth,
+// columns m), in the permuted depth order, depth row k0 + 2t scaled by sc0
+// and k0 + 2t + 1 by sc1; rows m >= mmax are zero
+template <int D>
+__device__ __forceinline__ void load_a_kmajor(TfA& a, const float* tile,
+                                              int k0, int m0, int mmax,
+                                              float sc0, float sc1, int lane) {
+  using S = Swizzled<float, D>;
+  const int g = lane >> 2, r = k0 + 2 * (lane & 3);
+  const bool low = m0 + g + 8 < mmax;
+  split_tf32(sc0 * tile[S::at(r, m0 + g)], a.hi[0], a.lo[0]);
+  split_tf32(low ? sc0 * tile[S::at(r, m0 + g + 8)] : 0.0f, a.hi[1],
+             a.lo[1]);
+  split_tf32(sc1 * tile[S::at(r + 1, m0 + g)], a.hi[2], a.lo[2]);
+  split_tf32(low ? sc1 * tile[S::at(r + 1, m0 + g + 8)] : 0.0f, a.hi[3],
+             a.lo[3]);
+}
+
+// in-place inclusive prefix sums of the `runs` (1 or 2) arrays v[r n ..
+// r n + n) by the NT threads of the block, in one pass: each thread sums a
+// run of ceil(n / NT) neighbours of each array, the runs are scanned across
+// a warp by shuffles and across the warps through `sums` (kLanes NT / kWarp
+// floats); each array's sums in the order a scan of it alone takes; ends
+// with a barrier
+template <int NT>
+__device__ void block_inclusive_scan(float* v, int n, int runs,
+                                     float* sums) {
+  constexpr int kWarps = NT / kWarp;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int per = (n + NT - 1) / NT;
+  const int lo = min(tid * per, n), hi = min(lo + per, n);
+  float run[kLanes], incl[kLanes];
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) {
+    run[r] = 0.0f;
+    if (r < runs)
+      for (int t = lo; t < hi; ++t) {
+        run[r] += v[r * n + t];
+        v[r * n + t] = run[r];
+      }
+    incl[r] = run[r];
+#pragma unroll
+    for (int off = 1; off < kWarp; off *= 2) {
+      const float up = __shfl_up_sync(0xffffffffu, incl[r], off);
+      if (lane >= off) incl[r] += up;
+    }
+    if (lane == kWarp - 1) sums[r * kWarps + warp] = incl[r];
+  }
   __syncthreads();
   if (warp == 0) {
-    constexpr int kWarps = kStateThreads / kWarp;
-    float tot = lane < kWarps ? sums[lane] : 0.0f;
 #pragma unroll
-    for (int off = 1; off < kWarps; off *= 2) {
-      const float up = __shfl_up_sync(0xffffffffu, tot, off);
-      if (lane >= off) tot += up;
+    for (int r = 0; r < kLanes; ++r) {
+      float tot = lane < kWarps ? sums[r * kWarps + lane] : 0.0f;
+#pragma unroll
+      for (int off = 1; off < kWarps; off *= 2) {
+        const float up = __shfl_up_sync(0xffffffffu, tot, off);
+        if (lane >= off) tot += up;
+      }
+      if (lane < kWarps) sums[r * kWarps + lane] = tot;
     }
-    if (lane < kWarps) sums[lane] = tot;
   }
   __syncthreads();
-  const float before = incl - run + (warp > 0 ? sums[warp - 1] : 0.0f);
-  for (int t = lo; t < hi; ++t) v[t] += before;
+#pragma unroll
+  for (int r = 0; r < kLanes; ++r) {
+    if (r >= runs) break;
+    const float before =
+        incl[r] - run[r] + (warp > 0 ? sums[r * kWarps + warp - 1] : 0.0f);
+    for (int t = lo; t < hi; ++t) v[r * n + t] += before;
+  }
   __syncthreads();
 }
 
 // ---------------------------------------------------------------- pass 1 --
+// Shared memory, floats: two slab buffers (the B rows of a 32-step slab,
+// then the X rows of each head lane), w of the chunk a head lane, and the
+// warps' totals of the scan.
 template <int P, int N>
-__host__ __device__ constexpr size_t state_smem_floats(int chunk) {
-  return static_cast<size_t>(kStages) * kSlab * (P + N) + 2 * chunk +
-         kStateThreads / kWarp;
-}
+struct StateShape {
+  static constexpr int RG = (P + 15) / 16;           // row groups of P
+  static constexpr int kThreads = RG * kLanes * kWarp;
+  static constexpr int NT = N / 8;                   // n-tiles of N
+  static constexpr int kStage = kStateSlab * N + kLanes * kStateSlab * P;
+  __host__ __device__ static constexpr size_t floats(int chunk) {
+    return 2 * static_cast<size_t>(kStage) + kLanes * chunk +
+           kLanes * kThreads / kWarp;
+  }
+};
 
 template <int P, int N>
-__global__ void __launch_bounds__(kStateThreads, 4)
+__global__ void __launch_bounds__(StateShape<P, N>::kThreads)
 ssd_chunk_state_kernel(const float* __restrict__ x,
                        const float* __restrict__ dt,
                        const float* __restrict__ a_log,
                        const float* __restrict__ bm, float* __restrict__ s,
                        float* __restrict__ states, int L, int H, int G,
-                       int chunk) {
-  using Map = QuadMap<P, N, kStateThreads>;
-  constexpr int kStage = kSlab * (P + N);  // one X slab, one B slab
+                       int chunk, int heads) {
+  using S = StateShape<P, N>;
+  constexpr int NTH = S::kThreads, NT = S::NT;
+  constexpr int NP = NT >= 2 ? 2 : 1;
+  constexpr int KS = kStateSlab / 8;                 // depth steps a slab
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* ss = ring + kStages * kStage;  // s of the chunk
-  float* ws = ss + chunk;               // dt, then w
-  float* sums = ws + chunk;             // the warps' totals of the scan
+  float* ring = smem;                     // two slab buffers
+  float* wv = ring + 2 * S::kStage;       // w of the chunk, a head lane each
+  float* sums = wv + kLanes * chunk;      // the warps' totals of the scan
 
-  const int tid = threadIdx.x;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / G);
-  const int nc = L / chunk;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int rg = warp % S::RG, hl = warp / S::RG;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int c = blockIdx.x, h0 = blockIdx.y * heads, b = blockIdx.z;
+  const int g = h0 / (H / G), nc = L / chunk;
   const size_t t0 = static_cast<size_t>(b) * L +
                     static_cast<size_t>(c) * chunk;
-  const float* xg = x + (t0 * H + h) * P;  // step j at + j H P
+  const size_t xstride = static_cast<size_t>(H) * P;
+  const size_t bstride = static_cast<size_t>(G) * N;
   const float* bg = bm + (t0 * G + g) * N;  // step j at + j G N
+  const int rows = chunk < kStateSlab ? chunk : kStateSlab;
+  const int nslab = chunk / rows;
 
-  auto load_slab = [&](int stage, int j0) {
-    float* xs = ring + stage * kStage;
-    load_rows<P, false, kStateThreads>(
-        xs, xg + static_cast<size_t>(j0) * H * P, kSlab,
-        static_cast<size_t>(H) * P, tid);
-    load_rows<N, false, kStateThreads>(
-        xs + kSlab * P, bg + static_cast<size_t>(j0) * G * N, kSlab,
-        static_cast<size_t>(G) * N, tid);
+  auto stage = [&](int k, int buf) {
+    float* st = ring + buf * S::kStage;
+    const size_t j0 = static_cast<size_t>(k) * rows;
+    load_rows<N, NTH>(st, bg + j0 * bstride, bstride, rows, tid);
+    for (int hh = 0; hh < heads; ++hh)
+      load_rows<P, NTH>(st + kStateSlab * (N + hh * P),
+                        x + ((t0 + j0) * H + h0 + hh) * P, xstride, rows,
+                        tid);
   };
-  const int nslab = chunk / kSlab;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nslab) load_slab(st, st * kSlab);
-    cp_async_commit();
-  }
+  stage(0, 0);
+  cp_async_commit();
 
-  // the cumulative log-decay, while the first slabs are in flight
-  const float a = -expf(a_log[h]);
-  for (int t = tid; t < chunk; t += kStateThreads) {
-    const float d = dt[(t0 + t) * H + h];
-    ws[t] = d;
-    ss[t] = a * d;
-  }
+  // the heads' cumulative log-decays, both at once while slab 0 is in
+  // flight: s to the scratch, w = dt exp(s_Q - s) kept for the slabs
+  float a[kLanes], s_last[kLanes];
+#pragma unroll
+  for (int hh = 0; hh < kLanes; ++hh)
+    a[hh] = hh < heads ? -expf(a_log[h0 + hh]) : 0.0f;
+  for (int t = tid; t < chunk; t += NTH)
+#pragma unroll
+    for (int hh = 0; hh < kLanes; ++hh)
+      if (hh < heads) wv[hh * chunk + t] = a[hh] * dt[(t0 + t) * H + h0 + hh];
   __syncthreads();
-  block_inclusive_scan(ss, chunk, sums);
-  const float s_last = ss[chunk - 1];
-  float* s_row = s + (static_cast<size_t>(b) * H + h) * L +
-                 static_cast<size_t>(c) * chunk;
-  for (int t = tid; t < chunk; t += kStateThreads) {
-    s_row[t] = ss[t];
-    ws[t] *= expf(s_last - ss[t]);  // read after the first slab barrier
-  }
-
-  const int tx = tid % Map::TX, ty = tid / Map::TX;
-  const bool active = tid < Map::kActive;
-  float acc[4 * Map::GM][4 * Map::GN];
+  block_inclusive_scan<NTH>(wv, chunk, heads, sums);
 #pragma unroll
-  for (int i = 0; i < 4 * Map::GM; ++i)
+  for (int hh = 0; hh < kLanes; ++hh) s_last[hh] = wv[hh * chunk + chunk - 1];
+  __syncthreads();  // every thread has s_last before w overwrites it
+  for (int t = tid; t < chunk; t += NTH)
 #pragma unroll
-    for (int j = 0; j < 4 * Map::GN; ++j) acc[i][j] = 0.0f;
-
-  for (int k = 0; k < nslab; ++k) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of slab k landed
-    __syncthreads();  // everyone's landed; slab k - 1 is read by no one
-    const int pre = k + kStages - 1;
-    if (pre < nslab) load_slab(pre % kStages, pre * kSlab);
-    cp_async_commit();  // empty groups keep the wait count uniform
-    if (!active) continue;
-    const float* xs = ring + (k % kStages) * kStage;
-    const float* bs = xs + kSlab * P;
-#pragma unroll
-    for (int j = 0; j < kSlab; ++j) {
-      const float w = ws[k * kSlab + j];
-      float xv[4 * Map::GM], bv[4 * Map::GN];
-#pragma unroll
-      for (int q = 0; q < Map::GM; ++q) {
-        unpack4(load4(xs + j * P + 4 * (ty + Map::TY * q)), xv + 4 * q);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xv[4 * q + e] *= w;
+    for (int hh = 0; hh < kLanes; ++hh)
+      if (hh < heads) {
+        const float st = wv[hh * chunk + t];
+        s[(static_cast<size_t>(b) * H + h0 + hh) * L +
+          static_cast<size_t>(c) * chunk + t] = st;
+        wv[hh * chunk + t] =
+            dt[(t0 + t) * H + h0 + hh] * expf(s_last[hh] - st);
       }
-#pragma unroll
-      for (int q = 0; q < Map::GN; ++q)
-        unpack4(load4(bs + j * N + 4 * (tx + Map::TX * q)), bv + 4 * q);
-#pragma unroll
-      for (int i = 0; i < 4 * Map::GM; ++i)
-#pragma unroll
-        for (int t = 0; t < 4 * Map::GN; ++t)
-          acc[i][t] = fmaf(xv[i], bv[t], acc[i][t]);
+
+  const int m0 = 16 * rg;
+  const bool active = hl < heads;
+  const float* wl = wv + hl * chunk;
+  float acc[NT][4] = {};
+  for (int k = 0; k < nslab; ++k) {
+    const int buf = k & 1;
+    if (k + 1 < nslab) {
+      stage(k + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // slab k is in for every thread (and w, at k = 0)
+    if (active) {
+      const float* bs = ring + buf * S::kStage;
+      const float* xs = bs + kStateSlab * (N + hl * P);
+      const float* wk = wl + k * rows;
+      // S_c += (X o w)^T B over the slab: the A fragments of its depth
+      // steps, then one chain from zero an n-tile pair, added by FADD
+      TfA f[KS];
+#pragma unroll
+      for (int u = 0; u < KS; ++u)
+        if (8 * u < rows) {
+          const int r = 8 * u + 2 * tq;
+          load_a_kmajor<P>(f[u], xs, 8 * u, m0, P, wk[r], wk[r + 1], lane);
+        }
+#pragma unroll
+      for (int n2 = 0; n2 < NT; n2 += NP) {
+        float part[NP][4] = {};
+#pragma unroll
+        for (int u = 0; u < KS; ++u)
+          if (8 * u < rows) {
+            TfB bb[NP];
+            load_bt_run<N, NP>(bb, bs, 8 * u, 8 * n2, lane);
+#pragma unroll
+            for (int v = 0; v < NP; ++v) mma(part[v], f[u], bb[v]);
+          }
+#pragma unroll
+        for (int v = 0; v < NP; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n2 + v][e] += part[v][e];
+      }
+    }
+    __syncthreads();  // every read of this buffer is done before its refill
   }
-  cp_async_wait<0>();
   if (!active) return;
-  float* out = states + ((static_cast<size_t>(b) * H + h) * nc + c) * P * N;
+  float* out = states +
+               ((static_cast<size_t>(b) * H + h0 + hl) * nc + c) * P * N;
 #pragma unroll
-  for (int i = 0; i < 4 * Map::GM; ++i) {
-    const int p = 4 * (ty + Map::TY * (i / 4)) + i % 4;
-#pragma unroll
-    for (int q = 0; q < Map::GN; ++q)
-      store4(out + p * N + 4 * (tx + Map::TX * q), acc[i][4 * q],
-             acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+  for (int u = 0; u < NT; ++u) {
+    const int col = 8 * u + 2 * tq;
+    store2(out + (m0 + gq) * N + col, acc[u][0], acc[u][1]);
+    if (m0 + gq + 8 < P)
+      store2(out + (m0 + gq + 8) * N + col, acc[u][2], acc[u][3]);
   }
 }
 
@@ -368,20 +475,156 @@ ssd_state_pass_kernel(float* __restrict__ states,
 }
 
 // ---------------------------------------------------------------- pass 3 --
-// the slabs' space: a B slab, an X slab and G^T, or a B slab and h_in
+// Shared memory, floats: the query tile's C rows (R x N); two step buffers,
+// each either a pair of heads' h_in (2 x P x N) or a key slab's B rows (R x
+// N) with each head lane's X rows (R x P), s and dt (2 R); the swap of the
+// C B^T halves (a float4 a lane and n-tile of each warp's half: R x R); s
+// of the tile's rows for each head of the block.
 template <int P, int N, int R>
-__host__ __device__ constexpr int scan_union_floats() {
-  return R * (P + R) > P * N ? R * (N + P + R) : R * N + P * N;
+struct ScanShape {
+  static constexpr int W = R / 16;                  // row groups
+  static constexpr int kThreads = kLanes * W * kWarp;
+  static constexpr int PT = P / 8;                  // n-tiles of y
+  static constexpr int RT = R / 8;                  // key n-tiles of a slab
+  static constexpr int RTL = RT / kLanes;           // ... a head lane's half
+  static constexpr int kHead = R * P + 2 * R;
+  static constexpr int kSlabStep = R * N + kLanes * kHead;
+  static constexpr int kStateStep = kLanes * P * N;
+  static constexpr int kStage =
+      kSlabStep > kStateStep ? kSlabStep : kStateStep;
+  static constexpr int kSwap = kLanes * W * RTL * 4 * kWarp;
+  static constexpr int kFloats =
+      R * N + 2 * kStage + kSwap + kMaxHeads * R;
+};
+
+// y = exp(s_i) (C h_in^T) for the warp's 16 rows: chains of at most 64 of
+// depth N, each from zero, added by FADD
+template <int P, int N>
+__device__ __forceinline__ void state_term(float (&yp)[P / 8][4],
+                                           const float* ct, const float* hin,
+                                           int wr0, int lane,
+                                           const float (&es)[2]) {
+  constexpr int PT = P / 8, NP = PT >= 2 ? 2 : 1;
+  constexpr int KC = N < 64 ? N : 64;
+#pragma unroll 1
+  for (int k0 = 0; k0 < N; k0 += KC) {
+    float part[PT][4] = {};
+#pragma unroll 2
+    for (int kd = k0; kd < k0 + KC; kd += 8) {
+      TfA a;
+      load_a<N>(a, ct, wr0, kd, lane);
+#pragma unroll
+      for (int i = 0; i < PT; i += NP) {
+        TfB bb[NP];
+        load_b_run<N, NP>(bb, hin, 8 * i, kd, lane);
+#pragma unroll
+        for (int v = 0; v < NP; ++v) mma(part[i + v], a, bb[v]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yp[i][e] += part[i][e];
+  }
+#pragma unroll
+  for (int i = 0; i < PT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yp[i][e] *= es[e >> 1];
+}
+
+// The warp's rows of C B_k^T: its head lane's half of the key n-tiles over
+// depth N (hi hi and the small terms in accumulators of their own), then
+// the other lane's half from the partner warp through `swap`.  Has a
+// barrier, so the whole block calls it.
+template <int N, int R>
+__device__ __forceinline__ void form_cb(float (&cb)[R / 8][4],
+                                        const float* ct, const float* bk,
+                                        float* swap, int warp, int partner,
+                                        int hl, int wr0, bool diag,
+                                        int lane) {
+  constexpr int RTL = R / 16;
+  TfTile t[RTL];
+#pragma unroll
+  for (int u = 0; u < RTL; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[u].c[e] = t[u].corr[e] = 0.0f;
+  const int nb = hl * RTL;
+#pragma unroll 2
+  for (int kd = 0; kd < N; kd += 8) {
+    TfA a;
+    load_a<N>(a, ct, wr0, kd, lane);
+    TfB bb[RTL];
+    load_b_run<N, RTL>(bb, bk, 8 * nb, kd, lane);
+#pragma unroll
+    for (int u = 0; u < RTL; ++u)  // n-tiles wholly above the diagonal: 0
+      if (!diag || 8 * (nb + u) <= wr0 + 15) mma(t[u], a, bb[u]);
+  }
+  float own[RTL][4];
+  float4* mine = reinterpret_cast<float4*>(swap) + warp * RTL * kWarp + lane;
+#pragma unroll
+  for (int u = 0; u < RTL; ++u) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) own[u][e] = t[u].get(e);
+    mine[u * kWarp] = make_float4(own[u][0], own[u][1], own[u][2], own[u][3]);
+  }
+  __syncthreads();  // both halves are in
+  const float4* theirs =
+      reinterpret_cast<const float4*>(swap) + partner * RTL * kWarp + lane;
+#pragma unroll
+  for (int u = 0; u < RTL; ++u) {
+    const float4 v = theirs[u * kWarp];
+    const float o[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cb[u][e] = hl == 0 ? own[u][e] : o[e];
+      cb[RTL + u][e] = hl == 0 ? o[e] : own[u][e];
+    }
+  }
+}
+
+// y += G X_k for one head over the slab's depth R (one chain from zero,
+// added by FADD), G = C B^T o exp(s_i - s_j) o dt_j made per accumulator
+// element, exp taken only where i >= j
+template <int P, int R>
+__device__ __forceinline__ void slab_term(float (&yp)[P / 8][4],
+                                          const float (&cb)[R / 8][4],
+                                          const float* xk, const float* sk,
+                                          const float* dtk,
+                                          const float (&si)[2], bool diag,
+                                          int ia, int ib, int wr0, int lane) {
+  constexpr int PT = P / 8, NP = PT >= 2 ? 2 : 1;
+  const int tq = lane & 3;
+  float part[PT][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+    if (diag && 8 * kk > wr0 + 15) break;  // wholly above the diagonal
+    float gv[1][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? ia : ib;
+      const int j = 8 * kk + 2 * tq + (e & 1);
+      gv[0][e] = !diag || j <= i
+                     ? cb[kk][e] * expf(si[e >> 1] - sk[j]) * dtk[j]
+                     : 0.0f;
+    }
+    TfA a;
+    a_from_acc<1>(a, gv, 0);
+#pragma unroll
+    for (int i = 0; i < PT; i += NP) {
+      TfB bb[NP];
+      load_bt_run<P, NP>(bb, xk, 8 * kk, 8 * i, lane);
+#pragma unroll
+      for (int v = 0; v < NP; ++v) mma(part[i + v], a, bb[v]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yp[i][e] += part[i][e];
 }
 
 template <int P, int N, int R>
-__host__ __device__ constexpr size_t scan_smem_floats(int chunk) {
-  return static_cast<size_t>(R) * N + scan_union_floats<P, N, R>() +
-         2 * chunk;
-}
-
-template <int P, int N, int R>
-__global__ void __launch_bounds__(kScanThreads, 2)
+__global__ void __launch_bounds__(ScanShape<P, N, R>::kThreads, 1)
 ssd_chunk_scan_kernel(const float* __restrict__ x,
                       const float* __restrict__ dt,
                       const float* __restrict__ bm,
@@ -389,173 +632,136 @@ ssd_chunk_scan_kernel(const float* __restrict__ x,
                       const float* __restrict__ s,
                       const float* __restrict__ states,
                       float* __restrict__ y, int B, int L, int H, int G,
-                      int chunk) {
-  constexpr int NT = kScanThreads;
-  using MapG = QuadMap<R, R, NT>;
-  using MapY = QuadMap<R, P, NT>;
+                      int chunk, int heads) {
+  using S = ScanShape<P, N, R>;
+  constexpr int NTH = S::kThreads, PT = S::PT;
   extern __shared__ __align__(16) float smem[];
-  float* cs = smem;         // R x N, swizzled: C rows of the query tile
-  float* bs = cs + R * N;   // R x N, swizzled: B rows of the key slab
-  float* xs = bs + R * N;   // R x P: X rows of the key slab
-  float* gt = xs + R * P;   // R x R, swizzled: G^T of the slab
-  float* hs = xs;           // P x N, swizzled: h_in, before the X slabs
-  float* ss = bs + scan_union_floats<P, N, R>();  // s of steps 0 .. r0 + R
-  float* dts = ss + chunk;  // dt of the same steps
+  float* ct = smem;                      // R x N: C rows of the query tile
+  float* steps = ct + R * N;             // two step buffers
+  float* swap = steps + 2 * S::kStage;   // the C B^T halves
+  float* sown = swap + S::kSwap;         // s of the tile's rows, a head each
 
-  const int tid = threadIdx.x;
-  const int nc = L / chunk, nq = chunk / R;
-  const int per_tile = B * H * nc;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int rw = warp % S::W, hl = warp / S::W;
+  const int partner = rw + (1 - hl) * S::W;
+  const int gq = lane >> 2;
+  const int wr0 = 16 * rw, ia = wr0 + gq, ib = ia + 8;
+  const int nc = L / chunk, nq = chunk / R, hblocks = H / heads;
+  const int per_tile = B * nc * hblocks;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x) / per_tile;
   int rem = static_cast<int>(blockIdx.x) % per_tile;
-  const int h = rem % H;  // neighbouring blocks share B and C rows in L2
-  rem /= H;
+  const int h0 = (rem % hblocks) * heads;  // neighbours share B and C rows
+  rem /= hblocks;
   const int c = rem % nc, b = rem / nc;
-  const int g = h / (H / G);
+  const int g = h0 / (H / G);
   const int r0 = qt * R;
   const size_t t0 = static_cast<size_t>(b) * L +
                     static_cast<size_t>(c) * chunk;
-  const size_t bh = static_cast<size_t>(b) * H + h;
-  const float* xg = x + (t0 * H + h) * P;   // step j at + j H P
-  const float* bg = bm + (t0 * G + g) * N;  // step j at + j G N
-  const float* cg = cm + (t0 * G + g) * N;
   const size_t xstride = static_cast<size_t>(H) * P;
   const size_t bstride = static_cast<size_t>(G) * N;
+  const float* bg = bm + (t0 * G + g) * N;  // step j at + j G N
+  const float* cg = cm + (t0 * G + g) * N;
+  auto s_of = [&](int h) {
+    return s + (static_cast<size_t>(b) * H + h) * L +
+           static_cast<size_t>(c) * chunk;
+  };
+  auto step_buf = [&](int buf) { return steps + buf * S::kStage; };
+  // steps: the state term of each pair of heads, then for each key slab
+  // k <= qt each pair's G X (the first pair's step forms C B^T)
+  const int pairs = (heads + kLanes - 1) / kLanes;
+  const int nsteps = pairs * (qt + 2);
 
-  load_rows<N, true, NT>(cs, cg + r0 * bstride, R, bstride, tid);
-  load_rows<N, true, NT>(hs, states + (bh * nc + c) * P * N, P, N, tid);
-  cp_async_commit();
-  load_rows<N, true, NT>(bs, bg, R, bstride, tid);
-  cp_async_commit();  // B of slab 0, in flight while C h^T is formed
-  const float* s_chunk = s + bh * L + static_cast<size_t>(c) * chunk;
-  for (int t = tid; t < r0 + R; t += NT) {
-    ss[t] = s_chunk[t];
-    dts[t] = dt[(t0 + t) * H + h];
-  }
-  cp_async_wait<1>();  // C and h_in
-  __syncthreads();
-
-  // the inter-chunk term first: y = exp(s_i) (C h_in^T)_ip
-  const int ytx = tid % MapY::TX, yty = tid / MapY::TX;
-  const bool yactive = tid < MapY::kActive;
-  float yacc[4 * MapY::GM][4 * MapY::GN];
+  auto stage = [&](int n, float* st) {
+    if (n < pairs) {
 #pragma unroll
-  for (int i = 0; i < 4 * MapY::GM; ++i)
-#pragma unroll
-    for (int t = 0; t < 4 * MapY::GN; ++t) yacc[i][t] = 0.0f;
-  if (yactive) {
-#pragma unroll 4
-    for (int q = 0; q < N / 4; ++q) {
-      float4 cv[4 * MapY::GM], hv[4 * MapY::GN];
-#pragma unroll
-      for (int i = 0; i < 4 * MapY::GM; ++i)
-        cv[i] = load4(cs + swz<N>(4 * (yty + MapY::TY * (i / 4)) + i % 4, q));
-#pragma unroll
-      for (int t = 0; t < 4 * MapY::GN; ++t)
-        hv[t] = load4(hs + swz<N>(4 * (ytx + MapY::TX * (t / 4)) + t % 4, q));
-#pragma unroll
-      for (int i = 0; i < 4 * MapY::GM; ++i)
-#pragma unroll
-        for (int t = 0; t < 4 * MapY::GN; ++t)
-          yacc[i][t] = dot4(cv[i], hv[t], yacc[i][t]);
+      for (int l = 0; l < kLanes; ++l) {
+        const int hh = kLanes * n + l;
+        if (hh < heads)
+          load_rows<N, NTH>(
+              st + l * P * N,
+              states + ((static_cast<size_t>(b) * H + h0 + hh) * nc + c) *
+                           P * N,
+              N, P, tid);
+      }
+      return;
     }
-#pragma unroll
-    for (int i = 0; i < 4 * MapY::GM; ++i) {
-      const float es =
-          expf(ss[r0 + 4 * (yty + MapY::TY * (i / 4)) + i % 4]);
-#pragma unroll
-      for (int t = 0; t < 4 * MapY::GN; ++t) yacc[i][t] *= es;
-    }
-  }
-
-  const int gtx = tid % MapG::TX, gty = tid / MapG::TX;
-  const bool gactive = tid < MapG::kActive;
-  // key slabs 0 .. qt: none lies above the diagonal
-  for (int k = 0; k <= qt; ++k) {
+    const int m = n - pairs, k = m / pairs, p = m % pairs;
     const int j0 = k * R;
-    cp_async_wait<0>();  // B of slab k
-    __syncthreads();     // ... landed for all; h_in, or X and G^T of slab
-                         // k - 1, read by all
-    load_rows<P, false, NT>(xs, xg + j0 * xstride, R, xstride, tid);
-    cp_async_commit();   // X of slab k, in flight while G is formed
-
-    if (gactive) {
-      float gacc[4 * MapG::GM][4 * MapG::GN];
+    if (p == 0) load_rows<N, NTH>(st, bg + j0 * bstride, bstride, R, tid);
 #pragma unroll
-      for (int i = 0; i < 4 * MapG::GM; ++i)
-#pragma unroll
-        for (int t = 0; t < 4 * MapG::GN; ++t) gacc[i][t] = 0.0f;
-#pragma unroll 4
-      for (int q = 0; q < N / 4; ++q) {
-        float4 cv[4 * MapG::GM], bv[4 * MapG::GN];
-#pragma unroll
-        for (int i = 0; i < 4 * MapG::GM; ++i)
-          cv[i] =
-              load4(cs + swz<N>(4 * (gty + MapG::TY * (i / 4)) + i % 4, q));
-#pragma unroll
-        for (int t = 0; t < 4 * MapG::GN; ++t)
-          bv[t] =
-              load4(bs + swz<N>(4 * (gtx + MapG::TX * (t / 4)) + t % 4, q));
-#pragma unroll
-        for (int i = 0; i < 4 * MapG::GM; ++i)
-#pragma unroll
-          for (int t = 0; t < 4 * MapG::GN; ++t)
-            gacc[i][t] = dot4(cv[i], bv[t], gacc[i][t]);
-      }
-      // decay, mask and dt; exp only where i >= j.  Stored transposed: a
-      // float4 holds four query rows of one key column.
-#pragma unroll
-      for (int t = 0; t < 4 * MapG::GN; ++t) {
-        const int j = 4 * (gtx + MapG::TX * (t / 4)) + t % 4;
-        const int kj = j0 + j;
-        const float sj = ss[kj], dj = dts[kj];
-#pragma unroll
-        for (int a = 0; a < MapG::GM; ++a) {
-          const int iq = gty + MapG::TY * a;
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = r0 + 4 * iq + e;
-            v[e] = qi >= kj ? gacc[4 * a + e][t] * expf(ss[qi] - sj) * dj
-                            : 0.0f;
-          }
-          store4(gt + swz<R>(j, iq), v[0], v[1], v[2], v[3]);
-        }
+    for (int l = 0; l < kLanes; ++l) {
+      const int hh = kLanes * p + l, h = h0 + hh;
+      if (hh < heads) {
+        float* hs = st + R * N + l * S::kHead;
+        load_rows<P, NTH>(hs, x + ((t0 + j0) * H + h) * P, xstride, R, tid);
+        load_vec<NTH>(hs + R * P, s_of(h) + j0, R, tid);
+        load_strided<NTH>(hs + R * P + R,
+                          dt + (t0 + j0) * H + h, H, R, tid);
       }
     }
-    cp_async_wait<0>();  // X of slab k
-    __syncthreads();     // ... landed for all; G^T written; B slab read
-    if (k < qt)
-      load_rows<N, true, NT>(bs, bg + (j0 + R) * bstride, R, bstride, tid);
-    cp_async_commit();   // B of slab k + 1, in flight while G X runs
+  };
 
-    if (yactive) {
-#pragma unroll 4
-      for (int j = 0; j < R; ++j) {
-        float gv[4 * MapY::GM], xv[4 * MapY::GN];
+  load_rows<N, NTH>(ct, cg + r0 * bstride, bstride, R, tid);
+  for (int hh = 0; hh < heads; ++hh)
+    load_vec<NTH>(sown + hh * R, s_of(h0 + hh) + r0, R, tid);
+  stage(0, step_buf(0));
+  cp_async_commit();
+
+  float yacc[kHeadsPerWarp][PT][4] = {};
+  float cb[S::RT][4];
+  for (int n = 0; n < nsteps; ++n) {
+    const int buf = n & 1;
+    if (n + 1 < nsteps) {
+      stage(n + 1, step_buf(buf ^ 1));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step n's rows are in for every thread
+    const float* st = step_buf(buf);
+    if (n < pairs) {
+      const int hh = kLanes * n + hl;
+      if (hh < heads) {
+        const float es[2] = {expf(sown[hh * R + ia]),
+                             expf(sown[hh * R + ib])};
 #pragma unroll
-        for (int a = 0; a < MapY::GM; ++a)
-          unpack4(load4(gt + swz<R>(j, yty + MapY::TY * a)), gv + 4 * a);
+        for (int p = 0; p < kHeadsPerWarp; ++p)
+          if (p == n)
+            state_term<P, N>(yacc[p], ct, st + hl * P * N, wr0, lane, es);
+      }
+    } else {
+      const int m = n - pairs, k = m / pairs, p = m % pairs;
+      const bool diag = k == qt;
+      if (p == 0)
+        form_cb<N, R>(cb, ct, st, swap, warp, partner, hl, wr0, diag, lane);
+      const int hh = kLanes * p + hl;
+      if (hh < heads) {
+        const float* xk = st + R * N + hl * S::kHead;
+        const float si[2] = {sown[hh * R + ia], sown[hh * R + ib]};
 #pragma unroll
-        for (int q = 0; q < MapY::GN; ++q)
-          unpack4(load4(xs + j * P + 4 * (ytx + MapY::TX * q)), xv + 4 * q);
-#pragma unroll
-        for (int i = 0; i < 4 * MapY::GM; ++i)
-#pragma unroll
-          for (int t = 0; t < 4 * MapY::GN; ++t)
-            yacc[i][t] = fmaf(gv[i], xv[t], yacc[i][t]);
+        for (int q = 0; q < kHeadsPerWarp; ++q)
+          if (q == p)
+            slab_term<P, R>(yacc[q], cb, xk, xk + R * P, xk + R * P + R, si,
+                            diag, ia, ib, wr0, lane);
       }
     }
+    __syncthreads();  // every read of this buffer is done before its refill
   }
-  cp_async_wait<0>();
-  if (!yactive) return;
+  const int tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4 * MapY::GM; ++i) {
-    const size_t row = t0 + r0 + 4 * (yty + MapY::TY * (i / 4)) + i % 4;
+  for (int p = 0; p < kHeadsPerWarp; ++p) {
+    const int hh = kLanes * p + hl;
+    if (hh < heads) {
+      float* out = y + ((t0 + r0 + wr0) * H + h0 + hh) * P;
 #pragma unroll
-    for (int q = 0; q < MapY::GN; ++q)
-      store4(y + (row * H + h) * P + 4 * (ytx + MapY::TX * q),
-             yacc[i][4 * q], yacc[i][4 * q + 1], yacc[i][4 * q + 2],
-             yacc[i][4 * q + 3]);
+      for (int i = 0; i < PT; ++i) {
+        store2(out + gq * xstride + 8 * i + 2 * tq, yacc[p][i][0],
+               yacc[p][i][1]);
+        store2(out + (gq + 8) * xstride + 8 * i + 2 * tq, yacc[p][i][2],
+               yacc[p][i][3]);
+      }
+    }
   }
 }
 
@@ -569,7 +775,7 @@ struct Args {
   float* s;
   float* states;
   float* y;
-  int B, L, H, G, P, N, chunk;
+  int B, L, H, G, P, N, chunk, heads;
   cudaStream_t stream;
 };
 
@@ -611,55 +817,62 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 template <int P, int N>
 int launch_chunk_state(const Args& a) {
-  const size_t smem = sizeof(float) * state_smem_floats<P, N>(a.chunk);
+  using S = StateShape<P, N>;
+  const size_t smem = sizeof(float) * S::floats(a.chunk);
   auto kernel = ssd_chunk_state_kernel<P, N>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.L / a.chunk, a.H, a.B);
-  kernel<<<grid, kStateThreads, smem, a.stream>>>(
-      a.x, a.dt, a.a_log, a.b, a.s, a.states, a.L, a.H, a.G, a.chunk);
+  const dim3 grid(a.L / a.chunk, a.H / a.heads, a.B);
+  kernel<<<grid, S::kThreads, smem, a.stream>>>(
+      a.x, a.dt, a.a_log, a.b, a.s, a.states, a.L, a.H, a.G, a.chunk,
+      a.heads);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int P, int N, int R>
 int launch_chunk_scan(const Args& a) {
-  const size_t smem = sizeof(float) * scan_smem_floats<P, N, R>(a.chunk);
+  using S = ScanShape<P, N, R>;
+  const size_t smem = sizeof(float) * S::kFloats;
   auto kernel = ssd_chunk_scan_kernel<P, N, R>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>(a.B) * a.H *
+  const long long blocks = static_cast<long long>(a.B) * (a.H / a.heads) *
                            (a.L / a.chunk) * (a.chunk / R);
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kScanThreads, smem, a.stream>>>(
-      a.x, a.dt, a.b, a.c, a.s, a.states, a.y, a.B, a.L, a.H, a.G, a.chunk);
+  kernel<<<static_cast<unsigned>(blocks), S::kThreads, smem, a.stream>>>(
+      a.x, a.dt, a.b, a.c, a.s, a.states, a.y, a.B, a.L, a.H, a.G, a.chunk,
+      a.heads);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid(const Args& a) {
+// the shape rules, and `heads` a divisor of H / G no larger than `most`
+bool valid(const Args& a, int most) {
   return a.B > 0 && a.L > 0 && a.H > 0 && a.G > 0 && a.H % a.G == 0 &&
-         a.B <= 65535 && a.H <= 65535 && a.chunk >= kSlab &&
-         a.chunk % kSlab == 0 && a.L % a.chunk == 0;
+         a.B <= 65535 && a.H <= 65535 && a.chunk >= 16 &&
+         a.chunk % 16 == 0 && a.L % a.chunk == 0 && a.heads > 0 &&
+         a.heads <= most && (a.H / a.G) % a.heads == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// float32 only.  The caller guarantees contiguous operands on the current
-// device, s (B, H, L) and states (B, H, L / chunk, P, N) float32, and a
-// chunk that is 16, 32 or a multiple of 64 and divides L.
+// float32 only.  The caller guarantees contiguous, 16-byte aligned operands
+// on the current device, s (B, H, L) and states (B, H, L / chunk, P, N)
+// float32, and a chunk that is 16, 32 or a multiple of 64 and divides L.
 
-// pass 1: s and each chunk's own state contribution S_c
+// pass 1: s and each chunk's own state contribution S_c, `heads` (1 or 2)
+// heads of one group a block
 int repro_ssd_chunk_state(const void* x, const void* dt, const void* a_log,
                           const void* b, void* s, void* states, int B, int L,
-                          int H, int G, int p, int n, int chunk,
+                          int H, int G, int p, int n, int chunk, int heads,
                           void* stream) {
   const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
                static_cast<const float*>(a_log), static_cast<const float*>(b),
                nullptr, static_cast<float*>(s), static_cast<float*>(states),
-               nullptr, B, L, H, G, p, n, chunk,
+               nullptr, B, L, H, G, p, n, chunk, heads,
                static_cast<cudaStream_t>(stream)};
-  if (!valid(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(a, kLanes)) return static_cast<int>(cudaErrorInvalidValue);
   return with_pn(p, n, [&](auto P, auto N) {
     return launch_chunk_state<decltype(P)::value, decltype(N)::value>(a);
   });
@@ -674,8 +887,8 @@ int repro_ssd_state_pass(void* states, const void* s, const void* h0,
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr,
                const_cast<float*>(static_cast<const float*>(s)),
                static_cast<float*>(states), nullptr, B, L, H, 1, p, n, chunk,
-               static_cast<cudaStream_t>(stream)};
-  if (!valid(a) || p <= 0 || n <= 0 || (p * n) % 4)
+               1, static_cast<cudaStream_t>(stream)};
+  if (!valid(a, 1) || p <= 0 || n <= 0 || (p * n) % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const int pn4 = p * n / 4;
   const dim3 grid((pn4 + kPassThreads - 1) / kPassThreads, H, B);
@@ -685,20 +898,21 @@ int repro_ssd_state_pass(void* states, const void* s, const void* h0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// pass 3: y from the chunk's key slabs and h_in
+// pass 3: y from h_in and the chunk's key slabs, `heads` (1 to 4) heads of
+// one group a block
 int repro_ssd_chunk_scan(const void* x, const void* dt, const void* b,
                          const void* c, const void* s, const void* states,
                          void* y, int B, int L, int H, int G, int p, int n,
-                         int chunk, void* stream) {
+                         int chunk, int heads, void* stream) {
   const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
                nullptr, static_cast<const float*>(b),
                static_cast<const float*>(c),
                const_cast<float*>(static_cast<const float*>(s)),
                const_cast<float*>(static_cast<const float*>(states)),
-               static_cast<float*>(y), B, L, H, G, p, n, chunk,
+               static_cast<float*>(y), B, L, H, G, p, n, chunk, heads,
                static_cast<cudaStream_t>(stream)};
   const int rows = chunk < 64 ? chunk : 64;
-  if (!valid(a) || chunk % rows)
+  if (!valid(a, kMaxHeads) || chunk % rows)
     return static_cast<int>(cudaErrorInvalidValue);
   return with_pn(p, n, [&](auto P, auto N) -> int {
     constexpr int kP = decltype(P)::value, kN = decltype(N)::value;

@@ -2,18 +2,21 @@
 version.
 
 The counterpart of ``repro/kernels/ssd.py``.  The kernels are
-``csrc/ssd.cu`` (FP32 FFMA), Mamba-2's chunk-parallel three-pass form:
+``csrc/ssd.cu``, Mamba-2's chunk-parallel three-pass form, passes 1 and 3
+on the tensor cores (3xTF32 ``mma.sync``):
 
-1. ``ssd_chunk_state_kernel``, one block per (batch, head, chunk): the
-   chunk's cumulative log-decay ``s`` and its own state contribution
-   ``S_c = X^T (B * w)``, both written to scratch;
+1. ``ssd_chunk_state_kernel``, one block per (batch, chunk, two heads of a
+   group, :func:`ssd_state_heads`): each head's cumulative log-decay ``s``
+   and its own state contribution ``S_c = X^T (B * w)``, both written to
+   scratch, the B rows staged once for both heads;
 2. ``ssd_state_pass_kernel``: the short scan over chunks, turning each
    ``S_c`` in place into ``h_in[c]``, the state entering chunk ``c``,
    from an initial state ``h0`` (zero unless given), and writing the
    state after the last chunk where it is asked for;
-3. ``ssd_chunk_scan_kernel``, one block per (batch, head, chunk, query
-   tile): the outputs from the key slabs on and below the diagonal and
-   from ``h_in[c]``.
+3. ``ssd_chunk_scan_kernel``, one block per (batch, chunk, query tile,
+   :func:`ssd_scan_heads` heads of a group): the outputs from ``h_in[c]``
+   and from the key slabs on and below the diagonal, ``C B^T`` formed once
+   a slab for all the block's heads.
 
 Its note says what bounds each pass and why it is built so.  The
 recurrence is ``h_t = h_{t-1} * exp(a dt_t) + dt_t x_t (x) b_t``,
@@ -56,8 +59,14 @@ KERNEL_HEAD_DIMS: Tuple[int, ...] = (8, 16, 32, 64)
 KERNEL_STATES: Tuple[int, ...] = (8, 16, 32, 64, 128)
 #: rows of pass 3's query tiles and key slabs: min(chunk, ROWS)
 ROWS = 64
-#: pass 1: rows of a slab and slabs in its cp.async ring (fixed by design)
-STATE_SLAB, STATE_STAGES = 16, 3
+#: pass 1: steps of a slab (fixed by design)
+STATE_SLAB = 32
+#: head lanes of the forward's blocks: the warps of a row group, one head
+#: each (``kLanes`` in ``csrc/ssd.cu``); pass 1 takes this many heads
+LANES = 2
+#: the most heads a block of the forward's pass 3 takes (``kMaxHeads``;
+#: :func:`ssd_scan_heads` picks the number)
+SCAN_HEADS = 4
 #: threads of a block of the backward's reverse state pass (ii)
 BWD_PASS_THREADS = 128
 #: the most heads a block of the backward's chunk pass (iii) takes
@@ -71,16 +80,45 @@ def _rows(chunk: int) -> int:
     return min(chunk, ROWS)
 
 
+def _group_heads(h: int, g: int, most: int) -> int:
+    """The largest divisor of a group's ``h // g`` heads that is at most
+    ``most``: the heads of one block of a pass that takes a group's heads
+    together."""
+    rep = h // g
+    return max(k for k in range(1, min(most, rep) + 1) if rep % k == 0)
+
+
+def ssd_state_heads(h: int, g: int) -> int:
+    """Heads of a block of the forward's pass 1: two of one group (one a
+    head lane, the B rows staged once for both) where the group's heads
+    are even in number, else one."""
+    return _group_heads(h, g, LANES)
+
+
+def ssd_scan_heads(h: int, g: int) -> int:
+    """Heads of a block of the forward's pass 3: the largest divisor of a
+    group's ``h // g`` heads up to :data:`SCAN_HEADS`.  The block forms
+    ``C B^T`` once a key slab for all of them: 4 at mamba2-2.7b (80 heads,
+    one group), 1,280 blocks at chunk 256."""
+    return _group_heads(h, g, SCAN_HEADS)
+
+
 def ssd_smem_bytes(chunk: int, p: int, n: int) -> int:
     """Shared memory the larger of the two staging passes takes, all
-    float32.  Pass 3: the C rows of a query tile (R x N), a B slab (R x N),
-    then either h_in (P x N) or, in the same space, an X slab (R x P) and
-    the G^T tile (R x R), and s and dt of the chunk, with R = min(chunk,
-    64).  Pass 1: a ring of three 16-row slabs of X and B, s and w of the
-    chunk and the totals of its four warps."""
+    float32 (``ScanShape`` and ``StateShape`` in ``csrc/ssd.cu``).  Pass 3:
+    the C rows of a query tile (R x N); two step buffers, each the larger
+    of a pair of heads' h_in (2 x P x N) and a key slab's B rows (R x N)
+    with two heads' X rows (R x P), s and dt (2 R); the swap of the C B^T
+    halves (R x R); s of the tile's rows for :data:`SCAN_HEADS` heads;
+    R = min(chunk, 64): 183,296 bytes at (64, 128) and any chunk of 64 or
+    more.  Pass 1: two slab buffers of the B rows (32 x N) and two heads'
+    X rows (32 x P), w of the chunk for two heads, and two totals of each
+    of its warps."""
     r = _rows(chunk)
-    scan = 2 * r * n + max(r * (p + r), p * n) + 2 * chunk
-    state = STATE_STAGES * STATE_SLAB * (p + n) + 2 * chunk + 4
+    step = max(r * n + LANES * (r * p + 2 * r), LANES * p * n)
+    scan = r * n + 2 * step + r * r + SCAN_HEADS * r
+    warps = LANES * -(-p // 16)
+    state = 2 * STATE_SLAB * (n + LANES * p) + LANES * (chunk + warps)
     return 4 * max(scan, state)
 
 
@@ -108,14 +146,16 @@ def ssd_tile_legal(l: int, chunk: int, p: int, n: int,
 
 def ssd_grid_steps(b: int, l: int, h: int, chunk: int) -> int:
     """(batch, head, chunk) steps of one SSD call at chunk length
-    ``chunk``: the reference's grid, and the blocks of pass 1."""
+    ``chunk``: the reference's grid.  Pass 1 launches one block per
+    :func:`ssd_state_heads` of them."""
     return b * h * (l // chunk)
 
 
 def ssd_query_tiles(chunk: int) -> List[int]:
     """Pass 3's query tiles of a chunk in launch order: tile ``t`` holds
     rows ``t R .. t R + R - 1`` and visits ``t + 1`` key slabs, so the
-    heaviest tiles come first (the kernel's outermost block index)."""
+    heaviest tiles come first (the kernel's outermost block index), so
+    the one-slab tiles fill the tail of the last wave."""
     nq = chunk // _rows(chunk)
     return [nq - 1 - i for i in range(nq)]
 
@@ -126,9 +166,11 @@ def ssd_key_slabs(tile: int) -> range:
     return range(tile + 1)
 
 
-def ssd_scan_blocks(b: int, l: int, h: int, chunk: int) -> int:
-    """Blocks of pass 3: one per (batch, head, chunk, query tile)."""
-    return ssd_grid_steps(b, l, h, chunk) * (chunk // _rows(chunk))
+def ssd_scan_blocks(b: int, l: int, h: int, chunk: int,
+                    heads: int = 1) -> int:
+    """Blocks of pass 3: one per (batch, chunk, query tile) and block of
+    ``heads`` heads (:func:`ssd_scan_heads`)."""
+    return ssd_grid_steps(b, l, h // heads, chunk) * (chunk // _rows(chunk))
 
 
 def ssd_scratch_bytes(b: int, l: int, h: int, p: int, n: int,
@@ -147,12 +189,13 @@ def ssd_proxy_problem(chunk: int, p: int, n: int,
     this problem and models its per-step cost.  The reference's proxy is
     one batch and one head.  Here the proxy has :data:`PROXY_BLOCKS` heads
     (one group), each ``steps_per_dim`` chunks long, so its pass 1
-    launches ``PROXY_BLOCKS * steps_per_dim`` blocks and pass 3 as many
-    times the query tiles of a chunk: it measures throughput.  A real
-    problem fills the card the same way, since its blocks are per
-    (batch, head, chunk) too: mamba2-2.7b at batch 1 and 4096 tokens
-    launches 80 * 4096 / chunk >= 1,280 blocks in pass 1 at every chunk up
-    to 256, so its per-step cost is the proxy's.
+    launches ``PROXY_BLOCKS * steps_per_dim / 2`` blocks (two heads a
+    block) and pass 3 a quarter of ``PROXY_BLOCKS * steps_per_dim`` times
+    the query tiles of a chunk (four heads a block): it measures
+    throughput.  A real problem fills the card the same way, since its
+    blocks are per (batch, chunk, heads of a group) too: mamba2-2.7b at
+    batch 1 and 4096 tokens launches 40 * 4096 / chunk >= 640 blocks in
+    pass 1 at every chunk up to 256, so its per-step cost is the proxy's.
     """
     return (1, chunk * steps_per_dim, PROXY_BLOCKS, p, 1, n)
 
@@ -420,12 +463,16 @@ def ssd_scratch(x: torch.Tensor, b: torch.Tensor,
     return s, states
 
 
-def _launch_chunk_state(x, dt, a_log, b, s, states, chunk: int) -> None:
-    """Pass 1: ``s`` and each chunk's ``S_c`` into ``states``."""
+def _launch_chunk_state(x, dt, a_log, b, s, states, chunk: int,
+                        heads: Optional[int] = None) -> None:
+    """Pass 1: ``s`` and each chunk's ``S_c`` into ``states``, ``heads``
+    heads a block (:func:`ssd_state_heads` when None)."""
     bsz, l, h, p = x.shape
+    g = b.shape[2]
+    heads = ssd_state_heads(h, g) if heads is None else heads
     _call("repro_ssd_chunk_state", "chunk-state pass",
           (x, dt, a_log, b, s, states),
-          (bsz, l, h, b.shape[2], p, b.shape[3], chunk), x.device)
+          (bsz, l, h, g, p, b.shape[3], chunk, heads), x.device)
 
 
 def _launch_state_pass(s, states, chunk: int, h0=None,
@@ -438,12 +485,16 @@ def _launch_state_pass(s, states, chunk: int, h0=None,
           (bsz, s.shape[2], h, p, n, chunk), s.device)
 
 
-def _launch_chunk_scan(x, dt, b, c, s, states, y, chunk: int) -> None:
-    """Pass 3: ``y`` from the key slabs and ``h_in``."""
+def _launch_chunk_scan(x, dt, b, c, s, states, y, chunk: int,
+                       heads: Optional[int] = None) -> None:
+    """Pass 3: ``y`` from ``h_in`` and the key slabs, ``heads`` heads a
+    block (:func:`ssd_scan_heads` when None)."""
     bsz, l, h, p = x.shape
+    g = b.shape[2]
+    heads = ssd_scan_heads(h, g) if heads is None else heads
     _call("repro_ssd_chunk_scan", "chunk-scan pass",
           (x, dt, b, c, s, states, y),
-          (bsz, l, h, b.shape[2], p, b.shape[3], chunk), x.device)
+          (bsz, l, h, g, p, b.shape[3], chunk, heads), x.device)
 
 
 def _prepare(x, dt, a_log, b, c, chunk: int, h0) -> int:
@@ -520,8 +571,7 @@ def ssd_bwd_heads(h: int, g: int) -> int:
     adds holds ``h // (g * heads)`` partials a group in place of ``h // g``
     heads: 10 at mamba2-2.7b (80 heads, one group) gives 8 partials and,
     at chunk 256, 512 blocks of one an SM."""
-    rep = h // g
-    return max(k for k in range(1, min(BWD_HEADS, rep) + 1) if rep % k == 0)
+    return _group_heads(h, g, BWD_HEADS)
 
 
 def ssd_bwd_smem_bytes(chunk: int, p: int, n: int) -> int:

@@ -437,7 +437,10 @@ def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
     reported, the mma.sync route at the float32 family's selected (bq,
     bkv, d) and the wgmma route at the models' bfloat16 WGMMA_MAIN_KEY;
     the SSD's (chunk, p, n) as its three passes: chunk state (p, n), the
-    state pass (no template) and chunk scan (p, n, min(chunk, 64))."""
+    state pass (no template) and chunk scan (p, n, min(chunk, 64)); the
+    attention backward's dK/dV and dQ kernels on both routes, the
+    mma.sync route's float32 ones at BWD_MAIN_KEY and the wgmma route's at
+    BWD_WGMMA_KEYS."""
     bm, bn, bk = matmul_cfg
     chunk, p, n = ssd_cfg
     return {
@@ -446,6 +449,11 @@ def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
         "flash_attention": [
             ("mma_sync", ("attn_sync_kernel", "float32", tuple(attn_cfg))),
             ("wgmma", ("attn_wgmma_kernel", "bfloat16", WGMMA_MAIN_KEY))],
+        "flash_attention_bwd": [
+            ("dkdv", ("attn_bwd_dkdv_kernel", "float32", BWD_MAIN_KEY)),
+            ("dq", ("attn_bwd_dq_kernel", "float32", BWD_MAIN_KEY)),
+            *((f"{kern.split('_')[3]}_wgmma", (kern, "bfloat16", key))
+              for kern, key in BWD_WGMMA_KEYS.items())],
         "ssd": [("chunk_state", ("ssd_chunk_state_kernel", "float32",
                                  (p, n))),
                 ("state_pass", ("ssd_state_pass_kernel", "float32", ())),
@@ -1130,7 +1138,7 @@ def check_ssd(card, sass_run) -> dict:
         f"max_abs_err {max_abs:.3e} (max |plain| "
         f"{float(ref.abs().max()):.1f}); kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']}, {bd['route']})")
+        f"({bd['bound_by']}, {bd['bound_terms']})")
     return {"mamba2_2_7b": {"chunk": chunk, "normwise": err,
                             "state_normwise": state_errs,
                             "max_abs_err": max_abs, "kernel_ms": ms,
@@ -1422,7 +1430,7 @@ def finish_ssd(tuned: dict, card) -> dict:
     scratch_ms = 4 * scratch / card.hbm_bytes_per_s * 1e3
     log(f"  ssd {SSD_PROBLEM} at the selected chunk {chunk}: kernel "
         f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, no library call, "
-        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['route']})")
+        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['bound_terms']})")
     for c, ms in passes.items():
         log(f"  ssd passes at chunk {c}, in sequence: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in ms.items()) +
@@ -2783,34 +2791,45 @@ RESUME_AT = 2
 RESUME_STEPS = 4
 
 
-def attn_bwd_work(b, hq, hkv, s, d, causal, window, itemsize):
-    """(flops, bytes) the attention backward needs: five products of 2 d
-    flops a kept pair (s, dP, dV, dK, dQ: 2.5 times attn_work's), q, k, v,
-    o, dO and lse read once and dq, dk, dv written once."""
-    flops = 2.5 * attn_work(b, hq, hkv, s, d, causal, window, itemsize)[0]
+def attn_bwd_work(b, hq, hkv, s, d, causal, window, itemsize,
+                  softcap=0.0):
+    """(flops, bytes, MUFU results) the attention backward needs: five
+    products of 2 d flops a kept pair (s, dP, dV, dK, dQ: 2.5 times
+    attn_work's), q, k, v, o, dO and lse read once and dq, dk, dv written
+    once, and FWD_MUFU special-function results a pair (p once: the dQ
+    kernel forms it again, a cost of the kernels' design, which
+    check_bwd_sass counts beside it)."""
+    flops, _, mufu = attn_work(b, hq, hkv, s, d, causal, window, itemsize,
+                               softcap)
     nbytes = float(itemsize) * b * s * d * (4 * hq + 4 * hkv) + \
         4.0 * b * hq * s
-    return flops, nbytes
+    return 2.5 * flops, nbytes, mufu
 
 
-def bwd_bound(flops, nbytes, dtype, card) -> dict:
+def bwd_bound(flops, nbytes, dtype, card, mufu=0.0) -> dict:
     """A tensor-core kernel's bound on the route it takes (the backwards
     and the SSD forward): bfloat16 products at the tensor
     cores' bfloat16 rate; float32 ones as three TF32 products each at the
     TF32 rate, with the FFMA bound (the FP32 rate outside the tensor cores)
-    beside it as ``bound_ms_ffma``."""
+    beside it as ``bound_ms_ffma``; with a MUFU term where ``mufu``
+    special-function results are given (the attention backward)."""
     import torch
     if dtype == torch.bfloat16:
-        bd = bound(flops, nbytes, card.bf16_tensor_flops, card)
-        bd["route"] = (f"{flops / 1e9:.1f} GFLOP at "
-                       f"{card.bf16_tensor_flops / 1e12:.0f} TFLOP/s")
-        return bd
-    bd = bound(3 * flops, nbytes, card.tf32_tensor_flops, card)
-    bd["bound_ms_ffma"] = bound(flops, nbytes, card.fp32_flops,
-                                card)["bound_ms"]
-    bd["route"] = (f"3xTF32 {3 * flops / 1e9:.1f} GFLOP at "
-                   f"{card.tf32_tensor_flops / 1e12:.0f} TFLOP/s; FFMA bound "
-                   f"{bd['bound_ms_ffma']:.3f}")
+        bd = bound(flops, nbytes, card.bf16_tensor_flops, card, mufu)
+        bd["bound_terms"] = (f"{flops / 1e9:.1f} GFLOP at "
+                             f"{card.bf16_tensor_flops / 1e12:.0f} TFLOP/s")
+    else:
+        bd = bound(3 * flops, nbytes, card.tf32_tensor_flops, card, mufu)
+        bd["bound_ms_ffma"] = bound(flops, nbytes, card.fp32_flops,
+                                    card)["bound_ms"]
+        bd["bound_terms"] = (f"3xTF32 {3 * flops / 1e9:.1f} GFLOP at "
+                             f"{card.tf32_tensor_flops / 1e12:.0f} TFLOP/s;"
+                             f" FFMA bound {bd['bound_ms_ffma']:.3f}")
+    if mufu:
+        bd["bound_terms"] += (f"; MUFU {mufu / 1e9:.2f} G results at "
+                              f"{mufu_per_s(card) / 1e12:.2f} T/s "
+                              f"{bd['mufu_ms']:.3f} ms; bound by "
+                              f"{bd['bound_by']}")
     return bd
 
 
@@ -2924,53 +2943,81 @@ def check_fwd_sass(sass_run) -> dict:
             "wgmma_sass_registers": regs}
 
 
-#: the backward's instantiations gemma2-27b's layers run: (warps of 16
-#: rows, D) = (4, 128), block 64
+#: the backward's instantiations the SASS gate reads: the mma.sync
+#: route's float32 kernels at (warps of 16 rows, D) = (4, 128), block 64;
+#: the wgmma route's at the models' bfloat16 config, the dK/dV kernel at D
+#: = 128 and the dQ kernel at (block, D) = (128, 128)
 BWD_MAIN_KEY = (4, 128)
+BWD_WGMMA_KEYS = {"attn_bwd_wgmma_dkdv_kernel": (128,),
+                  "attn_bwd_wgmma_dq_kernel": (128, 128)}
 
 
 def check_bwd_sass(sass_run) -> dict:
-    """The SASS gate: the backward's dK/dV and dQ kernels at BWD_MAIN_KEY
-    hold tensor-core instructions in both dtypes (``proc`` from
-    :func:`start_sass` on the backward's library)."""
-    counts = hmma_counts(sass_run)
-    w, d = BWD_MAIN_KEY
-    found = {}
+    """The backward's SASS gate (``sass_run`` from :func:`start_sass` on
+    its library): HGMMA in both wgmma-route kernels at BWD_WGMMA_KEYS,
+    HMMA in the float32 mma.sync dK/dV and dQ kernels at BWD_MAIN_KEY;
+    and the MUFU instructions of each wgmma kernel per logit a consumer
+    thread forms in a 64 x 64 tile (32; the softcap's and the masked
+    copies of the pair math included)."""
+    def one(counts, kern, tag, key):
+        mangled = "".join(f"Li{c}E" for c in key)
+        names = [n for n in counts if kern in n and f"{tag}{mangled}" in n]
+        if len(names) != 1:
+            raise AssertionError(f"no single SASS function for {kern} at "
+                                 f"{key}: {names}")
+        return counts[names[0]]
+
+    hgmma, hmma = hmma_counts(sass_run, "HGMMA"), hmma_counts(sass_run)
+    ops = ("MUFU.EX2", "MUFU.RCP", "MUFU")
+    counts = {op: hmma_counts(sass_run, op) for op in ops}
+    found, mufu = {}, {}
+    for kern, key in BWD_WGMMA_KEYS.items():
+        found[f"{kern}/bfloat16"] = one(hgmma, kern, "I", key)
+        mufu[kern] = {op: one(counts[op], kern, "I", key) / 32
+                      for op in ops}
     for kern in ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"):
-        for dtype, tag in (("float32", "If"), ("bfloat16", "I13__nv_bfloat16")):
-            names = [n for n in counts
-                     if kern in n and f"{tag}Li{w}ELi{d}E" in n]
-            if len(names) != 1:
-                raise AssertionError(f"no single SASS function for {kern} "
-                                     f"{dtype} at {BWD_MAIN_KEY}: {names}")
-            found[f"{kern}/{dtype}"] = counts[names[0]]
+        found[f"{kern}/float32"] = one(hmma, kern, "If", BWD_MAIN_KEY)
     if not all(found.values()):
-        raise AssertionError(f"the backward's SASS at {BWD_MAIN_KEY} lacks "
-                             f"tensor-core instructions: {found}")
-    log(f"  backward SASS at (warps, D) = {BWD_MAIN_KEY}: HMMA per kernel "
-        f"{found} (cuobjdump -sass)")
-    return found
+        raise AssertionError(f"the backward's SASS lacks tensor-core "
+                             f"instructions: {found}")
+    log(f"  backward SASS: HGMMA in the wgmma route's kernels at "
+        f"{BWD_WGMMA_KEYS}, HMMA in the mma.sync route's float32 kernels at "
+        f"(warps, D) = {BWD_MAIN_KEY}: {found} (cuobjdump -sass); MUFU per "
+        f"logit of a 64 x 64 tile, over the four compiled copies of the "
+        f"pair math (softcap or not, masked or not): " + "; ".join(
+            f"{k} " + ", ".join(f"{op} {v:.2f}" for op, v in c.items())
+            for k, c in mufu.items()) +
+        f" (FWD_MUFU counts {FWD_MUFU} a kept pair; the dQ kernel forms p "
+        f"again)")
+    return {**found, "mufu_per_logit": mufu}
 
 
 def check_attention_bwd(card, sass_run) -> dict:
     """Phase 14a: the backward kernels against the plain backward on the
     same forward output and row statistics (the kernel forward's, whose
     lse is held against the plain forward's first): at every instantiated
-    (block, D), two masks, both dtypes, on a small shape; at gemma2-27b's
-    widths over train_4k's 4096 tokens (local and global layer, softcap
-    50, both dtypes), each called twice and held to the same bits; then
-    timed at ATTN_PROBLEM causal in float32 and bfloat16 beside its plain
-    version, its bounds (float32: the 3xTF32 route it takes, and FFMA)
-    and SDPA's backward; the forward's bfloat16 time there beside SDPA's;
-    and the SASS gate (check_bwd_sass)."""
+    (block, D) of both routes (attn_bwd_route), two masks, both dtypes, on
+    a small shape, each call on its route; the library's route table
+    against attn_bwd_route, and a config no route takes refused; at
+    gemma2-27b's widths over train_4k's 4096 tokens (local and global
+    layer, softcap 50, both dtypes, each on its route), each called twice
+    and held to the same bits; then timed at ATTN_PROBLEM causal in
+    float32 and bfloat16 beside its plain version, its bounds (the route
+    it takes, with the MUFU term; float32's FFMA bound beside) and SDPA's
+    backward; the forward's bfloat16 time there beside SDPA's; and the
+    SASS gate (check_bwd_sass)."""
+    import ctypes
     import numpy as np
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (
-        BWD_BLOCKS, KERNEL_HEAD_DIMS, attn_bwd_blocks, attn_route,
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_fwd, flash_attention_plain)
+        BWD_BLOCKS, BWD_ROUTES, BWD_WGMMA_BLOCKS, KERNEL_HEAD_DIMS,
+        attn_bwd_blocks, attn_bwd_route, attn_route, flash_attention,
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain)
 
     rng = np.random.default_rng(19)
+    routes = flash_attention_bwd.route_launches
 
     def operands(b, hq, hkv, s, d, dtype):
         return [torch.from_numpy(rng.standard_normal(sh).astype(
@@ -2980,57 +3027,96 @@ def check_attention_bwd(card, sass_run) -> dict:
 
     def check(label, q, k, v, do, blk, kw):
         name = str(q.dtype)[6:]
+        route = attn_bwd_route(q.dtype, blk, q.shape[3])
         o, lse = flash_attention_fwd(q, k, v, bq=blk, bkv=blk, **kw)
         torch.cuda.synchronize()
         _, plain_lse = flash_attention_plain(q, k, v, bkv=blk, bq=blk,
                                              return_lse=True, **kw)
         lse_ratio = float(((lse - plain_lse).abs() /
                            (1e-5 + 1e-5 * plain_lse.abs())).max())
+        before = dict(routes)
         got = flash_attention_bwd(q, k, v, o, lse, do, blk=blk, **kw)
         torch.cuda.synchronize()           # a fault surfaces here
+        took = [r for r in BWD_ROUTES if routes[r] != before[r]]
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, bq=blk, **kw)
         errs = dict(zip(("dq", "dk", "dv"), grads_err(got, want).values()))
         max_abs = max(float((g.float() - w.float()).abs().max())
                       for g, w in zip(got, want))
-        if not (lse_ratio <= 1.0 and max(errs.values()) <= WIDE_TOL[name]):
+        if not (took == [route] and lse_ratio <= 1.0 and
+                max(errs.values()) <= WIDE_TOL[name]):
             raise AssertionError(
                 f"flash_attention_bwd disagrees with its plain version at "
-                f"{label}: lse ratio {lse_ratio:.3f} (bound 1), normwise "
-                f"{errs} (bound {WIDE_TOL[name]:.3e})")
-        return errs, max_abs, lse_ratio
+                f"{label}: route {took} (table {route}), lse ratio "
+                f"{lse_ratio:.3f} (bound 1), normwise {errs} (bound "
+                f"{WIDE_TOL[name]:.3e})")
+        return errs, max_abs, lse_ratio, route
 
     small = []
-    for blk in BWD_BLOCKS:
-        for d in KERNEL_HEAD_DIMS:
-            for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16):
+        for blk in sorted(set(BWD_BLOCKS + BWD_WGMMA_BLOCKS)):
+            for d in KERNEL_HEAD_DIMS:
+                if attn_bwd_route(dtype, blk, d) is None:
+                    continue
                 for kw in (dict(causal=True, window=blk + blk // 2,
                                 softcap=50.0),
                            dict(causal=False, window=0, softcap=0.0)):
                     ops = operands(2, 4, 2, 4 * blk, d, dtype)
-                    errs, max_abs, lse_ratio = check(
+                    errs, max_abs, lse_ratio, route = check(
                         f"block {blk}, d {d}", *ops, blk, kw)
-                    small.append({"blk": blk, "d": d,
+                    small.append({"blk": blk, "d": d, "route": route,
                                   "dtype": str(dtype)[6:], **kw,
                                   "normwise": errs, "max_abs_err": max_abs,
                                   "lse_ratio": lse_ratio})
-    worst = max(small, key=lambda r: max(r["normwise"].values()))
+    worst = {}
+    for r in small:
+        key = f"{r['route']}/{r['dtype']}"
+        worst[key] = max(worst.get(key, 0.0), max(r["normwise"].values()))
     log(f"  backward kernels at all {len(small)} (block, d, dtype, mask) "
-        f"cases of (2, 4, 2, 4 x block, d): within WIDE_TOL normwise "
-        f"(float32 {WIDE_TOL['float32']:.0e}, bfloat16 "
+        f"cases of (2, 4, 2, 4 x block, d), each on its route: within "
+        f"WIDE_TOL normwise (float32 {WIDE_TOL['float32']:.0e}, bfloat16 "
         f"{WIDE_TOL['bfloat16']:.3e}) and lse within 1e-5 (1 + |plain|); "
-        f"worst {max(worst['normwise'].values()):.3e} at block "
-        f"{worst['blk']}, d {worst['d']}, {worst['dtype']}")
+        f"worst by route: " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in sorted(worst.items())))
+    if sorted(worst) != ["mma_sync/bfloat16", "mma_sync/float32",
+                         "wgmma/bfloat16"]:
+        raise AssertionError(f"the backward's routes checked are "
+                             f"{sorted(worst)}")
+    # the library's route table (route_of, at the padded head dim the
+    # wrapper passes) is attn_bwd_route's, also where neither routes
+    lib_route = _build.load("flash_attention_bwd") \
+        .repro_flash_attention_bwd_route
+    lib_route.argtypes = [ctypes.c_int] * 3
+    names = {0: None, 1: "wgmma", 2: "mma_sync"}
+    differ = [(str(dt)[6:], blk, d)
+              for code, dt in enumerate((torch.float32, torch.bfloat16))
+              for blk in (16, 32, 64, 128, 256)
+              for d in KERNEL_HEAD_DIMS + (256,)
+              if names[lib_route(code, blk, d)] != attn_bwd_route(dt, blk, d)]
+    if differ:
+        raise AssertionError(f"the library's backward route table differs "
+                             f"from attn_bwd_route at {differ}")
+    q, k, v, do = operands(1, 2, 2, 256, 128, torch.float32)
+    o, lse = flash_attention_fwd(q, k, v)
+    try:
+        flash_attention_bwd(q, k, v, o, lse, do, blk=128)
+    except ValueError as e:
+        if "route table" not in str(e):
+            raise
+        log(f"  float32 backward at block 128 refused: {str(e)[:100]}...")
+    else:
+        raise AssertionError("a backward config no route takes was launched")
+    del q, k, v, do, o, lse
 
     wide = []
     hq, hkv, d, cap = GEMMA["hq"], GEMMA["hkv"], GEMMA["d"], GEMMA["softcap"]
-    blk = attn_bwd_blocks(TRAIN_SEQ)
     for dtype in (torch.float32, torch.bfloat16):
         ops = operands(1, hq, hkv, TRAIN_SEQ, d, dtype)
         name = str(dtype)[6:]
+        blk = attn_bwd_blocks(TRAIN_SEQ, dtype, d)
         for window in GEMMA["windows"]:
             kw = dict(causal=True, window=window, softcap=cap)
             layer = "local" if window else "global"
-            errs, max_abs, lse_ratio = check(
+            errs, max_abs, lse_ratio, route = check(
                 f"gemma2-27b's {layer} layer ({name})", *ops, blk, kw)
             q, k, v, do = ops
             o, lse = flash_attention_fwd(q, k, v, **kw)
@@ -3042,19 +3128,20 @@ def check_attention_bwd(card, sass_run) -> dict:
             del first, again
             ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                       **kw), 3)
-            flops, nbytes = attn_bwd_work(1, hq, hkv, TRAIN_SEQ, d, True,
-                                          window, q.element_size())
-            bd = bwd_bound(flops, nbytes, dtype, card)
+            flops, nbytes, mufu = attn_bwd_work(
+                1, hq, hkv, TRAIN_SEQ, d, True, window, q.element_size(),
+                cap)
+            bd = bwd_bound(flops, nbytes, dtype, card, mufu)
             log(f"  gemma2-27b {layer} layer backward, s={TRAIN_SEQ}, {name}"
-                f", block {blk}, two calls bit for bit: normwise dq "
-                f"{errs['dq']:.3e}, dk "
-                f"{errs['dk']:.3e}, dv {errs['dv']:.3e} (bound "
-                f"{WIDE_TOL[name]:.3e}), lse ratio {lse_ratio:.3f}; kernel "
-                f"{ms:.3f} ms (three launches), bound {bd['bound_ms']:.3f} ms"
-                f" ({bd['bound_by']}, {bd['route']})")
+                f", block {blk} on the {route} route, two calls bit for bit:"
+                f" normwise dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
+                f"{errs['dv']:.3e} (bound {WIDE_TOL[name]:.3e}), lse ratio "
+                f"{lse_ratio:.3f}; kernel {ms:.3f} ms (three launches), "
+                f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+                f"{bd['bound_terms']})")
             wide.append({"layer": layer, "window": window, "dtype": name,
-                         "s": TRAIN_SEQ, "blk": blk, "deterministic": True,
-                         "normwise": errs,
+                         "s": TRAIN_SEQ, "blk": blk, "route": route,
+                         "deterministic": True, "normwise": errs,
                          "max_abs_err": max_abs, "lse_ratio": lse_ratio,
                          "kernel_ms": ms, **bd})
             del o, lse
@@ -3063,37 +3150,38 @@ def check_attention_bwd(card, sass_run) -> dict:
     # phi3-mini-3.8b's head dim 96, zero-padded to 128 in the wrappers
     padded = {}
     b, h, s = 1, 32, TRAIN_SEQ
-    blk = attn_bwd_blocks(s)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
+        blk = attn_bwd_blocks(s, dtype, 96)
         q, k, v, do = operands(b, h, h, s, 96, dtype)
-        errs, max_abs, lse_ratio = check(f"head dim 96 ({name})", q, k, v,
-                                         do, blk, {})
+        errs, max_abs, lse_ratio, route = check(f"head dim 96 ({name})", q,
+                                                k, v, do, blk, {})
         o, lse = flash_attention_fwd(q, k, v)
         ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 3)
-        flops, nbytes = attn_bwd_work(b, h, h, s, 96, True, 0,
-                                      q.element_size())
-        bd = bwd_bound(flops, nbytes, dtype, card)
+        flops, nbytes, mufu = attn_bwd_work(b, h, h, s, 96, True, 0,
+                                            q.element_size())
+        bd = bwd_bound(flops, nbytes, dtype, card, mufu)
         log(f"  attention backward (1, 32, {s}, {s}, 96) causal {name} "
-            f"(phi3-mini-3.8b's head dim, padded to 128), block {blk}: "
-            f"normwise dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
-            f"{errs['dv']:.3e} (bound {WIDE_TOL[name]:.3e}), lse ratio "
-            f"{lse_ratio:.3f}; kernel {ms:.3f} ms, bound at the true D "
-            f"{bd['bound_ms']:.3f} ms ({bd['route']})")
-        padded[name] = {"d": 96, "s": s, "blk": blk, "normwise": errs,
-                        "max_abs_err": max_abs, "lse_ratio": lse_ratio,
-                        "kernel_ms": ms, **bd}
+            f"(phi3-mini-3.8b's head dim, padded to 128), block {blk} on the "
+            f"{route} route: normwise dq {errs['dq']:.3e}, dk "
+            f"{errs['dk']:.3e}, dv {errs['dv']:.3e} (bound "
+            f"{WIDE_TOL[name]:.3e}), lse ratio {lse_ratio:.3f}; kernel "
+            f"{ms:.3f} ms, bound at the true D {bd['bound_ms']:.3f} ms "
+            f"({bd['bound_terms']})")
+        padded[name] = {"d": 96, "s": s, "blk": blk, "route": route,
+                        "normwise": errs, "max_abs_err": max_abs,
+                        "lse_ratio": lse_ratio, "kernel_ms": ms, **bd}
         del q, k, v, do, o, lse
 
     b, h, s, _, d = ATTN_PROBLEM
-    blk = attn_bwd_blocks(s)
     timed = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
+        blk = attn_bwd_blocks(s, dtype, d)
         q, k, v, do = operands(b, h, h, s, d, dtype)
         o, lse = flash_attention_fwd(q, k, v)
-        errs, max_abs, _ = check(f"{ATTN_PROBLEM} causal {name}", q, k, v,
-                                 do, blk, {})
+        errs, max_abs, _, route = check(f"{ATTN_PROBLEM} causal {name}", q,
+                                        k, v, do, blk, {})
         kernel_ms = event_ms(lambda: flash_attention_bwd(q, k, v, o, lse,
                                                          do), TIME_REPS)
         plain_ms = event_ms(lambda: flash_attention_bwd_plain(
@@ -3106,22 +3194,22 @@ def check_attention_bwd(card, sass_run) -> dict:
         lib_err = max(grads_err(torch.autograd.grad(sdpa_out, leaves, do),
                                 flash_attention_bwd_plain(q, k, v, o, lse,
                                                           do)).values())
-        flops, nbytes = attn_bwd_work(b, h, h, s, d, True, 0,
-                                      q.element_size())
-        bd = bwd_bound(flops, nbytes, dtype, card)
+        flops, nbytes, mufu = attn_bwd_work(b, h, h, s, d, True, 0,
+                                            q.element_size())
+        bd = bwd_bound(flops, nbytes, dtype, card, mufu)
         log(f"  attention backward {ATTN_PROBLEM} causal {name}, block "
-            f"{blk}: normwise {max(errs.values()):.3e}; kernel_ms "
-            f"{kernel_ms:.3f} (delta, dK/dV and dQ together), plain_ms "
-            f"{plain_ms:.3f}, library_ms {library_ms:.3f} (the backward of "
-            f"scaled_dot_product_attention, is_causal=True, TF32 off; "
-            f"normwise {lib_err:.1e} from the plain backward), bound_ms "
-            f"{bd['bound_ms']:.3f} ({bd['bound_by']}, {bd['route']}); "
+            f"{blk} on the {route} route: normwise {max(errs.values()):.3e};"
+            f" kernel_ms {kernel_ms:.3f} (delta, dK/dV and dQ together), "
+            f"plain_ms {plain_ms:.3f}, library_ms {library_ms:.3f} (the "
+            f"backward of scaled_dot_product_attention, is_causal=True, TF32 "
+            f"off; normwise {lib_err:.1e} from the plain backward), bound_ms "
+            f"{bd['bound_ms']:.3f} ({bd['bound_by']}, {bd['bound_terms']}); "
             f"{flops / kernel_ms / 1e9:.1f} TFLOP/s on the kept pairs' five "
             f"products")
         timed[name] = {"err": max_abs, "normwise": errs,
                        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "library_normwise": lib_err,
-                       "blk": blk, **bd}
+                       "blk": blk, "route": route, **bd}
         if dtype == torch.bfloat16:
             # the forward on the wgmma route, the models' blocks
             route = attn_route(dtype, 128, 128, d)
@@ -3162,7 +3250,7 @@ def check_attention_bwd(card, sass_run) -> dict:
     return {"small": small, "gemma2_27b": wide, **timed["float32"],
             "bfloat16": timed["bfloat16"], "head_dim_96": padded,
             "forward_bfloat16": timed["forward_bfloat16"],
-            "sass_hmma": sass}
+            "sass": sass}
 
 
 def check_train_grads(dev) -> dict:
@@ -3550,7 +3638,7 @@ def ssd_bwd_timed(label, args, got, want, errs, chunk, card) -> dict:
             f"{k} {v:.2e}" for k, v in plain32.items()) + f"); kernel "
         f"{kernel_ms:.3f} ms (four launches, {heads} heads a chunk-pass "
         f"block), plain {plain_ms:.3f} ms (float32), bound "
-        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['route']}); "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['bound_terms']}); "
         f"{flops / kernel_ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP")
     if passes_ms["measured"]:
         log("    each kernel (torch.profiler, mean ms an event): " +
@@ -3891,7 +3979,7 @@ def check_jamba_ssd(card) -> dict:
         f"calls bit for bit: normwise {err:.3e} from ssd_plain (bound "
         f"{tol:.0e}), max_abs_err {max_abs:.3e}; kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']},"
-        f" {bd['route']})")
+        f" {bd['bound_terms']})")
     fwd = {"shape": list(MOE_SSD_PROBLEM), "chunk": chunk, "normwise": err,
            "err": max_abs, "deterministic": True, "kernel_ms": ms,
            "plain_ms": plain_ms, "library_ms": None, **bd}
@@ -4694,9 +4782,11 @@ def main() -> int:
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd}
     launches = {name: {} for name in wrappers}
-    # the attention forward's launches per route and path
-    routes = flash_attention.route_launches
-    route_launches = {}
+    # the attention forward's and backward's launches per route and path
+    routed = {"flash_attention": flash_attention.route_launches,
+              "flash_attention_bwd": flash_attention_bwd.route_launches}
+    by_route = {name: {} for name in routed}
+    route_launches = by_route["flash_attention"]
 
     def counted(path, label, fn, *args):
         """Run ``fn`` as phase ``label`` with every count set to 0 just
@@ -4704,14 +4794,16 @@ def main() -> int:
         train path is 14c and 15c)."""
         for w in wrappers.values():
             w.launches = 0
-        for r in routes:
-            routes[r] = 0
+        for routes in routed.values():
+            for r in routes:
+                routes[r] = 0
         out = phase(label, fn, *args)
         for name, w in wrappers.items():
             launches[name][path] = launches[name].get(path, 0) + w.launches
-        into = route_launches.setdefault(path, dict.fromkeys(routes, 0))
-        for r, n in routes.items():
-            into[r] += n
+        for name, routes in routed.items():
+            into = by_route[name].setdefault(path, dict.fromkeys(routes, 0))
+            for r, n in routes.items():
+                into[r] += n
         return out
 
     log(f"[3] paper path: potrf at n={N}, b in {BLOCK_SIZES}")
@@ -4894,16 +4986,19 @@ def main() -> int:
                 f"{r['spill_store_bytes']} B stored / "
                 f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
-    log(f"  the attention forward's launches per route and path: "
-        f"{route_launches}")
+    log(f"  the attention forward's and backward's launches per route and "
+        f"path: {by_route}")
     # every attention call of gemma2-27b's prefill (12) and of the train
-    # steps (14c, 16c, 17a) takes the wgmma route
-    for path in ("models", "train", "train_moe", "train_sharded"):
-        got = route_launches[path]
-        if got["mma_sync"] or got["wgmma"] != \
-                launches["flash_attention"][path]:
-            raise AssertionError(f"attention on path {path} did not all "
-                                 f"take the wgmma route: {got}")
+    # steps (14c, 16c, 17a), forward and backward, takes the wgmma route
+    for name, paths in (("flash_attention", ("models", "train", "train_moe",
+                                             "train_sharded")),
+                        ("flash_attention_bwd", ("train", "train_moe",
+                                                 "train_sharded"))):
+        for path in paths:
+            got = by_route[name][path]
+            if got["mma_sync"] or got["wgmma"] != launches[name][path]:
+                raise AssertionError(f"{name} on path {path} did not all "
+                                     f"take the wgmma route: {got}")
     for name, path in (("matmul", "tiles"), ("flash_attention", "attn_tiles"),
                        ("ssd", "ssd_chunks"), ("matmul", "store"),
                        ("flash_attention", "store"), ("ssd", "store"),
@@ -4951,22 +5046,12 @@ def main() -> int:
             "head": adm["head"], "admission_ms": adm["ms"],
             "head_ms": adm["head_ms"], "kernel_ms": adm["kernel_ms"],
             "kernel_share": adm["kernel_share"]}}
-    bwd_regs = {}
-    for what, key in (
-            ("dkdv", ("attn_bwd_dkdv_kernel", "float32", BWD_MAIN_KEY)),
-            ("dq", ("attn_bwd_dq_kernel", "float32", BWD_MAIN_KEY)),
-            ("dkdv_bf16", ("attn_bwd_dkdv_kernel", "bfloat16",
-                           BWD_MAIN_KEY)),
-            ("dq_bf16", ("attn_bwd_dq_kernel", "bfloat16", BWD_MAIN_KEY)),
-            ("delta", ("attn_bwd_delta_kernel", "float32", ()))):
-        if key not in ptxas:
-            raise AssertionError(f"no ptxas report for the backward's {key}")
-        bwd_regs[what] = dict(zip(("registers", "spill_store_bytes",
-                                   "spill_load_bytes"), ptxas[key]))
-        log(f"  flash_attention_bwd at block 64, d 128: {key[0]} "
-            f"({key[1]}) uses {bwd_regs[what]['registers']} registers, "
-            f"spills {bwd_regs[what]['spill_store_bytes']} B stored / "
-            f"{bwd_regs[what]['spill_load_bytes']} B loaded (ptxas)")
+    bwd_regs = dict(regs["flash_attention_bwd"])
+    key = ("attn_bwd_delta_kernel", "float32", ())
+    if key not in ptxas:
+        raise AssertionError(f"no ptxas report for the backward's {key}")
+    bwd_regs["delta"] = dict(zip(("registers", "spill_store_bytes",
+                                  "spill_load_bytes"), ptxas[key]))
 
     def in_train_step(kernel, run=training, key="train_step"):
         prof = run["profile"]
@@ -5046,9 +5131,34 @@ def main() -> int:
               library="the backward of torch.nn.functional."
               "scaled_dot_product_attention (is_causal=True, float32, TF32 "
               "off)", shape=list(ATTN_PROBLEM), dtype="float32",
-              route_detail="mma.sync: float32 as 3xTF32, bfloat16 with dS "
-              "as hi + lo", bound_ms_ffma=attn_bwd["bound_ms_ffma"],
-              bfloat16=attn_bwd["bfloat16"], sass_hmma=attn_bwd["sass_hmma"],
+              route_detail="two routes by an explicit table: wgmma "
+              "(bfloat16 at blocks 64 / 128, D in {64, 128}; TMA from a "
+              "producer warp, dK/dV over 64 kv rows a block with chains "
+              "flushed to float32 sums, dQ by two consumer warpgroups, dS "
+              "as hi + lo) and mma.sync (float32 as 3xTF32, bfloat16's "
+              "other configs); this row is float32 on mma.sync, 'bfloat16' "
+              "the wgmma route",
+              routes={"mma_sync": {
+                  "dtype": "float32",
+                  "config": [attn_bwd["blk"], attn_bwd["blk"],
+                             ATTN_PROBLEM[4]],
+                  "kernel_ms": attn_bwd["kernel_ms"],
+                  "bound_ms": attn_bwd["bound_ms"],
+                  "bound_by": attn_bwd["bound_by"],
+                  "registers": {k: bwd_regs[k] for k in ("dkdv", "dq")}},
+                  "wgmma": {
+                      "dtype": "bfloat16",
+                      "config": [attn_bwd["bfloat16"]["blk"],
+                                 attn_bwd["bfloat16"]["blk"],
+                                 ATTN_PROBLEM[4]],
+                      "kernel_ms": attn_bwd["bfloat16"]["kernel_ms"],
+                      "bound_ms": attn_bwd["bfloat16"]["bound_ms"],
+                      "bound_by": attn_bwd["bfloat16"]["bound_by"],
+                      "registers": {k: bwd_regs[k] for k in (
+                          "dkdv_wgmma", "dq_wgmma")}}},
+              launches_by_route=by_route["flash_attention_bwd"],
+              bound_ms_ffma=attn_bwd["bound_ms_ffma"],
+              bfloat16=attn_bwd["bfloat16"], sass=attn_bwd["sass"],
               config=[attn_bwd["blk"], attn_bwd["blk"], ATTN_PROBLEM[4]],
               passes_registers=bwd_regs, **in_train_step(
                   "flash_attention_bwd"), **in_train_step(

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a) on the tensor cores
-// (mma.sync), hand-written.
+// Flash-attention backward for Hopper (sm_90a) on the tensor cores,
+// hand-written: bfloat16 on wgmma, float32 (and bfloat16's small blocks)
+// on mma.sync.
 //
 // Replaces: no Pallas body.  The reference trains through chunked_attention
 // (src/repro/models/attention.py:24), differentiated by XLA; on the TPU the
@@ -25,7 +26,11 @@
 // rounds its unnormalised p before p v and divides by l after, so in
 // bfloat16 the two roundings differ by up to one step.)  Every sum runs in
 // float32 accumulators in a fixed order, with no atomics: the result is the
-// same bits from run to run.  Results are cast to the input dtype.
+// same bits from run to run.  Results are cast to the input dtype.  x / cap
+// is one reciprocal of the cap, taken once on the host, and an FMA
+// correction, which gives the IEEE quotient's bits
+// (tests/test_torch_attention_bwd_wgmma.py sweeps it at cap 50); tanh keeps
+// tanhf's accuracy (no tanh.approx), p expf's.
 //
 // Only S = Sq = Skv is taken, so every row keeps at least its own position
 // under any mask and lse is a real log-sum-exp (the forward's "row past
@@ -35,79 +40,140 @@
 // pair (s, dP, dV, dK, dQ), 2.5 times the forward's work, against q, k, v,
 // o, dO and the three gradients read or written once -- bound by
 // operations in every dtype:
-//   bfloat16: the five products at the tensor cores' 989 TFLOP/s;
-//   float32 by 3xTF32 (this file): the five products' three TF32 parts
-//     (hi hi, hi lo, lo hi) at 495 TFLOP/s, six times the bfloat16 bound;
-//   float32 by FFMA (the design this replaced): 67 TFLOP/s.
-// What the design does about them: every product runs on the tensor cores;
+//   bfloat16: the five products at the tensor cores' 989 TFLOP/s; the
+//     special-function unit (MUFU, 16 ex2 or rcp results a clock an SM)
+//     needs one ex2 a kept pair, three with a softcap (tanhf's ex2 and
+//     rcp), a third to a half of the products' time;
+//   float32 by 3xTF32: the five products' three TF32 parts (hi hi, hi lo,
+//     lo hi) at 495 TFLOP/s, six times the bfloat16 bound;
+//   float32 by FFMA (an earlier design of this file): 67 TFLOP/s.
+// What the designs do about them: every product runs on the tensor cores;
 // the kernels do seven products, not five ((c) recomputes s and dP), plus
-// the lo half of dS in bfloat16.
+// the lo half of dS in bfloat16 (nine a pair).
 //
-// Design.
-//  * Products with mma.sync: bfloat16 as m16n8k16 (bf16 in, float32
-//    accumulate); float32 as three m16n8k8 TF32 products per product, every
-//    operand split a = hi + lo with hi the nearest TF32 and lo = a - hi (of
-//    which the tensor core reads the top 19 bits), hi hi + hi lo + lo hi
-//    summed: the lo lo term and lo's truncation leave about 2^-21 relative,
-//    float32's accuracy at three times TF32's cost, and no plain TF32
-//    anywhere.  Operands a product reads along their rows go from shared
-//    memory to fragments with ldmatrix; those it reads across rows
-//    (k-major) with ldmatrix.trans in bfloat16 and, in float32, where .trans
-//    moves 16-bit halves only, with two 4-byte loads a fragment in a depth
-//    order permuted to match the accumulator layout (depth slot t is row 2t,
-//    slot t + 4 row 2t + 1, in both operands).
-//  * Precision of the operands built in registers.  p enters dV rounded
-//    once, as round(p) is defined.  dS would lose 2^-9 relative in one
-//    bfloat16 rounding (about 1.7e-3 normwise in dK and dQ in the CPU
-//    emulation, 7 times the 2^-12 gate), so in bfloat16 it enters as hi =
-//    bf16(dS) and lo = bf16(dS - hi), two mma into one accumulator; in
-//    float32 p and dS are split hi/lo like every other operand.
-//  * Tensor-core accumulators truncate.  One accumulator carried over a
-//    kv block's 8192 query rows (gemma2's two heads at 4096) drifts past the
-//    float32 gate, so the products of a chunk of columns start from zero
-//    and are added to the float32 sums by FADD (round to nearest), which
-//    tests/test_torch_attention_bwd_tc.py emulates; and in float32 the
-//    small hi lo and lo hi terms of s and dP run in accumulators of their
-//    own, so the chain of hi hi products over D is a third as long.
-//  * (b) one thread block per (b, kv head, kv block j) of B rows (B = 16 W:
-//    W row groups of 16 kv rows, two warps each, one per half of every
-//    query block).  It holds k_j and v_j in shared memory and walks the
-//    query blocks that keep a pair with j (the inverse of attn_kv_range:
-//    under causal from j up, under a window until the window's first block
-//    passes j) and, inside each, the Hq / Hkv query heads of its group, so
-//    the GQA sum is a loop, not atomics.  A warp computes the transposed
-//    tiles s^T = k_j q_i^T and dP^T = v_j dO_i^T, whose accumulator rows are
-//    its kv rows, forms p^T and dS^T in those registers, and feeds them
-//    straight back as the A operand of dV += round(p)^T dO_i and dK += dS^T
-//    q_i (an m16n8 accumulator pair is an m16k16 A fragment): nothing goes
-//    through shared memory.  dV sums stay in registers; dK sums too in
-//    float32, while bfloat16 keeps them in shared memory as float32 (each
-//    thread its own elements, read and written once a chunk), which is what
-//    kept ptxas from spilling at D = 128.  At the end the two halves' sums
-//    are added (x + y = y + x: the same bits whichever warp adds).  q_i,
-//    dO_i, lse_i and delta_i are double-buffered: cp.async stages the next
-//    (query block, head) while this one computes.
-//  * (c) one thread block per (b, query head, query block i), each warp
-//    owning 16 query rows with their lse and delta in registers (float32:
-//    two warps a row group, one per half of every kv block), walks
-//    attn_kv_range(i) in ascending order, recomputing s and dP (the two
-//    products (b) also does: a fused dQ would need atomics, and results that
-//    vary from run to run) and adding dS k_j into its accumulators; k_j and
-//    v_j are double-buffered.  Query blocks run in descending order, as the
-//    forward's.
-//  * Tiles are row-major with the 16-byte chunks of row r stored at chunk c
-//    ^ (r & 7) (as in the forward), so the eight rows one ldmatrix matrix
-//    reads, or the eight rows a float32 fragment reads across, fall in
-//    distinct bank groups.
+// Two routes, chosen by an explicit table (attn_bwd_route in
+// flash_attention.py, route_of below), neither a fall back for the other;
+// a config the table does not route is refused.  A route's block `blk`
+// is the query block of (c) and, on route 2, also the kv block of (b).
 //
-// What is left: wgmma (warpgroup products from shared memory, the only way
-// to the full tensor-core rate; mma.sync reaches part of it), TMA copies
-// and warp specialisation in place of cp.async, and a fused dQ that stays
-// deterministic (a per-kv-block dQ scratch reduced in a fixed order), which
-// would save the two recomputed products.
+//  1. wgmma: bfloat16 at blk in {64, 128} and D in {64, 128} -- every
+//     backward of the models' train steps.  (b) and (c) each run consumer
+//     warpgroups and one producer warpgroup, of which one thread issues
+//     every copy (TMA; the tools of wgmma_tools.cuh, which the forward's
+//     wgmma route uses too): the thread block's own rows once, then 64-row
+//     tiles of the other side into a ring of two stages on full and empty
+//     mbarriers (complete_tx), each tile stored as 64-column panels with
+//     the 128-byte swizzle the wgmma descriptors name.
+//   * (b), one thread block per (b, kv head, 64 kv rows j), one consumer
+//     warpgroup: K_j and V_j once; then, for each 64-row query tile that
+//     keeps a pair with j (the inverse of attn_kv_range) and inside it each
+//     of the Hq / Hkv query heads of the group, the tile's Q and dO by TMA
+//     and its lse and delta rows by 1-D bulk copies, so the GQA sum is a
+//     loop, not atomics.  S^T = K_j Q^T and dP^T = V_j dO^T run as wgmma
+//     m64n64k16 with both operands in shared memory, in two commit groups:
+//     scale, softcap, mask and p^T = exp(s - lse) run on S^T's registers
+//     while dP^T's products run, the accumulator's layout already the A
+//     fragment's (the thread's query columns read lse and delta from the
+//     stage); dV += round(p)^T dO is issued next, and dS^T forms while it
+//     runs; then dK += dS^T Q.  dV and dK run as wgmma m64n64k16 with A
+//     from registers (dS as hi and lo, two products) and dO and Q read
+//     through the transpose bit, one product a 64-column panel.  The
+//     softcap and the mask are compile-time in the pair math (one of four
+//     copies a tile, chosen once): as runtime branches between the 32
+//     pairs a thread forms they cost the lone consumer its instruction-level
+//     parallelism (tools/attn_bwd_probe.py).  The warpgroup skips (waits
+//     for and releases) a tile that keeps no pair.  kv blocks run in
+//     ascending order, the heaviest first under causal; putting a head's
+//     blocks together instead, so that the blocks in flight share its Q and
+//     dO in L2, ran slower on the card (the heavy blocks of the last heads
+//     then start last).
+//   * Chains.  dK and dV accumulate in the tensor core for kFlush (tile,
+//     head) steps and are then added to float32 sums in shared memory by
+//     FADD (each thread its own elements).  Carried over gemma2's two heads
+//     of 4096 rows unflushed (1024 truncating k16 products for dK, 512 for
+//     dV) they missed the bfloat16 gate on the card (dK 4.1e-4 normwise),
+//     though a round-toward-zero emulation of those chains predicts 4e-5:
+//     the tensor core's accumulation loses more than that model says, and
+//     tests/test_torch_attention_bwd_wgmma.py holds the flushed chains to a
+//     margin below the gate that covers the difference.  dQ's chain (512
+//     products at 4096 keys, hi and lo) read within the gate unflushed.
+//   * (c), one thread block per (b, query head, query block i) of blk rows,
+//     blk / 64 consumer warpgroups: Q_i and dO_i once, lse and delta of the
+//     thread's two rows in registers, then the 64-row K and V tiles of the
+//     kv blocks that keep a pair with i (attn_kv_range at kv tiles of 64),
+//     in ascending order; S = Q K^T and dP = dO V^T again by wgmma SS (the
+//     two products (b) also does: a fused dQ would need atomics, or
+//     partial dQs and a second pass), dS in registers, dQ += dS K by wgmma
+//     RS with K through the transpose bit.  Query blocks run in descending
+//     order (the heaviest first), as the forward's.  Two calls give the
+//     same bits.
+//  2. mma.sync: float32 at blk in {32, 64}, and bfloat16 where wgmma does
+//     not take it (blk 32; blk 64 at D 16 or 32).  m16n8k16 bfloat16 and
+//     three m16n8k8 TF32 products per float32 product, with the tools of
+//     mma_tools.cuh:
+//   * Products with mma.sync: every float32 operand split a = hi + lo with
+//     hi the nearest TF32 and lo = a - hi (of which the tensor core reads
+//     the top 19 bits), hi hi + hi lo + lo hi summed: the lo lo term and
+//     lo's truncation leave about 2^-21 relative, float32's accuracy at
+//     three times TF32's cost, and no plain TF32 anywhere.  Operands a
+//     product reads along their rows go from shared memory to fragments
+//     with ldmatrix; those it reads across rows (k-major) with
+//     ldmatrix.trans in bfloat16 and, in float32, where .trans moves 16-bit
+//     halves only, with two 4-byte loads a fragment in a depth order
+//     permuted to match the accumulator layout (depth slot t is row 2t,
+//     slot t + 4 row 2t + 1, in both operands).
+//   * Precision of the operands built in registers (both routes).  p enters
+//     dV rounded once, as round(p) is defined.  dS would lose 2^-9 relative
+//     in one bfloat16 rounding (about 1.7e-3 normwise in dK and dQ in the
+//     CPU emulation, 7 times the 2^-12 gate), so in bfloat16 it enters as hi
+//     = bf16(dS) and lo = bf16(dS - hi), two products into one accumulator;
+//     in float32 p and dS are split hi/lo like every other operand.
+//   * Tensor-core accumulators truncate.  On this route one accumulator
+//     carried over a kv block's 8192 query rows drifts past the float32
+//     gate, so the products of a chunk of columns start from zero and are
+//     added to the float32 sums by FADD (round to nearest), which
+//     tests/test_torch_attention_bwd_tc.py emulates; and in float32 the
+//     small hi lo and lo hi terms of s and dP run in accumulators of their
+//     own, so the chain of hi hi products over D is a third as long.
+//   * (b) one thread block per (b, kv head, kv block j) of B rows (B = 16 W:
+//     W row groups of 16 kv rows, two warps each, one per half of every
+//     query block), walking the query blocks that keep a pair with j and
+//     the group's heads as route 1 does.  A warp computes the transposed
+//     tiles s^T and dP^T, forms p^T and dS^T in those registers, and feeds
+//     them straight back as the A operand of dV += round(p)^T dO_i and dK
+//     += dS^T q_i (an m16n8 accumulator pair is an m16k16 A fragment).  dV
+//     sums stay in registers; dK sums too in float32, while bfloat16 keeps
+//     them in shared memory as float32, which kept ptxas from spilling at D
+//     = 128.  At the end the two halves' sums are added (x + y = y + x: the
+//     same bits whichever warp adds).  q_i, dO_i, lse_i and delta_i are
+//     double-buffered by cp.async.
+//   * (c) one thread block per (b, query head, query block i), each warp
+//     owning 16 query rows (float32: two warps a row group, one per half of
+//     every kv block), walking attn_kv_range(i) in ascending order,
+//     recomputing s and dP and adding dS k_j into its accumulators; k_j and
+//     v_j are double-buffered.
+//   * Tiles are row-major with the 16-byte chunks of row r stored at chunk
+//     c ^ (r & 7) (as in the forward's mma.sync route), so the eight rows
+//     one ldmatrix matrix reads, or the eight rows a float32 fragment reads
+//     across, fall in distinct bank groups.
 //
-// Instantiations: B in {32, 64}, D in {16, 32, 64, 128}, float32 and
-// bfloat16, for (b) and (c); (a) per dtype: 34 kernels.
+// What is left: route 1 runs its nine products a pair at about 45 % of
+// the tensor cores' rate.  Tried on the card and no faster: two consumer
+// warpgroups in (b), either on the same 64 kv rows (one forming p and dV,
+// the other dP, dS and dK, passing p (1 - t^2) through shared memory) or
+// on 64 kv rows each of a 128-row block (its float32 sums in device
+// scratch; ptxas compiled them at 168 registers, spilled and serialised
+// the products); rings of three and four stages; and issuing a step's S^T
+// and dP^T before the last step's dK is in (255 registers).  Not tried:
+// larger wgmma N (S over 128 keys), Q and dO multicast to the blocks of a
+// cluster (the dK/dV kernel re-reads them for every 64 kv rows), a
+// persistent grid, dQ fused into (b) by partials added in a fixed order
+// (two of the nine products), and wgmma for float32 (TF32 only K-major).
+//
+// Instantiations: route 1's (b) at D in {64, 128} and (c) at blk in {64,
+// 128} and D in {64, 128}: 6 kernels; route 2 at blk in {32, 64}, D in
+// {16, 32, 64, 128} in float32 and the 6 bfloat16 configs route 1 does not
+// take, (b) and (c): 28 kernels; (a) per dtype: 2.  36 kernels.
 //
 // The launcher allocates nothing, never synchronises, launches the three
 // kernels on the stream it is given, and returns cudaGetLastError() (0 on
@@ -116,11 +182,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
 
 #include "mma_tools.cuh"
+#include "wgmma_tools.cuh"
 
 namespace {
 
@@ -139,29 +207,71 @@ __device__ __forceinline__ void kv_range(int i, int nblk, int blk, int causal,
   if (window > 0) lo = max(0, i * blk - window + 1) / blk;
 }
 
-// the forward's scalars, shared by every pair
+// the forward's scalars, shared by every pair; rcap = 1 / softcap (IEEE,
+// on the host)
 struct PairArgs {
-  float scale, softcap;
+  float scale, softcap, rcap;
   int causal, window;
 };
-// p and dS of the pair (query qp, key kp) from its raw logit s and dP; a
-// masked pair (the forward's -1e30 logit) has p = dS = 0
-__device__ __forceinline__ void pair_grad(const PairArgs& pa, float s,
-                                          float dp, float lse, float delta,
-                                          int qp, int kp, float& p,
-                                          float& ds) {
+// x / cap: q = x rcap is within an ulp of the quotient, r = x - q cap is
+// exact in one FMA, and q + r rcap rounds to the IEEE quotient
+__device__ __forceinline__ float div_cap(float x, const PairArgs& pa) {
+  const float q = x * pa.rcap;
+  return fmaf(fmaf(-q, pa.softcap, x), pa.rcap, q);
+}
+// p and p (1 - t^2) of the pair (query qp, key kp) from its raw logit s;
+// a masked pair (the forward's -1e30 logit) has p = 0.  dS is p (1 - t^2)
+// (dP - delta), which route 1 forms once dP is in.  CAP: a softcap; MASK:
+// the pair's tile may hold masked pairs.  Route 1 fixes both for a tile,
+// so a tile's 32 pairs a thread run without a branch between them.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void pair_p(const PairArgs& pa, float s,
+                                       float lse, int qp, int kp, float& p,
+                                       float& pfac) {
   float x = s * pa.scale;
   float fac = 1.0f;
-  if (pa.softcap > 0.0f) {
-    const float t = tanhf(x / pa.softcap);
+  if constexpr (CAP) {
+    const float t = tanhf(div_cap(x, pa));
     x = pa.softcap * t;
     fac = 1.0f - t * t;
   }
   bool keep = true;
-  if (pa.causal) keep = qp >= kp;
-  if (pa.window > 0) keep = keep && (qp - kp) < pa.window;
+  if constexpr (MASK)
+    keep = (!pa.causal || qp >= kp) && (pa.window <= 0 || qp - kp < pa.window);
   p = keep ? expf(x - lse) : 0.0f;
-  ds = keep ? p * (dp - delta) * fac : 0.0f;
+  pfac = CAP ? p * fac : p;
+}
+
+// p and dS of the pair from its raw logit s and dP (route 2)
+__device__ __forceinline__ void pair_grad(const PairArgs& pa, float s,
+                                          float dp, float lse, float delta,
+                                          int qp, int kp, float& p,
+                                          float& ds) {
+  float pfac;
+  if (pa.softcap > 0.0f)
+    pair_p<true, true>(pa, s, lse, qp, kp, p, pfac);
+  else
+    pair_p<false, true>(pa, s, lse, qp, kp, p, pfac);
+  ds = pfac * (dp - delta);
+}
+
+// f(cap, mask) with std::integral_constant<bool, ...> arguments at the
+// tile's softcap and mask
+template <typename F>
+__device__ __forceinline__ void by_kind(const PairArgs& pa, bool cut, F&& f) {
+  using yes = std::true_type;
+  using no = std::false_type;
+  if (pa.softcap > 0.0f) {
+    if (cut)
+      f(yes{}, yes{});
+    else
+      f(yes{}, no{});
+  } else {
+    if (cut)
+      f(no{}, yes{});
+    else
+      f(no{}, no{});
+  }
 }
 
 // ------------------------------------------------------- (a) delta --
@@ -249,7 +359,7 @@ __device__ __forceinline__ void take_tiles(const float* red, int slot,
         acc[n][e] += red[(slot * N * 4 + n * 4 + e) * kWarp + lane];
 }
 
-// ------------------------------------------------------- (b) dK dV --
+// ------------------------------------------ route 2 (mma.sync): (b) dK dV --
 
 template <typename T, int W, int D>
 __global__ void __launch_bounds__(W * Layout<T, 16 * W, D>::CW * kWarp)
@@ -454,7 +564,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------- (c) dQ --
+// --------------------------------------------- route 2 (mma.sync): (c) dQ --
 
 template <typename T, int W, int D>
 __global__ void __launch_bounds__(W * Layout<T, 16 * W, D>::CWQ * kWarp)
@@ -609,21 +719,547 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+// ---------------------------------------------------- route 1: wgmma --
+
+// The route table (attn_bwd_route in flash_attention.py): route 1 (wgmma)
+// for bfloat16 at blk in {64, 128} and D in {64, 128}; route 2 (mma.sync)
+// for float32 and the other bfloat16 configs at blk in {32, 64}; 0 for
+// none.
+__host__ __device__ constexpr bool is_head_dim(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 128;
+}
+__host__ __device__ constexpr bool wgmma_route(bool bf16, int blk, int d) {
+  return bf16 && (blk == 64 || blk == 128) && (d == 64 || d == 128);
+}
+__host__ __device__ constexpr int route_of(int dtype, int blk, int d) {
+  return (dtype != 0 && dtype != 1) || !is_head_dim(d)  ? 0
+         : wgmma_route(dtype == 1, blk, d)              ? 1
+         : blk == 32 || blk == 64                       ? 2
+                                                        : 0;
+}
+
+// Whether the pairs of queries [qa, qa + nq) and keys [ka, ka + nk) hold a
+// kept pair (keep) and a masked one (cut): their differences q - k run
+// over [qa - ka - nk + 1, qa + nq - 1 - ka], which the mask keeps where it
+// meets [0, window - 1] (causal) or (-inf, window - 1] (a window alone).
+struct SubBlock {
+  bool keep, cut;
+};
+__device__ __forceinline__ SubBlock sub_block(const PairArgs& pa, int qa,
+                                              int nq, int ka, int nk) {
+  const int lo = qa - ka - nk + 1, hi = qa + nq - 1 - ka;
+  return {!(pa.causal && hi < 0) && !(pa.window > 0 && lo >= pa.window),
+          (pa.causal && lo < 0) || (pa.window > 0 && hi >= pa.window)};
+}
+// the 64-row query tiles [t0, t1) that keep a pair with keys [k0, k0 + nk)
+__device__ __forceinline__ void query_tiles(const PairArgs& pa, int s, int k0,
+                                            int nk, int& t0, int& t1) {
+  t0 = pa.causal ? k0 / 64 : 0;
+  t1 = s / 64;
+  if (pa.window > 0) t1 = min(t1, (pa.window + k0 + nk - 2) / 64 + 1);
+}
+// the 64-row key tiles [u0, u1) that keep a pair with queries [q0, q0 + nq)
+// (attn_kv_range at bkv = 64)
+__device__ __forceinline__ void key_tiles(const PairArgs& pa, int s, int q0,
+                                          int nq, int& u0, int& u1) {
+  u0 = pa.window > 0 ? max(0, q0 - pa.window + 1) / 64 : 0;
+  u1 = pa.causal ? (q0 + nq - 1) / 64 + 1 : s / 64;
+}
+
+// The two kernels' shapes.  ptxas compiles a kernel at the registers its
+// launch bounds allow a thread (measured: spills appear exactly where a
+// consumer needs more, setmaxnreg or not): 168 at 384 threads, 255 at
+// 256 and one block an SM.  (b)'s consumer holds dK and dV (D floats a
+// thread at 64 rows) beside S^T, dP^T and the A fragments, about 230
+// registers at D = 128 (ptxas: 255, no spills), so (b) runs one consumer
+// warpgroup of 64 kv rows and a producer, one block an SM.  (c)'s consumer
+// holds dQ (D / 2) beside S, dP and dS: two consumer warpgroups at blk =
+// 128 fit 168 (no spills), and setmaxnreg gives their producer 24
+// registers and them 240 (24 + 2 x 240 = 3 x 168); one at blk = 64 takes
+// 256 threads.
+constexpr int kBwdProducerRegs = 24;
+constexpr int kBwdConsumerRegs = 240;
+// (tile, head) steps a dK / dV accumulator chain runs before it is added
+// to the float32 sums by FADD: chains of 8 kFlush (dK, hi and lo) and 4
+// kFlush (dV) k16 products
+constexpr int kFlush = 16;
+
+// (b): one consumer warpgroup on 64 kv rows, and the producer
+template <int D>
+struct BwdKv {
+  static constexpr int kThreads = 256;
+  static constexpr int NS = 2;      // stages of the ring
+  static constexpr int P = D / 64;  // 64-column panels a tile
+  static constexpr unsigned kTileBytes = 64 * D * 2;
+  static constexpr unsigned kRowBytes = 64 * 4;  // lse or delta of a tile
+  // K, V, NS stages of Q and of dO, NS rows of lse and of delta, the dK
+  // and dV float32 sums (each thread its own elements), then the barriers
+  // (K and V, full[NS], empty[NS]); 1024 bytes to align the tiles to the
+  // swizzle's period
+  static constexpr size_t kSumOff =
+      2 * kTileBytes + 2 * NS * (kTileBytes + kRowBytes);
+  static constexpr size_t kBarOff = kSumOff + 2 * 64 * D * 4;
+  static constexpr size_t kSmem = 1024 + kBarOff + 8 * (1 + 2 * NS);
+};
+// (c): blk / 64 consumer warpgroups on the block's query rows
+template <int BLK, int D>
+struct BwdQ {
+  static constexpr int NC = BLK / 64;
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr bool kSplitRegs = NC > 1;  // setmaxnreg
+  static constexpr int NS = 2;
+  static constexpr int P = D / 64;
+  static constexpr unsigned kBlockBytes = BLK * D * 2;
+  static constexpr unsigned kTileBytes = 64 * D * 2;
+  // Q, dO, NS stages of K and of V, then the barriers
+  static constexpr size_t kBarOff = 2 * kBlockBytes + 2 * NS * kTileBytes;
+  static constexpr size_t kSmem = 1024 + kBarOff + 8 * (1 + 2 * NS);
+};
+
+__device__ __forceinline__ unsigned char* swizzle_base(unsigned char* raw) {
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* own, uint64_t* full,
+                                          uint64_t* empty, int ns,
+                                          int consumer_warps) {
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int st = 0; st < ns; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, consumer_warps);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// A = rows [r0, r0 + 64) of a tile of `rows` rows stored as 64-column
+// panels, B = a 64-row tile; both K-major: d (+)= A B^T over D / 16 steps
+template <int D>
+__device__ __forceinline__ void product_ss(float (&d)[32],
+                                           const unsigned char* a, int rows,
+                                           int r0, const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk / 4, off = (kk % 4) * 32;
+    wgmma_ss(d, desc_sw128(a + p * rows * 128 + r0 * 128 + off, 16, 1024),
+             desc_sw128(b + p * 64 * 128 + off, 16, 1024), kk > 0 ? 1 : 0);
+  }
+}
+
+// d[p] += a b over a 64-deep step kk of 16: a from registers, b the 64-row
+// tile `b` read through the transpose bit, one product a 64-column panel p
+template <int P>
+__device__ __forceinline__ void product_rs(float (&d)[P][32],
+                                           const unsigned (&a)[4],
+                                           const unsigned char* b, int kk) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    wgmma_rs(d[p], a, desc_sw128(b + p * 64 * 128 + kk * 16 * 128, 1024,
+                                 1024));
+}
+
+// the thread's accumulator rows row, row + 8 of a (64 x 64 P) sum, scaled,
+// to out (rows of D)
+template <int P, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[P][32],
+                                           bf16* out, size_t row, int t,
+                                           float scale) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 64 * p + 8 * n + 2 * t;
+      store2(out + row * D + col, acc[p][4 * n] * scale,
+             acc[p][4 * n + 1] * scale);
+      store2(out + (row + 8) * D + col, acc[p][4 * n + 2] * scale,
+             acc[p][4 * n + 3] * scale);
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
+}
+
+// --------------------------------------------------- route 1: (b) dK dV --
+
+// sums[i][thread] += acc[i], acc = 0: a thread's own elements, so
+// neighbouring threads touch neighbouring words
+template <int P>
+__device__ __forceinline__ void flush(float (&acc)[P][32], float* sums,
+                                      int tid) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sums[(32 * p + i) * 128 + tid] += acc[p][i];
+      acc[p][i] = 0.0f;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BwdKv<D>::kThreads, 1)
+attn_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int nb, int hq, int hkv, int s, PairArgs pa) {
+  using C = BwdKv<D>;
+  constexpr int NS = C::NS, P = C::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sk = swizzle_base(smem_raw);  // P panels of 64 x 64
+  unsigned char* sv = sk + C::kTileBytes;
+  unsigned char* sq = sv + C::kTileBytes;  // NS stages, P panels each
+  unsigned char* sdo = sq + NS * C::kTileBytes;
+  float* slse = reinterpret_cast<float*>(sdo + NS * C::kTileBytes);
+  float* sdel = slse + NS * 64;
+  float* dk_sum = reinterpret_cast<float*>(sk + C::kSumOff);  // 64 D each
+  float* dv_sum = dk_sum + 64 * D;
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sk + C::kBarOff);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + NS;
+
+  const int nbh = nb * hkv;
+  const int j = static_cast<int>(blockIdx.x) / nbh;
+  const int bh = static_cast<int>(blockIdx.x) % nbh;
+  const int hk = bh % hkv, b = bh / hkv;
+  const int group = hq / hkv;
+  const int ka = 64 * j;  // the block's kv rows [ka, ka + 64)
+  int t0, t1;
+  query_tiles(pa, s, ka, 64, t0, t1);
+  const int nsteps = max(0, t1 - t0) * group;  // (query tile, head) steps
+  init_ring(kvfull, full, empty, NS, 4);
+
+  if (threadIdx.x >= 128) {
+    // the producer warpgroup: one thread issues every copy
+    if (threadIdx.x == 128) {
+      const int kvrow = (b * hkv + hk) * s + ka;
+      mbar_expect_tx(kvfull, 2 * C::kTileBytes);
+      for (int p = 0; p < P; ++p) {
+        tma_load(sk + p * 64 * 128, &tk, kvfull, 64 * p, kvrow);
+        tma_load(sv + p * 64 * 128, &tv, kvfull, 64 * p, kvrow);
+      }
+      for (int n = 0; n < nsteps; ++n) {
+        const int st = n % NS;
+        const unsigned ph = (n / NS) & 1;
+        const int qrow =
+            (b * hq + hk * group + n % group) * s + 64 * (t0 + n / group);
+        mbar_wait(empty + st, ph ^ 1);  // the first round passes at once
+        mbar_expect_tx(full + st, 2 * (C::kTileBytes + C::kRowBytes));
+        for (int p = 0; p < P; ++p) {
+          tma_load(sq + st * C::kTileBytes + p * 64 * 128, &tq, full + st,
+                   64 * p, qrow);
+          tma_load(sdo + st * C::kTileBytes + p * 64 * 128, &tdo, full + st,
+                   64 * p, qrow);
+        }
+        bulk_load(slse + st * 64, lse + qrow, C::kRowBytes, full + st);
+        bulk_load(sdel + st * 64, delta + qrow, C::kRowBytes, full + st);
+      }
+    }
+    return;
+  }
+  // the consumer warpgroup
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, wq = tid / 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key = ka + 16 * wq + g;  // the thread's keys: key, key + 8
+  float adk[P][32], adv[P][32];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    zero(adk[p]);
+    zero(adv[p]);
+  }
+  for (int i = tid; i < 2 * 64 * D; i += 128) dk_sum[i] = 0.0f;
+  mbar_wait(kvfull, 0);
+  for (int n = 0; n < nsteps; ++n) {
+    const int st = n % NS;
+    const unsigned ph = (n / NS) & 1;
+    const int qa = 64 * (t0 + n / group);
+    const SubBlock sb = sub_block(pa, qa, 64, ka, 64);
+    mbar_wait(full + st, ph);
+    if (sb.keep) {
+      const unsigned char* qs = sq + st * C::kTileBytes;
+      const unsigned char* gs = sdo + st * C::kTileBytes;
+      // S^T = K Q^T and dP^T = V dO^T, rows keys and columns queries, in
+      // two groups: p forms while dP^T's products run
+      float x[8][4], y[8][4];
+      float(&xf)[32] = reinterpret_cast<float(&)[32]>(x);
+      float(&yf)[32] = reinterpret_cast<float(&)[32]>(y);
+      zero(xf);
+      zero(yf);
+      fence_regs(xf);
+      fence_regs(yf);
+      wgmma_fence();
+      product_ss<D>(xf, sk, 64, 0, qs);
+      wgmma_commit();
+      product_ss<D>(yf, sv, 64, 0, gs);
+      wgmma_commit();
+      wgmma_wait_group<1>();  // S^T is in
+      fence_regs(xf);
+      // p^T rounded into A fragments, p^T (1 - t^2) in place of S^T; the
+      // thread's query columns read lse and delta from the stage
+      const float* ls = slse + st * 64;
+      const float* dl = sdel + st * 64;
+      BfA pf[4];  // round(p)^T, 16 queries a step
+      by_kind(pa, sb.cut, [&](auto cap, auto mask) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float pk[2][4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int nn = 2 * kk + u;
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(ls + 8 * nn + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              pair_p<decltype(cap)::value, decltype(mask)::value>(
+                  pa, x[nn][e], (e & 1) ? l2.y : l2.x,
+                  qa + 8 * nn + 2 * t + (e & 1), key + 8 * (e >> 1),
+                  pk[u][e], x[nn][e]);
+          }
+          a_from_acc(pf[kk], pk, 0);
+        }
+      });
+      // dV += round(p)^T dO, under way while dS^T forms
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) product_rs(adv, pf[kk].x, gs, kk);
+      wgmma_commit();
+      wgmma_wait_group<1>();  // dP^T is in
+      fence_regs(yf);
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(dl + 8 * nn + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[nn][e] = x[nn][e] * (y[nn][e] - ((e & 1) ? d2.y : d2.x));
+      }
+      BfA2 df[4];  // dS^T as hi + lo
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_from_acc(df[kk], y, kk);
+      // dK += dS^T Q (lo, then hi)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        product_rs(adk, df[kk].lo, qs, kk);
+        product_rs(adk, df[kk].hi, qs, kk);
+      }
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        fence_regs(adk[p]);
+        fence_regs(adv[p]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with it
+    if ((n + 1) % kFlush == 0) {  // bound the chains
+      flush(adk, dk_sum, tid);
+      flush(adv, dv_sum, tid);
+    }
+  }
+  flush(adk, dk_sum, tid);
+  flush(adv, dv_sum, tid);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      adk[p][i] = dk_sum[(32 * p + i) * 128 + tid];
+      adv[p][i] = dv_sum[(32 * p + i) * 128 + tid];
+    }
+  const size_t row = (static_cast<size_t>(b) * hkv + hk) * s + key;
+  store_rows<P, D>(adk, dk, row, t, pa.scale);
+  store_rows<P, D>(adv, dv, row, t, 1.0f);
+}
+
+// ------------------------------------------------------ route 1: (c) dQ --
+
+template <int BLK, int D>
+__global__ void __launch_bounds__(BwdQ<BLK, D>::kThreads, 1)
+attn_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int nb, int hq, int hkv,
+                         int s, PairArgs pa) {
+  using C = BwdQ<BLK, D>;
+  constexpr int NS = C::NS, P = C::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sq = swizzle_base(smem_raw);  // P panels of BLK x 64
+  unsigned char* sdo = sq + C::kBlockBytes;
+  unsigned char* sk = sdo + C::kBlockBytes;  // NS stages of P panels 64 x 64
+  unsigned char* sv = sk + NS * C::kTileBytes;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sq + C::kBarOff);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + NS;
+
+  const int nbh = nb * hq;
+  const int i = s / BLK - 1 - static_cast<int>(blockIdx.x) / nbh;
+  const int bh = static_cast<int>(blockIdx.x) % nbh;
+  const int h = bh % hq, b = bh / hq;
+  const int hk = h / (hq / hkv);
+  const int q0 = i * BLK;
+  int u0, u1;
+  key_tiles(pa, s, q0, BLK, u0, u1);
+  const int nsteps = max(0, u1 - u0);
+  init_ring(qfull, full, empty, NS, 4 * C::NC);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == C::NC) {
+    if constexpr (C::kSplitRegs)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kBwdProducerRegs));
+    if (threadIdx.x == 128 * C::NC) {
+      const int qrow = (b * hq + h) * s + q0;
+      const int kvrow = (b * hkv + hk) * s;
+      mbar_expect_tx(qfull, 2 * C::kBlockBytes);
+      for (int p = 0; p < P; ++p) {
+        tma_load(sq + p * BLK * 128, &tq, qfull, 64 * p, qrow);
+        tma_load(sdo + p * BLK * 128, &tdo, qfull, 64 * p, qrow);
+      }
+      for (int n = 0; n < nsteps; ++n) {
+        const int st = n % NS;
+        const unsigned ph = (n / NS) & 1;
+        const int row = kvrow + 64 * (u0 + n);
+        mbar_wait(empty + st, ph ^ 1);
+        mbar_expect_tx(full + st, 2 * C::kTileBytes);
+        for (int p = 0; p < P; ++p) {
+          tma_load(sk + st * C::kTileBytes + p * 64 * 128, &tk, full + st,
+                   64 * p, row);
+          tma_load(sv + st * C::kTileBytes + p * 64 * 128, &tv, full + st,
+                   64 * p, row);
+        }
+      }
+    }
+  } else {
+    // a consumer warpgroup: query rows [qa, qa + 64) of the block
+    if constexpr (C::kSplitRegs)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+          kBwdConsumerRegs));
+    const int lane = threadIdx.x % 32;
+    const int wq = (threadIdx.x % 128) / 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int qa = q0 + 64 * wg;
+    const int query = qa + 16 * wq + g;  // the thread's rows: query, + 8
+    const size_t row = (static_cast<size_t>(b) * hq + h) * s + query;
+    const float lse_r[2] = {lse[row], lse[row + 8]};
+    const float del_r[2] = {delta[row], delta[row + 8]};
+    float adq[P][32];
+#pragma unroll
+    for (int p = 0; p < P; ++p) zero(adq[p]);
+    mbar_wait(qfull, 0);
+    for (int n = 0; n < nsteps; ++n) {
+      const int st = n % NS;
+      const unsigned ph = (n / NS) & 1;
+      const int ka = 64 * (u0 + n);
+      const SubBlock sb = sub_block(pa, qa, 64, ka, 64);
+      mbar_wait(full + st, ph);
+      if (sb.keep) {
+        const unsigned char* ks = sk + st * C::kTileBytes;
+        const unsigned char* vs = sv + st * C::kTileBytes;
+        // S = Q K^T and dP = dO V^T, rows queries and columns keys, in two
+        // groups: p forms while dP's products run
+        float x[8][4], y[8][4];
+        float(&xf)[32] = reinterpret_cast<float(&)[32]>(x);
+        float(&yf)[32] = reinterpret_cast<float(&)[32]>(y);
+        zero(xf);
+        zero(yf);
+        fence_regs(xf);
+        fence_regs(yf);
+        wgmma_fence();
+        product_ss<D>(xf, sq, BLK, 64 * wg, ks);
+        wgmma_commit();
+        product_ss<D>(yf, sdo, BLK, 64 * wg, vs);
+        wgmma_commit();
+        wgmma_wait_group<1>();  // S is in
+        fence_regs(xf);
+        by_kind(pa, sb.cut, [&](auto cap, auto mask) {
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float p;
+              pair_p<decltype(cap)::value, decltype(mask)::value>(
+                  pa, x[nn][e], lse_r[e >> 1], query + 8 * (e >> 1),
+                  ka + 8 * nn + 2 * t + (e & 1), p, x[nn][e]);
+            }
+        });
+        wgmma_wait();  // dP is in
+        fence_regs(yf);
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y[nn][e] = x[nn][e] * (y[nn][e] - del_r[e >> 1]);
+        BfA2 df[4];  // dS as hi + lo, 16 keys a step
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) a_from_acc(df[kk], y, kk);
+        // dQ += dS K (lo, then hi)
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          product_rs(adq, df[kk].lo, ks, kk);
+          product_rs(adq, df[kk].hi, ks, kk);
+        }
+        wgmma_commit();
+        wgmma_wait();
+#pragma unroll
+        for (int p = 0; p < P; ++p) fence_regs(adq[p]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+    store_rows<P, D>(adq, dq, row, t, pa.scale);
+  }
+}
+
 // ------------------------------------------------------- launching --
 
-template <typename T, int W, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int b, int hq, int hkv, int s, PairArgs pa,
-           cudaStream_t stream) {
-  using L = Layout<T, 16 * W, D>;
-  constexpr int B = 16 * W;
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  int b, hq, hkv, s;
+  PairArgs pa;
+  cudaStream_t stream;
+};
+
+template <typename T>
+int launch_delta(const BwdArgs& a, int d) {
+  const long long rows = static_cast<long long>(a.b) * a.hq * a.s;
+  const long long blocks =
+      (rows + kDeltaThreads / kWarp - 1) / (kDeltaThreads / kWarp);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_bwd_delta_kernel<T><<<static_cast<unsigned>(blocks), kDeltaThreads, 0,
+                             a.stream>>>(static_cast<const T*>(a.o),
+                                         static_cast<const T*>(a.dout),
+                                         a.delta, rows, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int BLK, int D>
+int launch_sync(const BwdArgs& a) {
+  constexpr int W = BLK / 16;
+  using L = Layout<T, BLK, D>;
   // k, v and two stages of q and dO (dK/dV) or q, dO and two stages of k
   // and v (dQ); the dK/dV pass also stages two rows of lse and delta and,
   // in bfloat16, keeps the slices' dK sums
-  const size_t tiles = sizeof(T) * 6 * static_cast<size_t>(B) * D;
-  const size_t smem_dkdv = tiles + sizeof(float) * 4 * B +
-                           (L::kDkShared ? sizeof(float) * L::CW * B * D : 0);
+  const size_t tiles = sizeof(T) * 6 * static_cast<size_t>(BLK) * D;
+  const size_t smem_dkdv = tiles + sizeof(float) * 4 * BLK +
+                           (L::kDkShared ? sizeof(float) * L::CW * BLK * D : 0);
   const size_t smem_dq = tiles;
   auto dkdv = attn_bwd_dkdv_kernel<T, W, D>;
   auto dqk = attn_bwd_dq_kernel<T, W, D>;
@@ -634,68 +1270,121 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dq));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(b) * hq * s;
-  const long long delta_blocks =
-      (rows + kDeltaThreads / kWarp - 1) / (kDeltaThreads / kWarp);
-  const long long kv_blocks = static_cast<long long>(s / B) * hkv * b;
-  const long long q_blocks = static_cast<long long>(s / B) * hq * b;
-  if (delta_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_delta_kernel<T><<<static_cast<unsigned>(delta_blocks),
-                             kDeltaThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long kv_blocks = static_cast<long long>(a.s / BLK) * a.hkv * a.b;
+  const long long q_blocks = static_cast<long long>(a.s / BLK) * a.hq * a.b;
+  if (q_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int r = launch_delta<T>(a, D);
+  if (r != 0) return r;
   dkdv<<<static_cast<unsigned>(kv_blocks), W * L::CW * kWarp, smem_dkdv,
-         stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), b, hq, hkv, s, pa);
+         a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.b, a.hq, a.hkv,
+      a.s, a.pa);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dqk<<<static_cast<unsigned>(q_blocks), W * L::CWQ * kWarp, smem_dq,
-        stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), b, hq, hkv, s, pa);
+        a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dq), a.b, a.hq, a.hkv, a.s, a.pa);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the launch attributes of a route-1 kernel: with a setmaxnreg split its
+// registers must cover the split, and it may take `smem` bytes of shared
+// memory
+template <typename Kernel>
+cudaError_t prepare_wgmma(Kernel kernel, int nc, bool split, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (split &&
+      attr.numRegs * (nc + 1) < kBwdProducerRegs + nc * kBwdConsumerRegs)
+    return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int BLK, int D>
+int launch_wgmma(const BwdArgs& a) {
+  using CK = BwdKv<D>;
+  using CQ = BwdQ<BLK, D>;
+  auto dkdv = attn_bwd_wgmma_dkdv_kernel<D>;
+  auto dqk = attn_bwd_wgmma_dq_kernel<BLK, D>;
+  cudaError_t err = prepare_wgmma(dkdv, 1, false, CK::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = prepare_wgmma(dqk, CQ::NC, CQ::kSplitRegs, CQ::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qrows = static_cast<long long>(a.b) * a.hq * a.s;
+  const long long kvrows = static_cast<long long>(a.b) * a.hkv * a.s;
+  if (qrows > INT_MAX || kvrows > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // (b) reads 64-row tiles of everything, (c) Q and dO in blocks
+  CUtensorMap tq64, tdo64, tk64, tv64, tq_blk, tdo_blk;
+  if (!tensor_map(&tq64, a.q, qrows, D, 64) ||
+      !tensor_map(&tdo64, a.dout, qrows, D, 64) ||
+      !tensor_map(&tk64, a.k, kvrows, D, 64) ||
+      !tensor_map(&tv64, a.v, kvrows, D, 64) ||
+      !tensor_map(&tq_blk, a.q, qrows, D, BLK) ||
+      !tensor_map(&tdo_blk, a.dout, qrows, D, BLK))
+    return static_cast<int>(cudaErrorNotSupported);
+  const int r = launch_delta<bf16>(a, D);
+  if (r != 0) return r;
+  dkdv<<<static_cast<unsigned>((a.s / 64) * static_cast<long long>(a.b) *
+                               a.hkv),
+         CK::kThreads, CK::kSmem, a.stream>>>(
+      tq64, tdo64, tk64, tv64, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.b, a.hq, a.hkv, a.s, a.pa);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<static_cast<unsigned>((a.s / BLK) * static_cast<long long>(a.b) *
+                              a.hq),
+        CQ::kThreads, CQ::kSmem, a.stream>>>(
+      tq_blk, tdo_blk, tk64, tv64, a.lse, a.delta, static_cast<bf16*>(a.dq),
+      a.b, a.hq, a.hkv, a.s, a.pa);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the route of (T, BLK, D), fixed at compile time: only the configs the
+// table routes are instantiated
+template <typename T, int BLK, int D>
+int launch(const BwdArgs& a) {
+  constexpr int route = route_of(std::is_same<T, bf16>::value ? 1 : 0, BLK, D);
+  if constexpr (route == 1)
+    return launch_wgmma<BLK, D>(a);
+  else if constexpr (route == 2)
+    return launch_sync<T, BLK, D>(a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int D>
-int dispatch_block(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const float* lse, float* delta, void* dq,
-                   void* dk, void* dv, int b, int hq, int hkv, int s, int blk,
-                   PairArgs pa, cudaStream_t st) {
+int dispatch_block(const BwdArgs& a, int blk) {
   switch (blk) {
     case 32:
-      return launch<T, 2, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                             hkv, s, pa, st);
+      return launch<T, 32, D>(a);
     case 64:
-      return launch<T, 4, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                             hkv, s, pa, st);
+      return launch<T, 64, D>(a);
+    case 128:
+      return launch<T, 128, D>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const float* lse, float* delta, void* dq,
-             void* dk, void* dv, int b, int hq, int hkv, int s, int d,
-             int blk, PairArgs pa, cudaStream_t st) {
+int dispatch(const BwdArgs& a, int d, int blk) {
   switch (d) {
     case 16:
-      return dispatch_block<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   b, hq, hkv, s, blk, pa, st);
+      return dispatch_block<T, 16>(a, blk);
     case 32:
-      return dispatch_block<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   b, hq, hkv, s, blk, pa, st);
+      return dispatch_block<T, 32>(a, blk);
     case 64:
-      return dispatch_block<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   b, hq, hkv, s, blk, pa, st);
+      return dispatch_block<T, 64>(a, blk);
     case 128:
-      return dispatch_block<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    b, hq, hkv, s, blk, pa, st);
+      return dispatch_block<T, 128>(a, blk);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -704,6 +1393,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 extern "C" {
+
+// The route the table gives (dtype, blk, d): 1 wgmma, 2 mma.sync, 0 none
+// (the launch refuses it).
+int repro_flash_attention_bwd_route(int dtype, int blk, int d) {
+  return route_of(dtype, blk, d);
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  The caller guarantees contiguous,
 // 16-byte aligned operands on the current device: q, o, dout, dq (B, Hq, S,
@@ -717,19 +1412,15 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               int window, float softcap, int dtype,
                               void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || s <= 0 || blk <= 0 ||
-      s % blk)
+      s % blk || route_of(dtype, blk, d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PairArgs pa{scale, softcap, causal, window};
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, dout, l, dl, dq, dk, dv, b, hq, hkv, s,
-                           d, blk, pa, st);
-  if (dtype == 1)
-    return dispatch<bf16>(q, k, v, o, dout, l, dl, dq, dk, dv, b, hq, hkv, s,
-                          d, blk, pa, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse),
+                  static_cast<float*>(delta), dq, dk, dv, b, hq, hkv, s,
+                  PairArgs{scale, softcap,
+                           softcap > 0.0f ? 1.0f / softcap : 0.0f, causal,
+                           window},
+                  static_cast<cudaStream_t>(stream)};
+  return dtype == 0 ? dispatch<float>(a, d, blk) : dispatch<bf16>(a, d, blk);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -38,10 +38,15 @@ which also writes each row's log-sum-exp, and a backward through
 :func:`flash_attention_bwd` -- on CUDA tensors the three hand-written
 kernels of ``csrc/flash_attention_bwd.cu`` (delta, dK/dV, dQ), on CPU
 tensors :func:`flash_attention_bwd_plain`, the same arithmetic blockwise.
-The backward kernels run their products on the tensor cores (``mma.sync``:
-bfloat16 in one rounding, float32 as three TF32 products, dS in bfloat16 as
-hi + lo) in a fixed order without atomics, so their result is the same
-bits from run to run.  The reference has no backward kernel (it
+The backward kernels run their products on the tensor cores by two routes,
+chosen by an explicit table (:func:`attn_bwd_route`), neither a fall back
+for the other: ``"wgmma"`` for bfloat16 at a block in
+:data:`BWD_WGMMA_BLOCKS` and a head dim in :data:`WGMMA_HEAD_DIMS` (TMA
+copies from a producer warp, warpgroup products; every backward of the
+models' train steps), ``"mma_sync"`` for float32 (three TF32 products) and
+the other bfloat16 configs at :data:`BWD_BLOCKS`.  bfloat16 takes dS as hi
++ lo; every sum runs in a fixed order without atomics, so the result is
+the same bits from run to run.  The reference has no backward kernel (it
 differentiates ``chunked_attention`` in XLA); the backward takes Sq = Skv
 only.
 
@@ -91,9 +96,22 @@ F32_STAGE_ROWS = 32
 WGMMA_SMEM_EXTRA = 1024 + 8 * (1 + 4 * KV_STAGES)
 #: the reference kernel's finite mask sentinel
 NEG_INF = -1e30
-#: the backward's blocks (bq = bkv): 16 rows a warp, two warps a row group;
-#: its dK and dV accumulators would not fit in registers at the forward's 128
+#: the backward's mma.sync blocks (bq = bkv): 16 rows a warp, two warps a
+#: row group; its dK and dV accumulators would not fit in registers at 128
 BWD_BLOCKS: Tuple[int, ...] = (32, 64)
+#: the backward's wgmma blocks, bfloat16 only, in the order
+#: :func:`attn_bwd_blocks` prefers them: the query block of the dQ kernel
+#: (a consumer warpgroup a 64 rows); the dK/dV kernel takes kv blocks of
+#: :data:`BWD_WGMMA_TILE` rows at either
+BWD_WGMMA_BLOCKS: Tuple[int, ...] = (128, 64)
+#: the backward's routes, in the order of the table
+BWD_ROUTES: Tuple[str, ...] = ("wgmma", "mma_sync")
+#: rows of the tiles the backward's wgmma route streams through its ring,
+#: and of the dK/dV kernel's kv block
+BWD_WGMMA_TILE = 64
+#: stages of the backward's wgmma rings (the dK/dV kernel's q and dO
+#: tiles, the dQ kernel's k and v tiles)
+BWD_WGMMA_STAGES = 2
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -223,15 +241,57 @@ def attn_kv_range(qblk: int, bq: int, bkv: int, skv: int, causal: bool,
     return lo, hi
 
 
+def attn_bwd_route(dtype: torch.dtype, blk: int, d: int) -> Optional[str]:
+    """The backward kernels' route for ``dtype`` operands at block ``blk``
+    and head dim ``d`` (reckoned at :func:`padded_head_dim`): ``"wgmma"``
+    for bfloat16 at a block in :data:`BWD_WGMMA_BLOCKS` and a padded head
+    dim in :data:`WGMMA_HEAD_DIMS`, ``"mma_sync"`` for float32 and every
+    other bfloat16 config at a block in :data:`BWD_BLOCKS`, None where
+    nothing is instantiated.  ``csrc/flash_attention_bwd.cu``'s
+    ``route_of`` is the same table."""
+    width = padded_head_dim(d) if d > 0 else None
+    if width is None or dtype not in _DTYPE_CODES:
+        return None
+    if dtype == torch.bfloat16 and blk in BWD_WGMMA_BLOCKS and \
+            width in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma_sync" if blk in BWD_BLOCKS else None
+
+
+def attn_bwd_route_table() -> str:
+    """The backward's route table, for the message of a config it does
+    not route."""
+    return (f"wgmma: bfloat16, block in {BWD_WGMMA_BLOCKS}, head dim in "
+            f"{WGMMA_HEAD_DIMS}; mma_sync: float32 or bfloat16, block in "
+            f"{BWD_BLOCKS}, head dim padded to one of {KERNEL_HEAD_DIMS}, "
+            f"where wgmma does not take it")
+
+
 def attn_bwd_smem_bytes(blk: int, d: int, itemsize: int = 4) -> int:
-    """Shared memory one backward block stages (the dK/dV kernel, the
-    larger of the two): its k and v tiles and two stages of the q and dO
-    tiles (blk x d each, in the operands' dtype), two stages of the rows'
-    lse and delta, and, for bfloat16 operands, the two column slices' dK
-    sums in float32; at the padded head dim (:func:`padded_head_dim`).
-    blk = 64, d = 128 takes 197,632 bytes in float32 and 164,864 in
-    bfloat16."""
+    """Shared memory a backward block stages on its route
+    (:func:`attn_bwd_route`; the larger of its two kernels), at the padded
+    head dim (:func:`padded_head_dim`).  mma.sync (the dK/dV kernel): its
+    k and v tiles and two stages of the q and dO tiles (blk x d each, in
+    the operands' dtype), two stages of the rows' lse and delta, and, for
+    bfloat16 operands, the two column slices' dK sums in float32.  wgmma
+    (bfloat16, tiles of t = :data:`BWD_WGMMA_TILE` rows,
+    :data:`BWD_WGMMA_STAGES` stages): the dK/dV kernel's k and v (t x d),
+    its stages of a q and a dO tile with their lse and delta rows, and the
+    float32 dK and dV sums (t x d each); the dQ kernel's q and dO
+    (blk x d) and its stages of a k and a v tile; each with its mbarriers
+    (8 bytes: one for the block's own tiles, two a stage), plus 1024 bytes
+    to align the tiles to the 128-byte swizzle's period.  blk = 64, d =
+    128 takes 197,632 bytes in float32; the wgmma route at d = 128 165,928
+    (the dK/dV kernel's).
+    """
     d = padded_head_dim(d) or d
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    if attn_bwd_route(dtype, blk, d) == "wgmma":
+        t, ns = BWD_WGMMA_TILE, BWD_WGMMA_STAGES
+        dkdv = (2 * t * d * itemsize + ns * (2 * t * d * itemsize + 2 * 4 * t)
+                + 2 * t * d * 4)
+        dq = 2 * blk * d * itemsize + ns * 2 * t * d * itemsize
+        return 1024 + max(dkdv, dq) + 8 * (1 + 2 * ns)
     dk_sums = 2 * blk * d * 4 if itemsize == 2 else 0
     return 6 * blk * d * itemsize + 4 * 4 * blk + dk_sums
 
@@ -239,23 +299,29 @@ def attn_bwd_smem_bytes(blk: int, d: int, itemsize: int = 4) -> int:
 def attn_bwd_tile_legal(s: int, blk: int, d: int, itemsize: int = 4,
                         smem_limit: int = H100_SMEM_OPTIN) -> bool:
     """Can the backward kernels run sequence length ``s`` (= Sq = Skv) at
-    head dim ``d`` with blocks ``(blk, blk)``?  The block must divide the
-    sequence, ``blk`` must be instantiated and ``d`` pad to an
-    instantiated head dim, and the staging at the padded width must fit
-    ``smem_limit``."""
+    head dim ``d`` with block ``blk`` in operands of ``itemsize`` bytes
+    (4 float32, 2 bfloat16)?  The block must divide the sequence,
+    :func:`attn_bwd_route` must route the config (``d`` padding to an
+    instantiated head dim), and the route's staging at the padded width
+    must fit ``smem_limit``."""
     if min(s, blk, d) <= 0 or s % blk:
         return False
-    if blk not in BWD_BLOCKS or padded_head_dim(d) is None:
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    if attn_bwd_route(dtype, blk, d) is None:
         return False
     return attn_bwd_smem_bytes(blk, d, itemsize) <= smem_limit
 
 
-def attn_bwd_blocks(s: int) -> int:
-    """The backward's block for sequence length ``s``: the largest of
-    :data:`BWD_BLOCKS` that divides ``s``; when none does, ``s`` itself
-    (one block), which the plain version takes and the card refuses."""
-    for blk in sorted(BWD_BLOCKS, reverse=True):
-        if s % blk == 0:
+def attn_bwd_blocks(s: int, dtype: torch.dtype = torch.float32,
+                    d: int = 128) -> int:
+    """The backward's block for sequence length ``s`` in ``dtype`` at head
+    dim ``d``: the first block that divides ``s`` of the wgmma route's
+    (:data:`BWD_WGMMA_BLOCKS`, where :func:`attn_bwd_route` gives it the
+    config) and then the mma.sync route's (:data:`BWD_BLOCKS`, largest
+    first); when none does, ``s`` itself (one block), which the plain
+    version takes and the card refuses."""
+    for blk in BWD_WGMMA_BLOCKS + tuple(sorted(BWD_BLOCKS, reverse=True)):
+        if s % blk == 0 and attn_bwd_route(dtype, blk, d) is not None:
             return blk
     return s
 
@@ -631,6 +697,8 @@ def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     grads = padded_backward(q, k, v, o, do, run)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[
+        attn_bwd_route(q.dtype, blk, q.shape[3])] += 1
     return grads
 
 
@@ -694,14 +762,21 @@ def _bwd_legal(q, k, blk: int) -> None:
     """Raise unless the backward kernels take these operands at ``blk``."""
     s, d = q.shape[2], q.shape[3]
     limit = card_smem(q)
-    if k.shape[2] != s or not attn_bwd_tile_legal(
-            s, blk, d, q.element_size(), limit):
+    if k.shape[2] != s:
+        raise ValueError(f"the attention backward kernels do not take Sq = "
+                         f"{s}, Skv = {k.shape[2]}: Sq must equal Skv")
+    route = attn_bwd_route(q.dtype, blk, d)
+    if route is None:
         raise ValueError(
-            f"the attention backward kernels do not take Sq = {s}, Skv = "
-            f"{k.shape[2]} at head dim {d} and block {blk}: Sq must equal "
-            f"Skv, the block be one of {BWD_BLOCKS} dividing it, d at most "
-            f"{max(KERNEL_HEAD_DIMS)} (run at the next of "
-            f"{KERNEL_HEAD_DIMS}), and the staging "
+            f"the attention backward kernels do not take block {blk} at head "
+            f"dim {d} in {q.dtype}: no route does; the route table: "
+            f"{attn_bwd_route_table()}")
+    if not attn_bwd_tile_legal(s, blk, d, q.element_size(), limit):
+        raise ValueError(
+            f"the attention backward kernels do not take S = {s} at head dim "
+            f"{d} and block {blk} on their {route} route: the block must "
+            f"divide S, d be at most {max(KERNEL_HEAD_DIMS)} (run at the next"
+            f" of {KERNEL_HEAD_DIMS}), and the staging "
             f"{attn_bwd_smem_bytes(blk, d, q.element_size())} B fit "
             f"{limit} B")
 
@@ -716,11 +791,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output's gradient ``do``, at Sq = Skv.
 
     CUDA tensors launch the three hand-written kernels of
-    ``csrc/flash_attention_bwd.cu`` on the current stream (blocks ``blk``,
-    by default :func:`attn_bwd_blocks`), and anything they do not take
+    ``csrc/flash_attention_bwd.cu`` on the current stream (block ``blk``,
+    by default :func:`attn_bwd_blocks`, on the route
+    :func:`attn_bwd_route` gives it), and anything they do not take
     raises; CPU tensors run :func:`flash_attention_bwd_plain` over the
     same blocks.  ``flash_attention_bwd.launches`` counts calls that
-    launched the kernels: one per backward, three kernel launches inside.
+    launched the kernels: one per backward, three kernel launches inside;
+    ``flash_attention_bwd.route_launches`` splits them by route.
     """
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or \
@@ -732,7 +809,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[2] != s:
         raise ValueError(f"the attention backward takes Sq = Skv, got {s} "
                          f"and {k.shape[2]}")
-    blk = attn_bwd_blocks(s) if blk is None else blk
+    blk = attn_bwd_blocks(s, q.dtype, q.shape[3]) if blk is None \
+        else blk
     if q.device.type == "cuda":
         if o.dtype != q.dtype or do.dtype != q.dtype or \
                 lse.dtype != torch.float32:
@@ -748,6 +826,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
+#: backward launches per route (:func:`attn_bwd_route`)
+flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -808,7 +888,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"the attention backward takes Sq = Skv, got "
                              f"{sq} and {skv}")
         if q.device.type == "cuda":
-            _bwd_legal(q, k, attn_bwd_blocks(sq))
+            _bwd_legal(q, k, attn_bwd_blocks(sq, q.dtype, q.shape[3]))
         return FlashAttentionFn.apply(q, k, v, bq, bkv, causal, window,
                                       softcap)
     if plain_route(q):

@@ -187,11 +187,22 @@ def test_backward_blocks_and_legality():
     assert BWD_BLOCKS == (32, 64)
     assert attn_bwd_blocks(4096) == 64 and attn_bwd_blocks(96) == 32
     assert attn_bwd_blocks(48) == 48          # none divides: one block
-    # k, v and two stages of q and dO; two stages of lse and delta; in
-    # bfloat16 also two column slices' float32 dK sums
+    # mma.sync: k, v and two stages of q and dO; two stages of lse and
+    # delta; in bfloat16 also two column slices' float32 dK sums
     assert attn_bwd_smem_bytes(64, 128) == 197_632
-    assert attn_bwd_smem_bytes(64, 128, itemsize=2) == 164_864
     assert attn_bwd_smem_bytes(32, 128, itemsize=2) == 82_432
+    assert attn_bwd_smem_bytes(64, 32, itemsize=2) == 41_984
+    # wgmma (bfloat16 at blocks 64 and 128, head dims 64 and 128): the
+    # dK/dV kernel's 64-row k and v, two stages of 64-row q and dO tiles
+    # with their lse and delta rows and of the 64 x 64 float32 p (1 - t^2)
+    # passed between its warpgroups, the float32 dK and dV sums, alignment
+    # and barriers; at either block
+    assert attn_bwd_smem_bytes(64, 128, itemsize=2) == 165_928
+    assert attn_bwd_smem_bytes(128, 128, itemsize=2) == 165_928
+    assert attn_bwd_smem_bytes(128, 64, itemsize=2) == 84_008
+    assert attn_bwd_blocks(4096, torch.bfloat16, 128) == 128
+    assert attn_bwd_blocks(4096, torch.bfloat16, 32) == 64
+    assert attn_bwd_blocks(96, torch.bfloat16, 128) == 32
     for blk in BWD_BLOCKS:
         for d in KERNEL_HEAD_DIMS:
             for itemsize in (4, 2):
@@ -202,8 +213,10 @@ def test_backward_blocks_and_legality():
     assert attn_bwd_smem_bytes(64, 80) == attn_bwd_smem_bytes(64, 128)
     assert not attn_bwd_tile_legal(128, 64, 160)     # head dim over 128
     assert not attn_bwd_tile_legal(128, 64, 128, smem_limit=100_000)
-    assert not attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=164_863)
-    assert attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=164_864)
+    assert not attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=165_927)
+    assert attn_bwd_tile_legal(128, 64, 128, 2, smem_limit=165_928)
+    assert attn_bwd_tile_legal(4096, 128, 128, 2)    # wgmma
+    assert not attn_bwd_tile_legal(4096, 128, 128)   # float32: no route
 
 
 # ---------------------------------------------------------------- on card --

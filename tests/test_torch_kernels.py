@@ -223,10 +223,12 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
     """chip_smoke reads each selected instantiation's registers from the
     compilers' ``-Xptxas -v`` reports by key: every key it builds must be
     found under the mangled names nvcc gives those instantiations (the
-    attention forward's two routes and the SSD's three passes included,
-    one of them not a template)."""
+    attention forward's two routes, the backward's dK/dV and dQ kernels on
+    its two routes and the SSD's three passes included, one of them not a
+    template)."""
     smoke = _chip_smoke()
     prefix = "_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_aa245fc2"
+    bwd = "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_f13b085c"
     names = {
         ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_c44b2bfd13matmul_kernelIf"
          "Li2ELi2ELi64EEEvPKT_S4_PS2_iiii"): (161, 0, 0),
@@ -245,6 +247,16 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
          "S2_S2_Pfiiiii"): (128, 0, 0),
         (prefix + "21ssd_chunk_scan_kernelILi64ELi128ELi32EEEvPKfS2_S2_S2_"
          "S2_S2_Pfiiiii"): (128, 12, 32),
+        (bwd + "20attn_bwd_dkdv_kernelIfLi4ELi128EEEvPKT_S3_S3_S3_PKfS5_PS1_"
+         "S6_iiiiNS_8PairArgsE"): (255, 8, 8),
+        (bwd + "18attn_bwd_dq_kernelIfLi4ELi128EEEvPKT_S3_S3_S3_PKfS5_PS1_"
+         "iiiiNS_8PairArgsE"): (255, 0, 0),
+        (bwd + "20attn_bwd_dkdv_kernelI13__nv_bfloat16Li2ELi128EEEvPKT_S4_"
+         "S4_S4_PKfS6_PS2_S7_iiiiNS_8PairArgsE"): (168, 12, 20),
+        (bwd + "26attn_bwd_wgmma_dkdv_kernelILi128EEEv14CUtensorMap_stS1_S1_"
+         "S1_PKfS3_P13__nv_bfloat16S5_iiiiNS_8PairArgsE"): (246, 0, 0),
+        (bwd + "24attn_bwd_wgmma_dq_kernelILi128ELi128EEEv14CUtensorMap_st"
+         "S1_S1_S1_PKfS3_P13__nv_bfloat16iiiiNS_8PairArgsE"): (168, 0, 0),
     }
     lines = []
     for name, (regs, st, ld) in names.items():
@@ -264,10 +276,16 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
              for what, key in kernel}
     assert [what for what, _ in keys["flash_attention"]] == ["mma_sync",
                                                              "wgmma"]
+    # the backward's bfloat16 mma.sync kernels at the models' config went
+    # with the wgmma route: its float32 ones and the wgmma ones are read
+    assert [what for what, _ in keys["flash_attention_bwd"]] == [
+        "dkdv", "dq", "dkdv_wgmma", "dq_wgmma"]
     assert found == {"matmul": (161, 0, 0), "mma_sync": (255, 0, 0),
                      "wgmma": (168, 12, 8),
                      "chunk_state": (80, 4, 4), "state_pass": (48, 0, 0),
-                     "chunk_scan": (128, 0, 0)}
+                     "chunk_scan": (128, 0, 0), "dkdv": (255, 8, 8),
+                     "dq": (255, 0, 0), "dkdv_wgmma": (246, 0, 0),
+                     "dq_wgmma": (168, 0, 0)}
     # chunk 32 selects the 32-row scan instantiation
     key = dict(smoke.selected_ptxas_keys((128, 128, 64), (128, 128, 128),
                                          (32, 64, 128))["ssd"])["chunk_scan"]

@@ -3478,7 +3478,12 @@ SSD_TRAIN_LAYERS = 64
 #: chunk, h0 given at chunks 16 and 64, dh_final at 16 and 32
 SSD_BWD_SMALL = (2, 512, 4, 2)
 SSD_BWD_CHUNKS = (16, 32, 64, 256)
-SSD_BWD_MAIN_KEY = (64, 128, 64)   # the chunk pass at mamba2's (P, N, R)
+#: the wgmma route's (P, N): mamba2-2.7b's and jamba-v0.1-52b's widths
+SSD_BWD_WGMMA_KEYS = ((64, 128), (64, 16))
+#: the mma.sync route's chunk pass the SASS gate reads: mamba2's (P, N) at
+#: R = 32 (chunk 32; at chunks of 64 and more that (P, N) takes wgmma)
+SSD_BWD_SYNC_KEY = (64, 128, 32)
+SSD_BWD_MAIN_KEY = (64, 128)       # the wgmma route at mamba2's (P, N)
 
 
 def ssd_bwd_work(b, l, h, p, g, n, chunk):
@@ -3488,7 +3493,8 @@ def ssd_bwd_work(b, l, h, p, g, n, chunk):
     each); and C B^T over the kept pairs (2 N a pair) once a (batch, group,
     chunk), since C and B belong to the group; x, dy, dt, a_log, b, c, the
     forward's s and h_in read once, dx, ddt, da_log, db, dc and dh0
-    written once."""
+    written once.  (The wgmma route's split scratch is the route's own, not
+    the function's: :func:`ssd_bwd_route_bytes` counts it.)"""
     nc = l // chunk
     pairs = chunk * (chunk + 1) // 2
     per_head = 2.0 * pairs * (2 * n + 2 * p) + 8.0 * chunk * p * n
@@ -3499,6 +3505,15 @@ def ssd_bwd_work(b, l, h, p, g, n, chunk):
     return flops, 4.0 * (reads + writes)
 
 
+def ssd_bwd_route_bytes(b, l, h, p, g, n, chunk) -> float:
+    """The bytes the wgmma route moves beyond the function's own
+    (:func:`ssd_bwd_work`): its split scratch
+    (``ssd_bwd_split_floats``) written once and read once; 0 on the
+    mma.sync route."""
+    from repro_torch.kernels.ssd import ssd_bwd_split_floats
+    return 2 * 4.0 * ssd_bwd_split_floats(b, l, h, g, p, n, chunk)
+
+
 #: host seconds on each side of a short profiler window: the profiler keeps
 #: only the device events its host-clock window holds, and 750 s into this
 #: script on the H100 a window of five calls (18 ms) held none, and one of
@@ -3507,11 +3522,14 @@ PROFILE_PAD_S = 0.5
 
 
 def ssd_bwd_kernel_ms(fn, calls: int = 20) -> dict:
-    """Each SSD backward kernel's device time in ms a call: the mean over
-    its events in one ``torch.profiler`` window of ``calls`` calls of
-    ``fn`` (after one unprofiled call), padded by PROFILE_PAD_S of host
-    time on each side, with the events the window held under ``events``;
-    ``{"measured": False}`` when it holds none."""
+    """Each SSD backward kernel's device time in ms: the mean over its
+    events (a launch) in one ``torch.profiler`` window of ``calls`` calls
+    of ``fn`` (after one unprofiled call), padded by PROFILE_PAD_S of host
+    time on each side, with the events the window held under ``events``,
+    and under ``a_call`` the mean times the kernel's launches a call (its
+    events over the chunk pass's, which launches once a call; the wgmma
+    route's split kernel launches twice); ``{"measured": False}`` when the
+    window holds none."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3535,30 +3553,47 @@ def ssd_bwd_kernel_ms(fn, calls: int = 20) -> dict:
             events[m.group(1)] = events.get(m.group(1), 0) + 1
     if not total:
         return {"measured": False}
-    return {"measured": True, "events": events, "of_calls": calls,
-            **{k: v / events[k] for k, v in total.items()}}
+    mean = {k: v / events[k] for k, v in total.items()}
+    once = next((events[k] for k in ("chunk_wgmma", "chunk") if k in events),
+                None)
+    a_call = {k: m * max(1, round(events[k] / once)) if once else m
+              for k, m in mean.items()}
+    return {"measured": True, "events": events, "of_calls": calls, **mean,
+            "a_call": a_call}
 
 
 def check_ssd_bwd_sass(sass_run) -> dict:
-    """The SASS gate: the SSD backward's product kernels at mamba2's (P, N)
-    -- pass (i)'s D_c and the chunk pass at SSD_BWD_MAIN_KEY -- hold
-    tensor-core instructions (``sass_run`` from :func:`start_sass` on the
-    backward's library)."""
-    counts = hmma_counts(sass_run)
-    p, n, r = SSD_BWD_MAIN_KEY
-    found = {}
-    for kern, tag in (("ssd_bwd_dstate_kernel", f"ILi{p}ELi{n}EE"),
-                      ("ssd_bwd_chunk_kernel", f"ILi{p}ELi{n}ELi{r}EE")):
+    """The SASS gate of the SSD backward's library (``sass_run`` from
+    :func:`start_sass`): HGMMA in the wgmma route's chunk pass, D_c and
+    C B^T kernels at every (P, N) of SSD_BWD_WGMMA_KEYS; HMMA in the
+    mma.sync route's chunk pass at SSD_BWD_SYNC_KEY and its D_c at that
+    (P, N)."""
+    hgmma, hmma = hmma_counts(sass_run, "HGMMA"), hmma_counts(sass_run)
+
+    def one(counts, kern, key):
+        tag = "I" + "".join(f"Li{c}E" for c in key) + "E"
         names = [k for k in counts if kern in k and tag in k]
         if len(names) != 1:
             raise AssertionError(f"no single SASS function for {kern} at "
-                                 f"{SSD_BWD_MAIN_KEY}: {names}")
-        found[kern] = counts[names[0]]
+                                 f"{key}: {names}")
+        return counts[names[0]]
+
+    found = {}
+    for key in SSD_BWD_WGMMA_KEYS:
+        for kern in ("ssd_bwd_chunk_wgmma_kernel",
+                     "ssd_bwd_dstate_wgmma_kernel", "ssd_bwd_cb_kernel"):
+            found[f"{kern}<{key[0]},{key[1]}>/HGMMA"] = one(hgmma, kern, key)
+    found[f"ssd_bwd_chunk_kernel<{','.join(map(str, SSD_BWD_SYNC_KEY))}>"
+          f"/HMMA"] = one(hmma, "ssd_bwd_chunk_kernel", SSD_BWD_SYNC_KEY)
+    found[f"ssd_bwd_dstate_kernel<{SSD_BWD_SYNC_KEY[0]},"
+          f"{SSD_BWD_SYNC_KEY[1]}>/HMMA"] = one(
+              hmma, "ssd_bwd_dstate_kernel", SSD_BWD_SYNC_KEY[:2])
     if not all(found.values()):
-        raise AssertionError(f"the SSD backward's SASS at {SSD_BWD_MAIN_KEY}"
-                             f" lacks tensor-core instructions: {found}")
-    log(f"  SSD backward SASS at (P, N, R) = {SSD_BWD_MAIN_KEY}: HMMA per "
-        f"kernel {found} (cuobjdump -sass)")
+        raise AssertionError(f"the SSD backward's SASS lacks tensor-core "
+                             f"instructions: {found}")
+    log(f"  SSD backward SASS: HGMMA in the wgmma route's kernels at (P, N) "
+        f"in {SSD_BWD_WGMMA_KEYS}, HMMA in the mma.sync route's at "
+        f"{SSD_BWD_SYNC_KEY}: {found} (cuobjdump -sass)")
     return found
 
 
@@ -3590,25 +3625,31 @@ def check_ssd_bwd_case(label, ops, chunk):
     """The SSD backward kernels on ``ops`` (:func:`ssd_bwd_inputs`) at
     ``chunk`` against the plain backward in float64 on the kernel
     forward's own s and h_in: two calls the same bits, every gradient
-    within 1e-5 normwise.  Returns (args, got, want, errs)."""
+    within 1e-5 normwise, both calls on the route ``ssd_bwd_route`` gives.
+    Returns (args, got, want, errs)."""
     import torch
-    from repro_torch.kernels.ssd import _kernel_parts, ssd_bwd, ssd_bwd_plain
+    from repro_torch.kernels.ssd import (_kernel_parts, ssd_bwd,
+                                         ssd_bwd_plain, ssd_bwd_route)
     tol = WIDE_TOL["float32"]
     x, dt, a_log, bb, cc, h0, dy, dh = ops
+    route = ssd_bwd_route(x.shape[3], bb.shape[3], chunk)
     _, _, s, h_in = _kernel_parts(x, dt, a_log, bb, cc, chunk, h0,
                                   want_state=False)
     args = (x, dt, a_log, bb, cc, s, h_in, dy, dh)
+    before = ssd_bwd.route_launches[route]
     got = ssd_bwd(*args, chunk=chunk)
     again = ssd_bwd(*args, chunk=chunk)
     torch.cuda.synchronize()           # a fault surfaces here
+    on_route = ssd_bwd.route_launches[route] - before == 2
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     want = ssd_bwd_plain(*(None if t is None else t.double() for t in args),
                          chunk=chunk)
     errs = dict(zip(SSD_BWD_NAMES, grads_err(got, want).values()))
-    if not (same and max(errs.values()) <= tol):
+    if not (same and on_route and max(errs.values()) <= tol):
         raise AssertionError(f"ssd_bwd disagrees with its plain version "
-                             f"at {label}: two calls equal {same}, "
-                             f"normwise {errs} (bound {tol:.0e})")
+                             f"at {label}: two calls equal {same}, on its "
+                             f"route {route} {on_route}, normwise {errs} "
+                             f"(bound {tol:.0e})")
     return args, got, want, errs
 
 
@@ -3618,7 +3659,8 @@ def ssd_bwd_timed(label, args, got, want, errs, chunk, card) -> dict:
     FFMA bound beside it), each kernel's own time from one profiler
     window; logged as ``label``."""
     import torch
-    from repro_torch.kernels.ssd import ssd_bwd, ssd_bwd_heads, ssd_bwd_plain
+    from repro_torch.kernels.ssd import (ssd_bwd, ssd_bwd_heads,
+                                         ssd_bwd_plain, ssd_bwd_route)
     problem = tuple(args[0].shape) + tuple(args[3].shape[2:])
     b, l, h, p, g, n = problem
     max_abs = max(float((a.double() - w).abs().max())
@@ -3630,44 +3672,92 @@ def ssd_bwd_timed(label, args, got, want, errs, chunk, card) -> dict:
     passes_ms = ssd_bwd_kernel_ms(lambda: ssd_bwd(*args, chunk=chunk))
     flops, nbytes = ssd_bwd_work(*problem, chunk)
     bd = bwd_bound(flops, nbytes, torch.float32, card)
+    route = ssd_bwd_route(p, n, chunk)
+    scratch = ssd_bwd_route_bytes(*problem, chunk)
+    route_bd = bwd_bound(flops, nbytes + scratch, torch.float32, card)
     heads = ssd_bwd_heads(h, g)
-    log(f"  {label} SSD backward {problem}, chunk {chunk}, two calls bit for"
-        f" bit: normwise vs float64 " + ", ".join(
+    log(f"  {label} SSD backward {problem}, chunk {chunk}, route {route}, "
+        f"two calls bit for bit: normwise vs float64 " + ", ".join(
             f"{k} {v:.2e}" for k, v in errs.items()) + " (the float32 "
         f"plain backward: " + ", ".join(
             f"{k} {v:.2e}" for k, v in plain32.items()) + f"); kernel "
-        f"{kernel_ms:.3f} ms (four launches, {heads} heads a chunk-pass "
-        f"block), plain {plain_ms:.3f} ms (float32), bound "
-        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['bound_terms']}); "
+        f"{kernel_ms:.3f} ms ({heads} heads a chunk-pass block), plain "
+        f"{plain_ms:.3f} ms (float32), bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']}, {bd['bound_terms']}); with the route's split "
+        f"scratch written and read once ({scratch / 1e9:.3f} GB) "
+        f"{route_bd['bound_ms']:.3f} ms ({route_bd['bound_by']}); "
         f"{flops / kernel_ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP")
     if passes_ms["measured"]:
-        log("    each kernel (torch.profiler, mean ms an event): " +
-            ", ".join(f"{k} {passes_ms[k]:.3f}"
-                      for k in passes_ms["events"]) +
+        log("    each kernel (torch.profiler, ms a call): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in passes_ms["a_call"].items()) +
             f"; events held {passes_ms['events']} of "
             f"{passes_ms['of_calls']} calls")
     else:
         log("    the profiler window holds no device time: each kernel's "
             "time not measured")
-    return {"shape": list(problem), "chunk": chunk, "normwise": errs,
-            "plain32_normwise": plain32, "err": max_abs,
+    return {"shape": list(problem), "chunk": chunk, "route": route,
+            "normwise": errs, "plain32_normwise": plain32, "err": max_abs,
             "deterministic": True, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": None, "heads": heads,
-            "passes_ms": passes_ms, **bd}
+            "passes_ms": passes_ms, "scratch_bytes": scratch,
+            "route_bound_ms": route_bd["bound_ms"],
+            "route_bound_by": route_bd["bound_by"], **bd}
+
+
+def check_ssd_bwd_routes() -> dict:
+    """The backward library's route table (``repro_ssd_bwd_route``)
+    against ``ssd_bwd_route`` at every instantiated (P, N) and more, chunks
+    legal and not; its split scratch's size
+    (``repro_ssd_bwd_split_floats``) against ``ssd_bwd_split_floats`` at
+    the models' widths."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import (KERNEL_HEAD_DIMS, KERNEL_STATES,
+                                         ssd_bwd_route, ssd_bwd_split_floats)
+    lib = _build.load("ssd_bwd")
+    lib.repro_ssd_bwd_route.argtypes = [ctypes.c_int] * 3
+    lib.repro_ssd_bwd_split_floats.argtypes = [ctypes.c_int] * 7
+    lib.repro_ssd_bwd_split_floats.restype = ctypes.c_longlong
+    names = {0: None, 1: "wgmma", 2: "mma_sync"}
+    table = {(p, n, chunk): names[lib.repro_ssd_bwd_route(p, n, chunk)]
+             for p in KERNEL_HEAD_DIMS + (128,)
+             for n in KERNEL_STATES + (256,)
+             for chunk in (8, 16, 32, 48, 64, 96, 128, 256, 512)}
+    differ = [k for k, r in table.items() if r != ssd_bwd_route(*k)]
+    sizes = {f"{b},{l},{h},{p},{g},{n}/{chunk}": (
+        lib.repro_ssd_bwd_split_floats(b, l, h, g, p, n, chunk),
+        ssd_bwd_split_floats(b, l, h, g, p, n, chunk))
+        for b, l, h, p, g, n in (SSD_PROBLEM, MOE_SSD_PROBLEM)
+        for chunk in (32, 64, SSD_MODEL_CHUNK)}
+    if differ or any(a != w for a, w in sizes.values()):
+        raise AssertionError(f"the SSD backward library's route table or "
+                             f"scratch sizes differ from ssd_bwd_route / "
+                             f"ssd_bwd_split_floats: {differ}, {sizes}")
+    counts = {r: sum(v == r for v in table.values())
+              for r in ("wgmma", "mma_sync", None)}
+    log(f"  SSD backward route table: the library's equals ssd_bwd_route at "
+        f"{len(table)} (P, N, chunk) ({counts}); split scratch floats equal "
+        f"at {sorted(sizes)}")
+    return {"routes": counts, "split_floats": sizes}
 
 
 def check_ssd_bwd(card, sass_run) -> dict:
     """Phase 15a: the SSD backward kernels against the plain backward in
     float64 on the kernel forward's own s and h_in: every instantiated
     (P, N) at each chunk of SSD_BWD_CHUNKS on a small shape, with and
-    without h0 and a final-state gradient; then mamba2-2.7b's width at
-    chunks 64 and 256.  Every gradient within 1e-5 normwise, two calls the
-    same bits (:func:`check_ssd_bwd_case`); the mamba2 shapes timed
-    (:func:`ssd_bwd_timed`); and the SASS gate (check_ssd_bwd_sass)."""
+    without h0 and a final-state gradient, each on its route
+    (``ssd_bwd_route``); then mamba2-2.7b's and jamba-v0.1-52b's widths at
+    chunks 64 and 256 (the wgmma route).  Every gradient within 1e-5
+    normwise, two calls the same bits (:func:`check_ssd_bwd_case`); the
+    wide shapes timed (:func:`ssd_bwd_timed`); the library's route table
+    (:func:`check_ssd_bwd_routes`); and the SASS gate
+    (check_ssd_bwd_sass)."""
     import torch
-    from repro_torch.kernels.ssd import KERNEL_HEAD_DIMS, KERNEL_STATES
+    from repro_torch.kernels.ssd import (KERNEL_HEAD_DIMS, KERNEL_STATES,
+                                         ssd_bwd_route)
     tol = WIDE_TOL["float32"]
     gen = torch.Generator(device="cuda").manual_seed(15)
+    routes = check_ssd_bwd_routes()
 
     small = []
     b, l, h, g = SSD_BWD_SMALL
@@ -3680,25 +3770,35 @@ def check_ssd_bwd(card, sass_run) -> dict:
                     ssd_bwd_inputs(gen, b, l, h, p, g, n, with_h0, with_dh),
                     chunk)
                 small.append({"p": p, "n": n, "chunk": chunk,
+                              "route": ssd_bwd_route(p, n, chunk),
                               "h0": with_h0, "dh_final": with_dh,
                               "normwise": errs})
-    worst = max(small, key=lambda r: max(r["normwise"].values()))
+    by_route = {}
+    for r in small:
+        by_route.setdefault(r["route"], []).append(r)
     log(f"  SSD backward kernels at all {len(small)} (P, N, chunk) cases of "
-        f"{SSD_BWD_SMALL} (batch, L, H, G), two calls bit for bit, every "
-        f"gradient within {tol:.0e} normwise of the float64 plain backward;"
-        f" worst {max(worst['normwise'].values()):.3e} at P {worst['p']}, N "
-        f"{worst['n']}, chunk {worst['chunk']}")
+        f"{SSD_BWD_SMALL} (batch, L, H, G), each on its route, two calls bit"
+        f" for bit, every gradient within {tol:.0e} normwise of the float64 "
+        f"plain backward; " + "; ".join(
+            f"{route}: {len(rs)} cases, worst "
+            f"{max(max(r['normwise'].values()) for r in rs):.3e}"
+            for route, rs in sorted(by_route.items())))
     wide = {}
-    for chunk in (64, SSD_MODEL_CHUNK):
-        ops = ssd_bwd_inputs(gen, *SSD_PROBLEM, False, False)
-        args, got, want, errs = check_ssd_bwd_case(
-            f"mamba2-2.7b, chunk {chunk}", ops, chunk)
-        wide[chunk] = ssd_bwd_timed("mamba2-2.7b", args, got, want, errs,
-                                    chunk, card)
-        del ops, args, got, want
+    for name, problem in (("mamba2-2.7b", SSD_PROBLEM),
+                          ("jamba-v0.1-52b", MOE_SSD_PROBLEM)):
+        wide[name] = {}
+        for chunk in (64, SSD_MODEL_CHUNK):
+            ops = ssd_bwd_inputs(gen, *problem, False, False)
+            args, got, want, errs = check_ssd_bwd_case(
+                f"{name}, chunk {chunk}", ops, chunk)
+            wide[name][chunk] = ssd_bwd_timed(name, args, got, want, errs,
+                                              chunk, card)
+            del ops, args, got, want
+            torch.cuda.empty_cache()
     sass = check_ssd_bwd_sass(sass_run)
-    return {"small": small, "mamba2_2_7b": wide, "sass_hmma": sass,
-            **wide[SSD_MODEL_CHUNK]}
+    return {"small": small, "mamba2_2_7b": wide["mamba2-2.7b"],
+            "jamba_v0_1_52b": wide["jamba-v0.1-52b"], "route_table": routes,
+            "sass": sass, **wide["mamba2-2.7b"][SSD_MODEL_CHUNK]}
 
 
 def check_ssd_train_grads(dev) -> dict:
@@ -4784,7 +4884,8 @@ def main() -> int:
     launches = {name: {} for name in wrappers}
     # the attention forward's and backward's launches per route and path
     routed = {"flash_attention": flash_attention.route_launches,
-              "flash_attention_bwd": flash_attention_bwd.route_launches}
+              "flash_attention_bwd": flash_attention_bwd.route_launches,
+              "ssd_bwd": ssd_bwd.route_launches}
     by_route = {name: {} for name in routed}
     route_launches = by_route["flash_attention"]
 
@@ -4986,14 +5087,17 @@ def main() -> int:
                 f"{r['spill_store_bytes']} B stored / "
                 f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
-    log(f"  the attention forward's and backward's launches per route and "
-        f"path: {by_route}")
+    log(f"  the attention forward's and backward's and the SSD backward's "
+        f"launches per route and path: {by_route}")
     # every attention call of gemma2-27b's prefill (12) and of the train
-    # steps (14c, 16c, 17a), forward and backward, takes the wgmma route
+    # steps (14c, 16c, 17a), forward and backward, and every SSD backward
+    # of the train steps (15c, 16c, 17a) takes the wgmma route
     for name, paths in (("flash_attention", ("models", "train", "train_moe",
                                              "train_sharded")),
                         ("flash_attention_bwd", ("train", "train_moe",
-                                                 "train_sharded"))):
+                                                 "train_sharded")),
+                        ("ssd_bwd", ("train", "train_moe",
+                                     "train_sharded"))):
         for path in paths:
             got = by_route[name][path]
             if got["mma_sync"] or got["wgmma"] != launches[name][path]:
@@ -5064,12 +5168,24 @@ def main() -> int:
             "step_wall_ms": prof["wall_ms"], "kernel_ms": ms,
             "kernel_share": ms / prof["wall_ms"]}}
     ssd_bwd_regs = {}
+    wg_key, sync_key = SSD_BWD_MAIN_KEY, SSD_BWD_SYNC_KEY
+    jamba_key = SSD_BWD_WGMMA_KEYS[1]
     for what, key in (
-            ("chunk", ("ssd_bwd_chunk_kernel", "float32", SSD_BWD_MAIN_KEY)),
-            ("dstate", ("ssd_bwd_dstate_kernel", "float32",
-                        SSD_BWD_MAIN_KEY[:2])),
+            ("chunk", ("ssd_bwd_chunk_wgmma_kernel", "float32", wg_key)),
+            ("dstate", ("ssd_bwd_dstate_wgmma_kernel", "float32", wg_key)),
+            ("cb", ("ssd_bwd_cb_kernel", "float32", wg_key)),
+            ("chunk_jamba", ("ssd_bwd_chunk_wgmma_kernel", "float32",
+                             jamba_key)),
+            ("dstate_jamba", ("ssd_bwd_dstate_wgmma_kernel", "float32",
+                              jamba_key)),
+            ("split", ("ssd_bwd_split_kernel", "float32", ())),
+            ("dt", ("ssd_bwd_dt_kernel", "float32", ())),
             ("state_pass", ("ssd_bwd_state_pass_kernel", "float32", ())),
-            ("finish", ("ssd_bwd_finish_kernel", "float32", ()))):
+            ("finish", ("ssd_bwd_finish_kernel", "float32", ())),
+            ("chunk_mma_sync", ("ssd_bwd_chunk_kernel", "float32",
+                                sync_key)),
+            ("dstate_mma_sync", ("ssd_bwd_dstate_kernel", "float32",
+                                 sync_key[:2]))):
         if key not in ptxas:
             raise AssertionError(f"no ptxas report for the SSD backward's "
                                  f"{key}")
@@ -5190,13 +5306,25 @@ def main() -> int:
               ssd_bwd_regs["chunk"], library="none",
               shape=list(SSD_PROBLEM), dtype="float32",
               config=[SSD_MODEL_CHUNK, SSD_PROBLEM[3], SSD_PROBLEM[5]],
-              route_detail="mma.sync: float32 as 3xTF32; a chunk-pass block "
-              f"sums db and dc over {ssd_bwd_res['heads']} heads",
+              route_detail="two routes by an explicit table "
+              "(ssd_bwd_route): wgmma at (P, N) in {(64, 128), (64, 16)} and a"
+              " chunk that is a multiple of 64 (float32 as 3xTF32 from split "
+              "K-major tiles of a scratch, a producer warp streaming them by "
+              "bulk copies, C B^T formed once a group; this row), mma_sync "
+              "for every other (P, N) and chunks 16 and 32; a chunk-pass "
+              f"block sums db and dc over {ssd_bwd_res['heads']} heads",
+              route=ssd_bwd_res["route"],
+              launches_by_route=by_route["ssd_bwd"],
+              route_bound_ms=ssd_bwd_res["route_bound_ms"],
+              route_bound_by=ssd_bwd_res["route_bound_by"],
+              scratch_bytes=ssd_bwd_res["scratch_bytes"],
               bound_ms_ffma=ssd_bwd_res["bound_ms_ffma"],
-              sass_hmma=ssd_bwd_res["sass_hmma"],
+              sass=ssd_bwd_res["sass"],
+              route_table=ssd_bwd_res["route_table"],
               passes_ms=ssd_bwd_res["passes_ms"],
               passes_registers=ssd_bwd_regs,
               chunk_64=ssd_bwd_res["mamba2_2_7b"][64],
+              jamba_widths=ssd_bwd_res["jamba_v0_1_52b"],
               **in_train_step("ssd_bwd", ssd_training),
               **in_train_step("ssd_bwd", moe_training, "train_moe_step"),
               jamba_width=jamba_ssd["backward"]),

@@ -1,6 +1,7 @@
-// Copy and tensor-core tools shared by the attention kernels: the forward
-// (flash_attention.cu, its mma.sync route) and the backward
-// (flash_attention_bwd.cu).  cp.async copies into row-major tiles whose
+// Copy and tensor-core tools shared by the mma.sync routes: the attention
+// forward's (flash_attention.cu), the attention backward's
+// (flash_attention_bwd.cu) and the SSD backward's (ssd_bwd.cu).  cp.async
+// copies into row-major tiles whose
 // 16-byte chunks are XOR-swizzled by the row, ldmatrix into mma.sync
 // fragments, bfloat16 products as m16n8k16 and float32 products as three
 // TF32 m16n8k8 products (hi hi + hi lo + lo hi), the conversion of an

@@ -1,6 +1,6 @@
 // The gradient of the Mamba-2 SSD chunked scan for Hopper (sm_90a), float32
-// on the tensor cores (3xTF32 mma.sync), hand-written, in four passes,
-// deterministic (no atomics).
+// on the tensor cores as 3xTF32, hand-written, deterministic (no atomics),
+// by two routes: wgmma (route 1) and mma.sync (route 2).
 //
 // Replaces: nothing of the TPU's.  The reference has no Pallas body for
 // the backward: it differentiates src/repro/models/mamba.py::_ssd_chunked
@@ -15,9 +15,9 @@
 //   y_i  = sum_j G_ij x_j + exp(s_i) H_c c_i
 //   H_{c+1} = exp(s_Q) H_c + S_c,  S_c = sum_j w_j x_j b_j^T,
 //   w_j = dt_j exp(s_Q - s_j).
-// Given dy and dh_final the passes are:
-//  (i)   ssd_bwd_dstate_kernel, one block per (b, h, c): the chunk's
-//        D_c = sum_i exp(s_i) dy_i c_i^T, a (P, N) tile over depth Q.
+// Given dy and dh_final the passes are, on both routes:
+//  (i)   D_c = sum_i exp(s_i) dy_i c_i^T, a (P, N) tile a (b, h, c) over
+//        depth Q.
 //  (ii)  ssd_bwd_state_pass_kernel, one thread per float4 of a (b, h)'s
 //        state: the forward's pass 2 run backwards over the chunks, from
 //        g = dh_final (or 0): dS_c = g (written over D_c in place),
@@ -25,10 +25,9 @@
 //        dh0.  The <g, H_c> sums are reduced within the block in a fixed
 //        order and written per (chunk, block), not added atomically.
 //        Elementwise: bytes.
-//  (iii) ssd_bwd_chunk_kernel, one block per (b, chunk c, R-row tile t,
-//        HB consecutive heads of one group), R = min(Q, 64).  With
-//        dG_ij = dy_i . x_j, M_ij = dG_ij exp(s_i - s_j) dt_j and
-//        E_ij = M_ij (c_i . b_j):
+//  (iii) the chunk pass, one block per (b, chunk c, R-row tile t, HB
+//        consecutive heads of one group).  With dG_ij = dy_i . x_j, M_ij =
+//        dG_ij exp(s_i - s_j) dt_j and E_ij = M_ij (c_i . b_j):
 //          dx_j  = sum_i G_ij dy_i + w_j dS_c b_j
 //          dc_i  = sum_j M_ij b_j + exp(s_i) H_c^T dy_i
 //          db_j  = sum_i M_ij c_i + w_j dS_c^T x_j
@@ -40,117 +39,127 @@
 //        Tile t owns rows t R .. t R + R - 1 twice: as query rows i it
 //        walks the key slabs k <= t (dc_i and the row sums of E), and as
 //        key columns j the query slabs k >= t (dx_j, db_j, ddt_j and the
-//        column sums), so every block visits nq + 1 (slab, tile) pairs a
-//        head whatever its place in the chunk, and every output row is
-//        written by one block.
+//        column sums), so every output row is written by one block.  The
+//        heads of a block share the group's B and C, so dc (query role) and
+//        db (key role) are summed over them in registers and written once
+//        a block, to the group's partial (h0 mod H / G) / HB; dx per head.
+//        HB is the largest divisor of H / G up to kMaxHeads = 10
+//        (kernels/ssd.py: ssd_bwd_heads): 10 at mamba2-2.7b, 8 at jamba.
 //  (iv)  ssd_bwd_finish_kernel, two roles in one launch.  Blocks 0 .. H-1,
 //        one per head: add the ds_Q partials of (ii) and (iii) to the
 //        chunk's last step in a fixed order, take r = the reverse
 //        cumulative sum of ds within each chunk (block scans of 256 steps
 //        from the chunk's end, carried), ddt_t = ddt_t + a r_t and
 //        da_log[h] = a sum_{b,t} dt_t r_t (a block sum in a fixed order).
-//        The other blocks add each group's H / (G HB) db and dc partials
-//        of (iii) in partial order.
-//
+//        The other blocks add each group's partials of db and dc in
+//        partial order.
 // s and H_c are the forward's own scratches (kernels/ssd.py keeps them
-// from the forward for its backward, 41.9 MB a layer at mamba2-2.7b's
-// width and chunk 256), so nothing of the forward is recomputed here.
+// from the forward for its backward), so nothing of the forward is
+// recomputed here.
 //
 // What bounds it on the H100 (700 W).  At mamba2-2.7b's (1, 4096, 80, 64,
-// 1, 128) and chunk 256 the gradient needs 64.6 GFLOP (the five pair
-// products C B^T, dY X^T, G^T dY, M B and M^T C over the kept pairs, and
-// D_c, dY h_in, X dS and B dS^T) against 0.30 GB read or written once:
-// bound by operations on every route -- 0.964 ms on FFMA (67 TFLOP/s, the
-// design this replaced), 0.391 ms as three TF32 products each at 495
-// TFLOP/s (this file).  Two things sit beside the products: the per-pair
-// elementwise work (a decay exponential, E's row and column sums), and,
-// in the design this replaced, a per-head db / dc scratch of 2 x 168 MB
-// (0.200 ms of HBM time, half the new bound).
+// 1, 128) and chunk 256 the gradient needs 53.9 GFLOP (over the kept
+// pairs dY X^T, G^T dY, M B and M^T C a head, C B^T once a group; D_c,
+// dY h_in, X dS and B dS^T) against 0.30 GB read or written once: bound
+// by operations, 0.327 ms as three TF32 products each at 495 TFLOP/s
+// (0.805 ms on FFMA).  Beside the products sit the per-pair elementwise
+// work (a decay exponential, E's row and column sums) and the operands'
+// hi / lo splits.
 //
-// What the design does about it.
-//  * Every product runs on the tensor cores as 3xTF32 mma.sync m16n8k8:
-//    each float32 operand is split a = hi + lo, hi the nearest TF32 and lo
-//    = a - hi (of which the tensor core reads the top 19 bits), and hi hi +
-//    hi lo + lo hi summed, as in flash_attention_bwd.cu: float32's accuracy
-//    at three times TF32's cost, no plain TF32 anywhere.  That covers pass
-//    (i)'s D_c, the pair products and the state terms dY h_in, X dS and
-//    B dS^T.
-//  * Transposed tiles in the key role: a warp computes B_t C_k^T and
-//    X_t dY_k^T, whose accumulator rows are its own columns j, so G^T and
-//    M^T feed dx and db straight from registers as A fragments (an m16n8
-//    accumulator tile is an m16k8 A fragment in a permuted depth order:
-//    depth slot t is column 2t, slot t + 4 column 2t + 1; the k-major B
-//    operand is read in the same order).  In the query role M feeds dc the
-//    same way.  Neither M nor G goes through shared memory.
-//  * The decay exp(s_i - s_j) is taken only where i >= j, per accumulator
-//    element at the row and column it has in the mma layout: above the
-//    diagonal s_i - s_j > 0 grows with the distance and exp overflows, and
-//    a 0/1 mask would give inf * 0 = NaN.  Column chunks wholly above the
-//    diagonal are skipped.
-//  * Tensor-core accumulators truncate.  Every sum into an output (D_c,
-//    dc, db, dx) starts a chain from zero over at most a slab's depth
-//    (64) and adds it to the float32 sums by FADD (round to nearest); the
-//    pair tiles keep the small hi lo and lo hi terms in accumulators of
-//    their own, so the chain of hi hi products is a third as long
-//    (tests/test_torch_ssd_bwd_tc.py emulates both).
-//  * A block takes HB consecutive heads of one group: the largest divisor
-//    of H / G up to kMaxHeads = 10 (kernels/ssd.py: ssd_bwd_heads).  At
-//    mamba2-2.7b that is 10: 512 blocks at chunk 256, 3.9 waves of one
-//    block an SM, and a scratch of 8 partials in place of 80 heads, 0.020
-//    ms of HBM time in place of 0.200.  Timed on the H100 at mamba2's
-//    width (PERF.md), 10 heads a block ran 1 % faster than 8 at chunk 256
-//    and 3 % at chunk 64; 4 and 5 ran 1-2 % slower than 8 (they load the
-//    tile's own B and C rows more often and write more partials), 16 11 %
-//    slower (2.4 waves of blocks).  A power-of-two head count gets 8.  It
-//    runs the query role over its heads, then the key role:
-//    the heads share the group's B and C rows, so dc (query role) and db
-//    (key role) stay in registers across the heads and are written once a
-//    block, to the group's partial (h0 mod H / G) / HB, h0 the block's first
-//    head; dx is written per head.
-//  * Eight warps at R = 64: four row groups of 16 rows, two warps each,
-//    one per half of every slab's columns (the depth of the M B, G^T dY and
-//    M^T C products); their dc and db sums are added through shared memory
-//    at the end of a role and their dx sums at the end of a head (x + y =
-//    y + x: the same bits whichever warp adds).  The state terms split
-//    their output columns between the two warps.
-//  * Staging: the tile's own C rows (query role) or B rows (key role) stay
-//    in shared memory; a head's dY or X rows and its s, dt are
-//    double-buffered; slabs (B_k and X_k, or C_k and dY_k, or a head's
-//    h_in or dS at its first step) are double-buffered too, cp.async 16
-//    bytes a thread, slab n + 1 loading while slab n computes.  Tiles are
-//    row-major with the 16-byte chunks of row r at chunk c ^ (r & 7), as in
-//    the attention kernels, so that ldmatrix rows and the 4-byte k-major
-//    loads fall in distinct bank groups.  A head's dx sums stay in shared
-//    memory (each thread its own float4s, read and written once a column
-//    chunk), which spares the registers that db and dc take.  205,312
-//    bytes at (P, N, R) = (64, 128, 64) (kernels/ssd.py:
-//    ssd_bwd_smem_bytes), one block an SM.
-//  * Row and column sums (E's, ddt's, u w) reduce over a quad by shuffles
-//    and over the two warps and the heads through shared memory, each in
-//    one fixed order: two calls give the same bits.
+// The routes, by an explicit table (ssd_bwd_route in kernels/ssd.py,
+// route_of below), neither a fall back for the other; a config the table
+// does not route is refused.  Both split every float32 operand a = hi +
+// lo, hi the nearest TF32 and lo = a - hi (of which the tensor core reads
+// the top 19 bits), and sum hi hi + hi lo + lo hi: float32's accuracy at
+// three times TF32's cost, no plain TF32 anywhere.  Tensor-core
+// accumulators truncate, so every sum into an output starts a chain from
+// zero over at most a slab's depth (64) and is added to float32 sums by
+// FADD (round to nearest), and the pair tiles keep their small hi lo and
+// lo hi terms in accumulators of their own (tests/test_torch_ssd_bwd_tc.py
+// and tests/test_torch_ssd_bwd_wgmma.py emulate both routes).  The decay
+// exp(s_i - s_j) is taken only where i >= j, per accumulator element at
+// its row and column: above the diagonal it overflows, and a 0/1 mask
+// would give inf * 0 = NaN.  Row and column sums reduce in one fixed order.
 //
-// What is left.  The chunk pass holds dc or db (64 registers) beside its
-// pair tiles at 255 registers a thread, so an SM runs eight warps, and
-// with two a scheduler it waits on the mma and shared-memory latency of
-// its split operands: on the H100 it reaches about a tenth of the 3xTF32
-// bound (PERF.md).  The way on is wgmma with TMA copies and warp
-// specialisation (accumulators of a whole warpgroup, operands read from
-// shared memory once split, not by every warp); then bf16 operands (a
-// bf16 model casts x, B, C and dy to float32 for this kernel), and
-// forming each pair's c . b and dy . x once instead of once in each role.
+//  1. wgmma: P = 64, N in {128, 16} and a chunk that is a multiple of 64
+//     (mamba2-2.7b's and jamba-v0.1-52b's widths: every backward the
+//     models run).  R = 64.
+//   * The split once, not by every warp: ssd_bwd_split_kernel writes x,
+//     dy, b, c and h_in, and after (ii) dS, as K-major tiles of their hi
+//     and lo parts into a scratch (kernels/ssd.py: ssd_bwd_split_floats;
+//     0.78 GB at mamba2's width and chunk 256), in the very bytes a
+//     shared-memory stage holds: units of up to 64 rows by 32 depth steps,
+//     128-byte rows with the 128-byte swizzle the wgmma descriptors name,
+//     hi panel then lo panel, so that a stage is one 1-D bulk copy.  The
+//     .tf32 forms of wgmma have no transpose bit, so every B operand is
+//     K-major: the pair products' B (B_k, X_k, C_k, dY_k) as stored; the
+//     ones that run along time (B_k in M B, C_k in M^T C, dY_k in G^T dY)
+//     as time-transposed tiles, h_in and dS transposed where their depth
+//     is P, and D_c's C^T.
+//   * M and G from registers: the m64nN accumulator of a pair tile is the
+//     register A fragment of the next product in a permuted depth order
+//     (depth slot q of a k8 step holds the accumulator's column 2q, slot
+//     q + 4 column 2q + 1), and the time-transposed tiles are staged in
+//     that order (kperm), so M, G^T and M^T never pass through shared
+//     memory.
+//   * C B^T once: ssd_bwd_cb_kernel forms each chunk's 64 x 64 C_tq B_tk^T
+//     for tk <= tq once a (b, group), and its transpose; the chunk pass
+//     reads it as one ring unit in both roles and for every head, instead
+//     of forming it once a head and role (the chunk pass fell from 2.12 to
+//     1.51 ms at mamba2's width, PERF.md).
+//   * (i) on wgmma: one block a (b, h, c), A = exp(s) dY^T read from dY^T's
+//     split tile into registers (re-split after the scale), B = C^T.
+//   * (iii): a consumer warpgroup on the tile's 64 rows and a producer
+//     warp.  The producer loads the role's own C_t (then B_t) and each
+//     head's dY_t (then X_t) into buffers of their own, and streams every
+//     other operand unit by unit (16 KB) by bulk copies through a ring on
+//     full and empty mbarriers (6 stages at N = 128, 9 at N = 16).  Per
+//     slab the consumer runs the pair tile dY_t X_k^T (X_t dY_k^T) with
+//     both operands in shared memory, the pair math on its registers with
+//     c . b from the C B^T unit, then dc += M B_k (dx += G^T dY_k, db +=
+//     M^T C_k) with A from registers.  dc and db stay in registers across
+//     the heads, a head's dx in shared memory (each thread its own
+//     elements).  220,288 bytes of shared memory at (64, 128) (kernels/
+//     ssd.py: ssd_bwd_smem_bytes), one block an SM; 255 registers, no
+//     spills (210 at (64, 16)).
+//  2. mma.sync: every other instantiated (P, N), and chunks 16 and 32.
+//     m16n8k8 products, each operand split by the warp that loads it; R =
+//     min(chunk, 64); eight warps at R = 64: four row groups of 16 rows,
+//     two warps each, one per half of every slab's columns, whose dc, db
+//     and dx sums are added through shared memory; the pair tiles
+//     transposed in the key role so that G^T and M^T feed dx and db from
+//     registers; slabs double-buffered by cp.async into row-major tiles
+//     whose 16-byte chunks are XOR-swizzled by the row.  (i) in slabs of
+//     32 steps.
 //
-// Instantiations: P in {8, 16, 32, 64}, N in {8, 16, 32, 64, 128} and, for
-// (iii), R in {16, 32, 64}.
+// What is left.  Route 1 runs at about 4.6 times its bound at mamba2's
+// width (2.34 ms against 0.327 at chunk 256, PERF.md): its chunk pass is
+// bound by the L2 traffic of its split operands (hi and lo, and the
+// time-transposed copies: about 110-140 KB a (slab, head) step) with one
+// consumer warpgroup an SM, and the split pre-pass moves 0.78 GB.  At
+// jamba's N = 16 the per-head x and dy dominate and route 1 is slower
+// than route 2 was.  The way on: split the operands in the kernel from
+// raw tiles (half the bytes), bf16 operands (a bf16 model casts x, B, C
+// and dy to float32 for this kernel), two consumer warpgroups, and the
+// reverse state pass fused into the chunk pass.
+//
+// Instantiations: route 2 at P in {8, 16, 32, 64}, N in {8, 16, 32, 64,
+// 128} and R in {16, 32, 64} (R = 64 not at route 1's (P, N)); route 1 at
+// (64, 128) and (64, 16).
 //
 // The launcher allocates nothing (the wrapper allocates every scratch),
-// never synchronises, launches the four passes in order on the stream it
-// is given, and returns the first cudaGetLastError() that is not 0.
+// never synchronises, launches the passes in order on the stream it is
+// given, and returns the first cudaGetLastError() that is not 0.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
+
+#include "mma_tools.cuh"
+#include "wgmma_tools.cuh"
 
 namespace {
 
@@ -162,28 +171,11 @@ constexpr int kMaxHeads = 10;      // pass (iii): heads of a block
 
 // ---------------------------------------------------------------- copies --
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem));
-}
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(smem)),
                "l"(gmem));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // A row-major tile of rows of W floats, the 16-byte chunk c of row r
 // stored at chunk c ^ (r & kMask)
 template <int W>
@@ -223,72 +215,12 @@ __device__ __forceinline__ void load_strided(float* dst, const float* src,
 }
 
 // ---------------------------------------------------------- tensor cores --
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b, m16n8k8, tf32 in, float32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// a = hi + lo: hi the nearest TF32 (10 mantissa bits, ties away; the
-// integer add carries into the exponent as rounding should), lo the exact
-// rest, of which the mma reads the top 19 bits
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// Fragments.  A is 16 x 8 of the thread's rows g, g + 8 (g = lane / 4),
-// depth slots t, t + 4 (t = lane % 4); B is 8 x 8, depth slots t, t + 4 at
-// column g; the m16n8 accumulator holds rows g, g + 8 at columns 2t, 2t + 1.
-struct TfA { unsigned hi[4], lo[4]; };
-struct TfB { unsigned hi[2], lo[2]; };
-
-// An m16n8 tile of a pair product: the small hi lo and lo hi terms run in
-// an accumulator of their own, so the chain of hi hi products is a third
-// as long.
-struct TfTile {
-  float c[4], corr[4];
-  __device__ __forceinline__ float get(int e) const { return c[e] + corr[e]; }
-};
-
-// 3xTF32 into one accumulator: the small terms first
-__device__ __forceinline__ void mma(float (&c)[4], const TfA& a,
-                                    const TfB& b) {
-  mma_tf32(c, a.lo, b.hi);
-  mma_tf32(c, a.hi, b.lo);
-  mma_tf32(c, a.hi, b.hi);
-}
-__device__ __forceinline__ void mma(TfTile& t, const TfA& a, const TfB& b) {
-  mma_tf32(t.corr, a.lo, b.hi);
-  mma_tf32(t.corr, a.hi, b.lo);
-  mma_tf32(t.c, a.hi, b.hi);
-}
+// (split_tf32, the TfA / TfB fragments, mma, load_a and the TfTile of a
+// pair product are mma_tools.cuh's)
 
 // A of rows [row0, row0 + 16) and depth [k0, k0 + 8) of a row-major
-// swizzled tile, depth in its natural order (slot t is column k0 + t)
-template <int W>
-__device__ __forceinline__ void load_a(TfA& a, const float* tile, int row0,
-                                       int k0, int lane) {
-  unsigned raw[4];
-  ldmatrix_x4(raw, tile + Sw<W>::at(row0 + (lane & 15), k0 + (lane >> 4) * 4));
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    split_tf32(__uint_as_float(raw[e]), a.hi[e], a.lo[e]);
-}
-// the same A in the permuted depth order (slot t is column k0 + 2t, slot
-// t + 4 column k0 + 2t + 1), which load_bt matches
+// swizzled tile in the permuted depth order (slot t is column k0 + 2t,
+// slot t + 4 column k0 + 2t + 1), which load_bt matches
 template <int W>
 __device__ __forceinline__ void load_a_perm(TfA& a, const float* tile,
                                             int row0, int k0, int lane) {
@@ -465,7 +397,7 @@ __device__ float block_scan(float v, float* red, float* total) {
   return incl + before;
 }
 
-// ------------------------------------------------------------- pass (i) --
+// ------------------------------------------------------ route 2: (i) D_c --
 // One block per (b, h, c): D_c (P x N) = (exp(s) dY)^T C over the chunk's
 // steps, slabs of kStateSlab steps double-buffered.  Warp (rg, cw) owns
 // rows [16 rg, 16 rg + 16) of P (rows past P are zero) and the cw-th of CW
@@ -607,7 +539,7 @@ ssd_bwd_state_pass_kernel(float* __restrict__ dstate,
   if (active && dh0) reinterpret_cast<float4*>(dh0)[bh * pn4 + e] = g;
 }
 
-// ----------------------------------------------------------- pass (iii) --
+// ----------------------------------------------------- route 2: (iii) --
 // Shared memory, floats: the tile's own rows of C or B (R x N); two head
 // buffers (a head's dY or X rows of the tile, R x P, then its s and dt of
 // the tile's steps); two slab buffers (SR x N: B_k or C_k, or a head's h_in
@@ -1217,6 +1149,985 @@ ssd_bwd_finish_kernel(const float* __restrict__ dt,
   if (tid == 0) da_log[h] = a * tot;
 }
 
+// ------------------------------------------------------- route 1: wgmma --
+
+// The route table (ssd_bwd_route in kernels/ssd.py): route 1 (wgmma) at
+// P = 64, N in {128, 16} and a chunk that is a multiple of 64 -- the
+// widths of mamba2-2.7b and jamba-v0.1-52b, every backward the models
+// run; route 2 (mma.sync) for every other instantiated (P, N) and for
+// chunks 16 and 32; 0 for none.
+__host__ __device__ constexpr bool is_head_dim(int p) {
+  return p == 8 || p == 16 || p == 32 || p == 64;
+}
+__host__ __device__ constexpr bool is_state(int n) {
+  return n == 8 || n == 16 || n == 32 || n == 64 || n == 128;
+}
+__host__ __device__ constexpr bool wgmma_pn(int p, int n) {
+  return p == 64 && (n == 128 || n == 16);
+}
+__host__ __device__ constexpr int route_of(int p, int n, int chunk) {
+  return !is_head_dim(p) || !is_state(n) || chunk < 16 || chunk % 16 ||
+                 (chunk > 32 && chunk % 64)
+             ? 0
+         : wgmma_pn(p, n) && chunk % 64 == 0 ? 1
+                                             : 2;
+}
+
+// Split tiles.  Route 1 reads every float32 operand of a product from a
+// K-major tile of its hi and lo parts (split_tf32), which
+// ssd_bwd_split_kernel writes once a call into a scratch in the very bytes
+// a shared-memory stage holds, so that a stage is one 1-D bulk copy.  A
+// tile is rows x depth, the depth padded with zeros to a multiple of 32,
+// stored as units of at most 64 rows by 32 depth steps -- one 128-byte row
+// a unit row, the 16-byte chunk c of row r at chunk c ^ (r & 7), the
+// 128-byte swizzle a wgmma descriptor names -- the unit's hi panel then its
+// lo panel, units in order (depth unit, row block).  A tile whose depth is
+// time (B^T, C^T, dY^T: the B operands of M B, M^T C and G^T dY) holds step
+// 2q of each 8-step group at depth slot q and step 2q + 1 at slot q + 4:
+// the order in which an m64n64 accumulator of M or G^T is the register A
+// fragment of the next product (a_from_acc).
+constexpr int kWgRows = 64;                // R: tile rows, steps of a slab
+constexpr int kUnitBytes = kWgRows * 256;  // a 64-row unit, hi and lo
+constexpr int kWgThreads = 160;  // a consumer warpgroup and a producer warp
+constexpr int kSplitThreads = 256;
+
+// the step that depth slot q of a time-depth tile holds
+__host__ __device__ constexpr int kperm(int q) {
+  return (q & ~7) | ((q & 7) < 4 ? 2 * (q & 7) : 2 * (q & 7) - 7);
+}
+// the float offset of (row r, depth k) in a panel
+__host__ __device__ constexpr int panel_at(int r, int k) {
+  return r * 32 + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
+}
+// the float offset of (r, col) in a 64 x 64 C B^T tile: the 16-byte chunk
+// col / 4 of row r at chunk (col / 4) ^ (r & 7), so that the eight rows of
+// a warp's pair-math reads fall in distinct banks
+__host__ __device__ constexpr int cb_at(int r, int col) {
+  return r * 64 + (((col >> 2) ^ (r & 7)) << 2) + (col & 3);
+}
+
+template <int P, int N>
+struct Wg {
+  static constexpr int NP = N < 32 ? 32 : N;  // depth N, padded
+  static constexpr int KUN = NP / 32;         // depth units of depth N
+  static constexpr int KUP = P / 32;          // ... of depth P
+  static constexpr int NR = N < 64 ? N : 64;  // rows of a unit of N rows
+  static constexpr int RHN = N / NR;          // row blocks of N rows
+  static constexpr int NA = NR / 2;  // accumulator floats of an m64nNR product
+  // floats of a tile: x and dy (64 steps x P), b and c (64 steps x N),
+  // dy^T (P x 64 steps), b^T and c^T (N x 64 steps), h_in^T and dS^T (N x
+  // P), dS (P x N)
+  static constexpr int kNatP = KUP * kWgRows * 64;
+  static constexpr int kNatN = KUN * kWgRows * 64;
+  static constexpr int kTimeP = 2 * kWgRows * 64;
+  static constexpr int kTimeN = 2 * RHN * NR * 64;
+  static constexpr int kStateT = KUP * RHN * NR * 64;
+  static constexpr int kStateN = KUN * kWgRows * 64;
+  // ring stages of the chunk pass: what shared memory leaves beside the
+  // own tiles (N = 128: 6, N = 16: 9)
+  static constexpr int NS = N > 64 ? 6 : 9;
+  static constexpr int NSD = 4;  // ... of D_c
+  // the chunk pass's shared memory, bytes from a 1024-aligned base: the
+  // role's own C_t or B_t, the head's dY_t or X_t, the dx sums of a head
+  // (each thread its own), the ring, each stage's s and dt of a slab, the
+  // query role's row sums per head, u w per row (two heads), the barriers
+  static constexpr size_t kOwnH = static_cast<size_t>(KUN) * kUnitBytes;
+  static constexpr size_t kDx = kOwnH + static_cast<size_t>(KUP) * kUnitBytes;
+  static constexpr size_t kRing = kDx + 4 * kWgRows * P;
+  static constexpr size_t kVec = kRing + static_cast<size_t>(NS) * kUnitBytes;
+  static constexpr size_t kRowq = kVec + 4 * NS * 128;
+  static constexpr size_t kRowu = kRowq + 4 * kMaxHeads * kWgRows;
+  static constexpr size_t kBar = kRowu + 4 * 2 * kWgRows;
+  static constexpr size_t kSmem = 1024 + kBar + 8 * (2 * NS + 4);
+  // D_c: the ring, each stage's s of a slab, the barriers
+  static constexpr size_t kDVec = static_cast<size_t>(NSD) * kUnitBytes;
+  static constexpr size_t kDBar = kDVec + 4 * NSD * 128;
+  static constexpr size_t kDSmem = 1024 + kDBar + 8 * 2 * NSD;
+};
+
+// The split scratch of a call (float offsets): x, dy, dy^T a (b, h, slab),
+// b, c, b^T, c^T a (b, g, slab), h_in^T, dS^T, dS a (b, h, chunk), dt as
+// (B, H, L), and a (b, g, chunk)'s C B^T tiles: for each query tile tq and
+// key slab tk <= tq (pair tq (tq + 1) / 2 + tk) the 64 x 64 tile C_tq
+// B_tk^T (cb_at) and its transpose, float32
+struct SplitLayout {
+  size_t xs, ys, yt, bs, cs, bt, ct, hit, dst, dsn, dtt, cb, total;
+};
+template <int P, int N>
+SplitLayout split_layout(int B, int L, int H, int G, int chunk) {
+  using W = Wg<P, N>;
+  const size_t per_h = static_cast<size_t>(B) * H * (L / kWgRows);
+  const size_t per_g = static_cast<size_t>(B) * G * (L / kWgRows);
+  const size_t states = static_cast<size_t>(B) * H * (L / chunk);
+  SplitLayout o;
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    const size_t r = at;
+    at += n;
+    return r;
+  };
+  o.xs = take(per_h * W::kNatP);
+  o.ys = take(per_h * W::kNatP);
+  o.yt = take(per_h * W::kTimeP);
+  o.bs = take(per_g * W::kNatN);
+  o.cs = take(per_g * W::kNatN);
+  o.bt = take(per_g * W::kTimeN);
+  o.ct = take(per_g * W::kTimeN);
+  o.hit = take(states * W::kStateT);
+  o.dst = take(states * W::kStateT);
+  o.dsn = take(states * W::kStateN);
+  o.dtt = take(static_cast<size_t>(B) * H * L);
+  const size_t nq = chunk / kWgRows;
+  o.cb = take(static_cast<size_t>(B) * G * (L / chunk) * (nq * (nq + 1) / 2) *
+              2 * kWgRows * kWgRows);
+  o.total = at;
+  return o;
+}
+
+// One kind of split tile: tile (b, a, c) (a a head or group, c a slab or
+// chunk) reads element (row r, depth k) at src + b sb + a sa + c sc + r sr
+// + k sk and is written to dst + tile (its units' floats)
+struct SplitJob {
+  const float* src;
+  float* dst;
+  long long sb, sa, sc, sr, sk;
+  int nb, na, nc, depth, unit_rows, units_k, units_r, perm;
+};
+constexpr int kMaxJobs = 8;
+struct SplitJobs {
+  SplitJob job[kMaxJobs];
+  long long first[kMaxJobs + 1];  // the first block of each job
+  int count;
+};
+
+// One block a unit: the source's 32 depth steps of up to 64 rows read
+// along its contiguous axis into shared memory, then each value split and
+// written as the unit's hi and lo panels, 128-byte rows at a time.
+__global__ void __launch_bounds__(kSplitThreads)
+ssd_bwd_split_kernel(const __grid_constant__ SplitJobs jobs) {
+  __shared__ float buf[kWgRows][33];
+  const long long blk = blockIdx.x;
+  int j = 0;
+  while (j + 1 < jobs.count && blk >= jobs.first[j + 1]) ++j;
+  const SplitJob& jb = jobs.job[j];
+  const int per_tile = jb.units_k * jb.units_r;
+  const long long local = blk - jobs.first[j];
+  const long long tile = local / per_tile;
+  const int unit = static_cast<int>(local % per_tile);
+  const int ku = unit / jb.units_r, rh = unit % jb.units_r;
+  const long long cc = tile % jb.nc;
+  const long long aa = (tile / jb.nc) % jb.na;
+  const long long bb = tile / (static_cast<long long>(jb.nc) * jb.na);
+  const int ur = jb.unit_rows, n = ur * 32;
+  const float* src = jb.src + bb * jb.sb + aa * jb.sa + cc * jb.sc +
+                     static_cast<long long>(rh) * ur * jb.sr;
+  for (int idx = threadIdx.x; idx < n; idx += kSplitThreads) {
+    int r, k;
+    if (jb.sk == 1) {
+      r = idx >> 5;
+      k = idx & 31;
+    } else {
+      r = idx % ur;
+      k = idx / ur;
+    }
+    const int kl = 32 * ku + k;
+    buf[r][k] = kl < jb.depth ? src[r * jb.sr + kl * jb.sk] : 0.0f;
+  }
+  __syncthreads();
+  float* dst = jb.dst + (tile * per_tile + unit) * (64LL * ur);
+  for (int idx = threadIdx.x; idx < n; idx += kSplitThreads) {
+    const int r = idx >> 5, q = idx & 31;
+    unsigned hi, lo;
+    split_tf32(buf[r][jb.perm ? kperm(q) : q], hi, lo);
+    const int at = panel_at(r, q);
+    dst[at] = __uint_as_float(hi);
+    dst[ur * 32 + at] = __uint_as_float(lo);
+  }
+}
+
+// dt as (B, H, L), so that a slab's dt is one bulk copy
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dt_kernel(const float* __restrict__ dt, float* __restrict__ dtt,
+                  int L, int H, long long total) {
+  for (long long e = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long l = e % L, bh = e / L;
+    dtt[e] = dt[((bh / H) * L + l) * H + bh % H];
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+__device__ __forceinline__ uint64_t sdesc(const unsigned char* p) {
+  return desc_sw128(p, 16, 1024);
+}
+// hi + lo of (r, k) in a unit of `rows` rows: the float32 value itself
+__device__ __forceinline__ float unit_val(const unsigned char* u, int rows,
+                                          int r, int k) {
+  const float* f = reinterpret_cast<const float*>(u);
+  const int at = panel_at(r, k);
+  return f[at] + f[rows * 32 + at];
+}
+template <int M>
+__device__ __forceinline__ void zero_regs(float (&r)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) r[i] = 0.0f;
+  fence_regs(r);
+}
+
+// d += A B^T over the four k8 steps of a unit, 3xTF32 into one
+// accumulator (lo hi, hi lo, hi hi): A the 64-row unit at a, B the unit of
+// brows rows at b
+template <int M>
+__device__ __forceinline__ void ss_unit(float (&d)[M], const unsigned char* a,
+                                        const unsigned char* b, int brows) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t ah = sdesc(a + 32 * kk);
+    const uint64_t al = sdesc(a + kWgRows * 128 + 32 * kk);
+    const uint64_t bh = sdesc(b + 32 * kk);
+    const uint64_t bl = sdesc(b + brows * 128 + 32 * kk);
+    wgmma_tf32(d, al, bh, 1);
+    wgmma_tf32(d, ah, bl, 1);
+    wgmma_tf32(d, ah, bh, 1);
+  }
+}
+// the same for a pair tile: the hi hi products into d, the small terms
+// into r, so that the chain of hi hi products is a third as long
+__device__ __forceinline__ void ss_unit2(float (&d)[32], float (&r)[32],
+                                         const unsigned char* a,
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t ah = sdesc(a + 32 * kk);
+    const uint64_t al = sdesc(a + kWgRows * 128 + 32 * kk);
+    const uint64_t bh = sdesc(b + 32 * kk);
+    const uint64_t bl = sdesc(b + kWgRows * 128 + 32 * kk);
+    wgmma_tf32(r, al, bh, 1);
+    wgmma_tf32(r, ah, bl, 1);
+    wgmma_tf32(d, ah, bh, 1);
+  }
+}
+// d += F B over the four k8 steps of a unit: F the register fragments f[0
+// .. 3] (a_from_acc's depth order), B the unit of brows rows at b
+template <int M>
+__device__ __forceinline__ void rs_unit(float (&d)[M], const TfA* f,
+                                        const unsigned char* b, int brows) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bh = sdesc(b + 32 * kk);
+    const uint64_t bl = sdesc(b + brows * 128 + 32 * kk);
+    wgmma_tf32(d, f[kk].lo, bh, 1);
+    wgmma_tf32(d, f[kk].hi, bl, 1);
+    wgmma_tf32(d, f[kk].hi, bh, 1);
+  }
+}
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// The consumer's side of a ring of NS stages: unit u is in stage u % NS.
+template <int NS>
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ unsigned char* at(unsigned u) const {
+    return base + (u % NS) * kUnitBytes;
+  }
+  __device__ void wait(unsigned u) const {
+    mbar_wait(full + u % NS, (u / NS) & 1);
+  }
+  // this warp is done with unit u (its products are in)
+  __device__ void release(unsigned u, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + u % NS);
+  }
+};
+
+// The producer's side: one thread puts unit after unit into the ring by
+// bulk copies, waiting for a stage to be released, the stage's vectors
+// (a slab's s and dt, 64 floats each, at vec + 128 stage) beside the
+// unit's first
+template <int NS>
+struct Feed {
+  unsigned char* base;
+  float* vec;
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned u = 0;
+  __device__ void put(const float* src, unsigned bytes,
+                      const float* v0 = nullptr, const float* v1 = nullptr) {
+    const int st = u % NS;
+    mbar_wait(empty + st, ((u / NS) & 1) ^ 1);  // the first round passes
+    mbar_expect_tx(full + st, bytes + (v0 ? 256u : 0u) + (v1 ? 256u : 0u));
+    bulk_load(base + st * kUnitBytes, src, bytes, full + st);
+    if (v0) bulk_load(vec + 128 * st, v0, 256, full + st);
+    if (v1) bulk_load(vec + 128 * st + 64, v1, 256, full + st);
+    ++u;
+  }
+};
+
+__device__ __forceinline__ void own_load(unsigned char* dst, const float* src,
+                                         unsigned bytes, uint64_t* bar) {
+  mbar_expect_tx(bar, bytes);
+  bulk_load(dst, src, bytes, bar);
+}
+
+// --------------------------------------------------- route 1: C B^T --
+// One warpgroup per (b, g, chunk c, pair of a query tile tq and a key slab
+// tk <= tq): C_tq B_tk^T over depth N by wgmma (both split tiles by one
+// bulk copy each, hi hi and the small terms in accumulators of their own),
+// written once with its transpose.  C and B belong to the group, so the
+// chunk pass reads this tile for every head and in both roles instead of
+// forming it once a head and role.
+template <int P, int N>
+__global__ void __launch_bounds__(128)
+ssd_bwd_cb_kernel(const float* __restrict__ bs, const float* __restrict__ cs,
+                  float* __restrict__ cb, int L, int chunk) {
+  using W = Wg<P, N>;
+  constexpr int KUN = W::KUN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sc = align1024(smem_raw);
+  unsigned char* sb = sc + KUN * kUnitBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sb + KUN * kUnitBytes);
+  const int nq = chunk / kWgRows, nslab = L / kWgRows;
+  const int pair = blockIdx.x, c = blockIdx.y, bg = blockIdx.z;
+  int tq = 0;
+  while ((tq + 1) * (tq + 2) / 2 <= pair) ++tq;
+  const int tk = pair - tq * (tq + 1) / 2;
+  const size_t slab0 = static_cast<size_t>(bg) * nslab +
+                       static_cast<size_t>(c) * nq;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 2 * KUN * kUnitBytes);
+    bulk_load(sc, cs + (slab0 + tq) * W::kNatN, KUN * kUnitBytes, bar);
+    bulk_load(sb, bs + (slab0 + tk) * W::kNatN, KUN * kUnitBytes, bar);
+  }
+  mbar_wait(bar, 0);
+  float s1[8][4], s1r[8][4];
+  auto& f1 = reinterpret_cast<float(&)[32]>(s1);
+  auto& f1r = reinterpret_cast<float(&)[32]>(s1r);
+  zero_regs(f1);
+  zero_regs(f1r);
+  wgmma_fence();
+#pragma unroll
+  for (int ku = 0; ku < KUN; ++ku)
+    ss_unit2(f1, f1r, sc + ku * kUnitBytes, sb + ku * kUnitBytes);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(f1);
+  fence_regs(f1r);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i0 = 16 * warp + (lane >> 2), tq4 = lane & 3;
+  float* out = cb + ((static_cast<size_t>(bg) * (L / chunk) + c) *
+                         (nq * (nq + 1) / 2) +
+                     pair) *
+                        (2 * kWgRows * kWgRows);
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + 8 * (e >> 1), j = 8 * nb + 2 * tq4 + (e & 1);
+      const float v = s1[nb][e] + s1r[nb][e];
+      out[cb_at(i, j)] = v;
+      out[kWgRows * kWgRows + cb_at(j, i)] = v;
+    }
+}
+
+// ------------------------------------------------------ route 1: (i) D_c --
+// One block per (b, h, c): D_c (P x N) = sum over the chunk's 64-step
+// slabs of (exp(s) dY)^T C, a chain from zero a slab added by FADD.  The
+// producer streams dY^T's two units and C^T's units of a slab, and the
+// slab's s; the consumer reads exp(s_i) dy_i for its A fragments from
+// dY^T (in C^T's depth order) and runs wgmma with A from registers.
+template <int P, int N>
+__global__ void __launch_bounds__(kWgThreads)
+ssd_bwd_dstate_wgmma_kernel(const float* __restrict__ yt,
+                            const float* __restrict__ ct,
+                            const float* __restrict__ s,
+                            float* __restrict__ dstate, int L, int H, int G,
+                            int chunk) {
+  using W = Wg<P, N>;
+  constexpr int NS = W::NSD, NR = W::NR, RHN = W::RHN, NA = W::NA;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  float* vec = reinterpret_cast<float*>(ring + W::kDVec);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + W::kDBar);
+  uint64_t* empty = full + NS;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G), nq = chunk / kWgRows, nslab = L / kWgRows;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 4);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      Feed<NS> feed{ring, vec, full, empty};
+      for (int q = 0; q < nq; ++q) {
+        const size_t slab = static_cast<size_t>(c) * nq + q;
+        const float* ytile = yt + (bh * nslab + slab) * W::kTimeP;
+        const float* ctile =
+            ct + ((static_cast<size_t>(b) * G + g) * nslab + slab) *
+                     W::kTimeN;
+        // s at vec + 128 stage (the second vector is unused here)
+        feed.put(ytile, kUnitBytes, s + bh * L + slab * kWgRows);
+        feed.put(ytile + kWgRows * 64, kUnitBytes);
+        for (int i = 0; i < 2 * RHN; ++i)
+          feed.put(ctile + i * NR * 64, NR * 256);
+      }
+    }
+    return;
+  }
+  const Ring<NS> ringc{ring, full, empty};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int p0 = 16 * warp + gq, p1 = p0 + 8;
+  float sum[RHN][NA];
+#pragma unroll
+  for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) sum[rh][i] = 0.0f;
+  unsigned u = 0;
+  for (int q = 0; q < nq; ++q) {
+    ringc.wait(u);
+    ringc.wait(u + 1);
+    const float* sv = vec + 128 * (u % NS);
+    TfA f[8];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const unsigned char* yu = ringc.at(u + (kk >> 2));
+      const int k0 = 8 * (kk & 3) + tq, k1 = k0 + 4;
+      const int step = 32 * (kk >> 2) + 8 * (kk & 3) + 2 * tq;
+      const float e0 = expf(sv[step]), e1 = expf(sv[step + 1]);
+      split_tf32(e0 * unit_val(yu, kWgRows, p0, k0), f[kk].hi[0],
+                 f[kk].lo[0]);
+      split_tf32(e0 * unit_val(yu, kWgRows, p1, k0), f[kk].hi[1],
+                 f[kk].lo[1]);
+      split_tf32(e1 * unit_val(yu, kWgRows, p0, k1), f[kk].hi[2],
+                 f[kk].lo[2]);
+      split_tf32(e1 * unit_val(yu, kWgRows, p1, k1), f[kk].hi[3],
+                 f[kk].lo[3]);
+    }
+    ringc.release(u, lane);
+    ringc.release(u + 1, lane);
+    const unsigned uc = u + 2;
+    for (int i = 0; i < 2 * RHN; ++i) ringc.wait(uc + i);
+    float acc[RHN][NA];
+#pragma unroll
+    for (int rh = 0; rh < RHN; ++rh) zero_regs(acc[rh]);
+    wgmma_fence();
+#pragma unroll
+    for (int ku = 0; ku < 2; ++ku)
+#pragma unroll
+      for (int rh = 0; rh < RHN; ++rh)
+        rs_unit(acc[rh], f + 4 * ku, ringc.at(uc + ku * RHN + rh), NR);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int rh = 0; rh < RHN; ++rh) fence_regs(acc[rh]);
+    for (int i = 0; i < 2 * RHN; ++i) ringc.release(uc + i, lane);
+    u = uc + 2 * RHN;
+#pragma unroll
+    for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+      for (int i = 0; i < NA; ++i) sum[rh][i] += acc[rh][i];
+  }
+  float* out = dstate + (bh * (L / chunk) + c) * P * N;
+#pragma unroll
+  for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+    for (int nb = 0; nb < NR / 8; ++nb) {
+      const int col = 64 * rh + 8 * nb + 2 * tq;
+      *reinterpret_cast<float2*>(out + p0 * N + col) =
+          make_float2(sum[rh][4 * nb], sum[rh][4 * nb + 1]);
+      *reinterpret_cast<float2*>(out + p1 * N + col) =
+          make_float2(sum[rh][4 * nb + 2], sum[rh][4 * nb + 3]);
+    }
+}
+
+// ---------------------------------------------------- route 1: (iii) --
+struct WgArgs {
+  const float *xs, *ys, *yt, *bs, *cs, *bt, *ct, *hit, *dst, *dsn, *dtt, *cb;
+  const float *s, *dt;
+  float *dx, *db_part, *dc_part, *ds, *ddt_part, *dsq_scan;
+  int L, H, G, chunk, heads;
+};
+
+// One block per (b, chunk c, 64-row tile t, `heads` heads of a group): the
+// chunk pass of route 2 (pass (iii) above) with one consumer warpgroup on
+// the tile's 64 rows and a producer warp.  The producer loads the role's
+// own C_t (then B_t) and each head's dY_t (then X_t) into buffers of their
+// own, and streams every other operand unit by unit through a ring of NS
+// stages (1-D bulk copies of split tiles, full and empty mbarriers).  Per
+// key slab (query role) or query slab (key role): the pair tiles by wgmma
+// with both operands in shared memory, hi hi and the small terms in
+// accumulators of their own; the pair math in registers; then M (or G^T
+// and M^T) straight from the accumulators as register A fragments into
+// the slab's products, each a chain from zero added to float32 sums by
+// FADD (dc and db in registers across the heads, a head's dx in shared
+// memory, each thread its own elements).
+template <int P, int N>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ssd_bwd_chunk_wgmma_kernel(const WgArgs a) {
+  using W = Wg<P, N>;
+  constexpr int NS = W::NS, KUN = W::KUN, KUP = W::KUP;
+  constexpr int NR = W::NR, RHN = W::RHN, NA = W::NA;
+  static_assert(P == 64, "route 1 takes P = 64");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* own_a = align1024(smem_raw);  // C_t, then B_t
+  unsigned char* own_h = own_a + W::kOwnH;     // dY_t, then X_t
+  float* dxsum = reinterpret_cast<float*>(own_a + W::kDx);
+  unsigned char* ring = own_a + W::kRing;
+  float* vec = reinterpret_cast<float*>(own_a + W::kVec);
+  float* rowq = reinterpret_cast<float*>(own_a + W::kRowq);
+  float* rowu = reinterpret_cast<float*>(own_a + W::kRowu);
+  uint64_t* full = reinterpret_cast<uint64_t*>(own_a + W::kBar);
+  uint64_t* empty = full + NS;
+  uint64_t* own_full = empty + NS;
+  uint64_t* own_empty = own_full + 1;
+  uint64_t* head_full = own_empty + 1;
+  uint64_t* head_empty = head_full + 1;
+
+  const int L = a.L, H = a.H, G = a.G, chunk = a.chunk, heads = a.heads;
+  const int nc = L / chunk, nq = chunk / kWgRows, nslab = L / kWgRows;
+  const int t = static_cast<int>(blockIdx.x) % nq;
+  const int c = static_cast<int>(blockIdx.x) / nq;
+  const int h0 = static_cast<int>(blockIdx.y) * heads, b = blockIdx.z;
+  const int rep = H / G, g = h0 / rep;
+  const int nparts = rep / heads, part = (h0 % rep) / heads;
+  const int r0 = t * kWgRows;
+  const size_t t0 = static_cast<size_t>(b) * L + static_cast<size_t>(c) * chunk;
+  const size_t slab0 = static_cast<size_t>(c) * nq;  // the chunk's first slab
+  // tiles: per (b, h, slab), per (b, g, slab), per (b, h, chunk)
+  auto of_h = [&](const float* base, int h, int k, int floats) {
+    return base + ((static_cast<size_t>(b) * H + h) * nslab + slab0 + k) *
+                      static_cast<size_t>(floats);
+  };
+  auto of_g = [&](const float* base, int k, int floats) {
+    return base + ((static_cast<size_t>(b) * G + g) * nslab + slab0 + k) *
+                      static_cast<size_t>(floats);
+  };
+  auto of_state = [&](const float* base, int h, int floats) {
+    return base + ((static_cast<size_t>(b) * H + h) * nc + c) *
+                      static_cast<size_t>(floats);
+  };
+  auto s_of = [&](int h) {  // the chunk's s of head h
+    return a.s + (static_cast<size_t>(b) * H + h) * L +
+           static_cast<size_t>(c) * chunk;
+  };
+  auto dtt_of = [&](int h) {
+    return a.dtt + (static_cast<size_t>(b) * H + h) * L +
+           static_cast<size_t>(c) * chunk;
+  };
+  auto cb_of = [&](int tq, int tk) {  // C_tq B_tk^T, then its transpose
+    return a.cb + (((static_cast<size_t>(b) * G + g) * nc + c) *
+                       (nq * (nq + 1) / 2) +
+                   tq * (tq + 1) / 2 + tk) *
+                      (2 * kWgRows * kWgRows);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 4);  // one arrival a consumer warp
+    }
+    mbar_init(own_full, 1);
+    mbar_init(own_empty, 4);
+    mbar_init(head_full, 1);
+    mbar_init(head_empty, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // the producer warp: one thread issues every copy.  A head's first
+    // units (its state's) go into the ring before its dY_t or X_t, whose
+    // buffer waits for the last head to be done with it: at most KUP RHN
+    // <= NS units come before it, so the ring cannot fill with units the
+    // consumer can only take after it.
+    if (threadIdx.x == 128) {
+      Feed<NS> feed{ring, vec, full, empty};
+      int nh = 0;  // heads loaded into own_h
+      own_load(own_a, of_g(a.cs, t, W::kNatN), KUN * kUnitBytes, own_full);
+      for (int hh = 0; hh < heads; ++hh, ++nh) {
+        const int h = h0 + hh;
+        const float* hit = of_state(a.hit, h, W::kStateT);
+        for (int i = 0; i < KUP * RHN; ++i)
+          feed.put(hit + i * NR * 64, NR * 256);
+        if (nh > 0) mbar_wait(head_empty, (nh - 1) & 1);
+        own_load(own_h, of_h(a.ys, h, t, W::kNatP), KUP * kUnitBytes,
+                 head_full);
+        for (int k = 0; k <= t; ++k) {
+          const float* xk = of_h(a.xs, h, k, W::kNatP);
+          const float* btk = of_g(a.bt, k, W::kTimeN);
+          feed.put(cb_of(t, k), kUnitBytes, s_of(h) + k * kWgRows,
+                   dtt_of(h) + k * kWgRows);
+          for (int ku = 0; ku < KUP; ++ku)
+            feed.put(xk + ku * kWgRows * 64, kUnitBytes);
+          for (int i = 0; i < 2 * RHN; ++i)
+            feed.put(btk + i * NR * 64, NR * 256);
+        }
+      }
+      for (int hh = 0; hh < heads; ++hh, ++nh) {
+        const int h = h0 + hh;
+        const float* dst = of_state(a.dst, h, W::kStateT);
+        for (int i = 0; i < KUP * RHN; ++i)
+          feed.put(dst + i * NR * 64, NR * 256);
+        if (hh == 0) {  // C_t is done with: B_t
+          mbar_wait(own_empty, 0);
+          own_load(own_a, of_g(a.bs, t, W::kNatN), KUN * kUnitBytes,
+                   own_full);
+        }
+        mbar_wait(head_empty, (nh - 1) & 1);
+        own_load(own_h, of_h(a.xs, h, t, W::kNatP), KUP * kUnitBytes,
+                 head_full);
+        const float* dsn = of_state(a.dsn, h, W::kStateN);
+        for (int ku = 0; ku < KUN; ++ku)
+          feed.put(dsn + ku * kWgRows * 64, kUnitBytes);
+        for (int k = t; k < nq; ++k) {
+          const float* yk = of_h(a.ys, h, k, W::kNatP);
+          const float* ytk = of_h(a.yt, h, k, W::kTimeP);
+          const float* ctk = of_g(a.ct, k, W::kTimeN);
+          feed.put(cb_of(k, t) + kWgRows * kWgRows, kUnitBytes,
+                   s_of(h) + k * kWgRows);
+          for (int ku = 0; ku < KUP; ++ku)
+            feed.put(yk + ku * kWgRows * 64, kUnitBytes);
+          for (int ku = 0; ku < 2; ++ku)
+            feed.put(ytk + ku * kWgRows * 64, kUnitBytes);
+          for (int i = 0; i < 2 * RHN; ++i)
+            feed.put(ctk + i * NR * 64, NR * 256);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: tile rows ia, ib of the thread
+  const Ring<NS> rg{ring, full, empty};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ia = 16 * warp + gq, ib = ia + 8;
+  const size_t xstride = static_cast<size_t>(H) * P;
+  const size_t ld_part = static_cast<size_t>(G) * nparts * N;
+  const size_t part_off =
+      (t0 + r0) * ld_part + (static_cast<size_t>(g) * nparts + part) * N;
+  auto bhl = [&](int h, int r) {  // a (b, h, l) row of the tile's step r
+    return (static_cast<size_t>(b) * H + h) * L +
+           static_cast<size_t>(c) * chunk + r0 + r;
+  };
+  unsigned u = 0;  // the ring's next unit
+  int nh = 0;      // heads taken from own_h
+
+  // a state product: v = own_h (depth P) times the N-row tile of KUP x RHN
+  // units at u (h_in^T or dS^T), one chain from zero
+  auto state_product = [&](float (&v)[RHN][NA]) {
+    for (int i = 0; i < KUP * RHN; ++i) rg.wait(u + i);
+#pragma unroll
+    for (int rh = 0; rh < RHN; ++rh) zero_regs(v[rh]);
+    wgmma_fence();
+#pragma unroll
+    for (int ku = 0; ku < KUP; ++ku)
+#pragma unroll
+      for (int rh = 0; rh < RHN; ++rh)
+        ss_unit(v[rh], own_h + ku * kUnitBytes, rg.at(u + ku * RHN + rh), NR);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int rh = 0; rh < RHN; ++rh) fence_regs(v[rh]);
+    for (int i = 0; i < KUP * RHN; ++i) rg.release(u + i, lane);
+    u += KUP * RHN;
+  };
+  // a slab's pair tile: its C B^T tile (the unit at u, formed once a
+  // group by ssd_bwd_cb_kernel, with the slab's s and dt) and s2 = own_h
+  // (depth P) times the KUP units after it (X_k or dY_k), hi hi and the
+  // small terms in accumulators of their own
+  auto pairs = [&](float (&s2)[32], float (&s2r)[32]) {
+    for (int i = 0; i <= KUP; ++i) rg.wait(u + i);
+    zero_regs(s2);
+    zero_regs(s2r);
+    wgmma_fence();
+#pragma unroll
+    for (int ku = 0; ku < KUP; ++ku)
+      ss_unit2(s2, s2r, own_h + ku * kUnitBytes, rg.at(u + 1 + ku));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s2);
+    fence_regs(s2r);
+  };
+  auto release_pairs = [&]() {
+    for (int i = 0; i <= KUP; ++i) rg.release(u + i, lane);
+    u += KUP + 1;
+  };
+  // d = F B over a slab's 64 steps: F the fragments f[0 .. 7], B the 2 x
+  // nrb units at u (rows nrb x rows), one chain from zero
+  auto slab_product = [&](auto& d, const TfA* f, int rows) {
+    constexpr int nrb =
+        std::extent<std::remove_reference_t<decltype(d)>>::value;
+    for (int i = 0; i < 2 * nrb; ++i) rg.wait(u + i);
+#pragma unroll
+    for (int rb = 0; rb < nrb; ++rb) zero_regs(d[rb]);
+    wgmma_fence();
+#pragma unroll
+    for (int ku = 0; ku < 2; ++ku)
+#pragma unroll
+      for (int rb = 0; rb < nrb; ++rb)
+        rs_unit(d[rb], f + 4 * ku, rg.at(u + ku * nrb + rb), rows);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int rb = 0; rb < nrb; ++rb) fence_regs(d[rb]);
+    for (int i = 0; i < 2 * nrb; ++i) rg.release(u + i, lane);
+    u += 2 * nrb;
+  };
+
+  // --------------------------------------------------- as query rows --
+  float dcs[RHN][NA];
+#pragma unroll
+  for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dcs[rh][i] = 0.0f;
+  mbar_wait(own_full, 0);
+  for (int hh = 0; hh < heads; ++hh, ++nh) {
+    const float* sh = s_of(h0 + hh);
+    const float si[2] = {sh[r0 + ia], sh[r0 + ib]};
+    const float es[2] = {expf(si[0]), expf(si[1])};
+    float dsr[2] = {0.0f, 0.0f};
+    mbar_wait(head_full, nh & 1);
+    {  // the state term: dc += exp(s_i) dY_t h_in, ds_i += its row . c_i
+      float v[RHN][NA];
+      state_product(v);
+#pragma unroll
+      for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+        for (int e = 0; e < NA; ++e) {
+          const int row = (e & 2) ? ib : ia;
+          const int n = 64 * rh + 8 * (e >> 2) + 2 * tq + (e & 1);
+          const float val = es[(e >> 1) & 1] * v[rh][e];
+          dcs[rh][e] += val;
+          dsr[(e >> 1) & 1] = fmaf(
+              val, unit_val(own_a + (n >> 5) * kUnitBytes, kWgRows, row,
+                            n & 31),
+              dsr[(e >> 1) & 1]);
+        }
+    }
+    for (int k = 0; k <= t; ++k) {
+      float s2[8][4], s2r[8][4];
+      pairs(reinterpret_cast<float(&)[32]>(s2),
+            reinterpret_cast<float(&)[32]>(s2r));
+      const float* cb = reinterpret_cast<const float*>(rg.at(u));
+      const float* sv = vec + 128 * (u % NS);  // s_k, dt_k
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib;
+          const int j = 8 * nb + 2 * tq + (e & 1);
+          const float a1 = cb[cb_at(i, j)];  // c_i . b_j
+          const float a2 = s2[nb][e] + s2r[nb][e];
+          const float mv =
+              k < t || j <= i ? a2 * expf(si[e >> 1] - sv[j]) * sv[64 + j]
+                              : 0.0f;
+          dsr[e >> 1] = fmaf(mv, a1, dsr[e >> 1]);
+          s2[nb][e] = mv;
+        }
+      release_pairs();
+      TfA f[8];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) a_from_acc(f[nb], s2, nb);
+      float dca[RHN][NA];
+      slab_product(dca, f, NR);  // dc += M B_k
+#pragma unroll
+      for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+        for (int e = 0; e < NA; ++e) dcs[rh][e] += dca[rh][e];
+    }
+    const float va = quad_sum(dsr[0]), vb = quad_sum(dsr[1]);
+    if (tq == 0) {
+      rowq[hh * kWgRows + ia] = va;
+      rowq[hh * kWgRows + ib] = vb;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(head_empty);  // dY_t is done with
+  }
+#pragma unroll
+  for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+    for (int nb = 0; nb < NR / 8; ++nb) {
+      const int col = 64 * rh + 8 * nb + 2 * tq;
+      float* out = a.dc_part + part_off + col;
+      *reinterpret_cast<float2*>(out + ia * ld_part) =
+          make_float2(dcs[rh][4 * nb], dcs[rh][4 * nb + 1]);
+      *reinterpret_cast<float2*>(out + ib * ld_part) =
+          make_float2(dcs[rh][4 * nb + 2], dcs[rh][4 * nb + 3]);
+    }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(own_empty);  // C_t is done with
+
+  // ----------------------------------------------------- as key columns --
+  float dbs[RHN][NA];
+#pragma unroll
+  for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dbs[rh][i] = 0.0f;
+  float* my_dx = dxsum + tid;  // element e at my_dx[128 e]
+  mbar_wait(own_full, 1);
+  for (int hh = 0; hh < heads; ++hh, ++nh) {
+    const int h = h0 + hh;
+    const float* sh = s_of(h);
+    const float sj[2] = {sh[r0 + ia], sh[r0 + ib]};
+    const float dtj[2] = {a.dt[(t0 + r0 + ia) * H + h],
+                          a.dt[(t0 + r0 + ib) * H + h]};
+    const float s_q = sh[chunk - 1];
+    const float eq[2] = {expf(s_q - sj[0]), expf(s_q - sj[1])};
+    const float w[2] = {dtj[0] * eq[0], dtj[1] * eq[1]};
+    float uj[2] = {0.0f, 0.0f};
+    mbar_wait(head_full, nh & 1);
+    {  // db += w_j X_t dS, u_j = (X_t dS)_j . b_j
+      float v[RHN][NA];
+      state_product(v);
+#pragma unroll
+      for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+        for (int e = 0; e < NA; ++e) {
+          const int row = (e & 2) ? ib : ia;
+          const int n = 64 * rh + 8 * (e >> 2) + 2 * tq + (e & 1);
+          uj[(e >> 1) & 1] = fmaf(
+              v[rh][e],
+              unit_val(own_a + (n >> 5) * kUnitBytes, kWgRows, row, n & 31),
+              uj[(e >> 1) & 1]);
+          dbs[rh][e] += w[(e >> 1) & 1] * v[rh][e];
+        }
+    }
+    {  // dx = w_j B_t dS^T over depth N, chains of two units added by FADD
+      float px[32], link[32];
+      for (int i = 0; i < KUN; ++i) rg.wait(u + i);
+#pragma unroll
+      for (int k0 = 0; k0 < KUN; k0 += 2) {
+        zero_regs(link);
+        wgmma_fence();
+#pragma unroll
+        for (int ku = k0; ku < k0 + 2 && ku < KUN; ++ku)
+          ss_unit(link, own_a + ku * kUnitBytes, rg.at(u + ku), kWgRows);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(link);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          px[e] = k0 == 0 ? link[e] : px[e] + link[e];
+      }
+      for (int i = 0; i < KUN; ++i) rg.release(u + i, lane);
+      u += KUN;
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        my_dx[128 * e] = w[(e >> 1) & 1] * px[e];
+    }
+    float dsc[2], ddc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dsc[r] = -uj[r] * w[r];
+      ddc[r] = eq[r] * uj[r];
+    }
+    {
+      const float ua = quad_sum(uj[0] * w[0]), ub = quad_sum(uj[1] * w[1]);
+      if (tq == 0) {
+        rowu[(nh & 1) * kWgRows + ia] = ua;
+        rowu[(nh & 1) * kWgRows + ib] = ub;
+      }
+    }
+    for (int k = t; k < nq; ++k) {
+      float s1[8][4], s2[8][4], s2r[8][4];
+      pairs(reinterpret_cast<float(&)[32]>(s2),
+            reinterpret_cast<float(&)[32]>(s2r));
+      const float* cbt = reinterpret_cast<const float*>(rg.at(u));
+      const float* sv = vec + 128 * (u % NS);  // s_k
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e < 2 ? ia : ib;
+          const int i = 8 * nb + 2 * tq + (e & 1);
+          const float l =
+              k > t || i >= j ? expf(sv[i] - sj[e >> 1]) : 0.0f;
+          const float a1 = cbt[cb_at(j, i)];  // b_j . c_i
+          const float a2 = s2[nb][e] + s2r[nb][e];
+          const float cbl = a1 * l;
+          const float mv = a2 * l * dtj[e >> 1];
+          ddc[e >> 1] = fmaf(a2, cbl, ddc[e >> 1]);
+          dsc[e >> 1] = fmaf(-mv, a1, dsc[e >> 1]);
+          s1[nb][e] = cbl * dtj[e >> 1];  // G^T
+          s2[nb][e] = mv;                 // M^T
+        }
+      release_pairs();
+      TfA f[8];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) a_from_acc(f[nb], s1, nb);
+      {
+        float dxa[1][32];
+        slab_product(dxa, f, kWgRows);  // dx += G^T dY_k
+#pragma unroll
+        for (int e = 0; e < 32; ++e) my_dx[128 * e] += dxa[0][e];
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) a_from_acc(f[nb], s2, nb);
+      float dba[RHN][NA];
+      slab_product(dba, f, NR);  // db += M^T C_k
+#pragma unroll
+      for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+        for (int e = 0; e < NA; ++e) dbs[rh][e] += dba[rh][e];
+    }
+    // the head's rows: ds, ddt's partial, dx, and ds_Q's partial
+    const float da = quad_sum(dsc[0]), dbv = quad_sum(dsc[1]);
+    const float ta = quad_sum(ddc[0]), tb = quad_sum(ddc[1]);
+    if (tq == 0) {
+      a.ds[bhl(h, ia)] = rowq[hh * kWgRows + ia] + da;
+      a.ds[bhl(h, ib)] = rowq[hh * kWgRows + ib] + dbv;
+      a.ddt_part[bhl(h, ia)] = ta;
+      a.ddt_part[bhl(h, ib)] = tb;
+    }
+    float* out = a.dx + ((t0 + r0) * H + h) * P;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int col = 8 * nb + 2 * tq;
+      *reinterpret_cast<float2*>(out + ia * xstride + col) = make_float2(
+          my_dx[128 * (4 * nb)], my_dx[128 * (4 * nb + 1)]);
+      *reinterpret_cast<float2*>(out + ib * xstride + col) = make_float2(
+          my_dx[128 * (4 * nb + 2)], my_dx[128 * (4 * nb + 3)]);
+    }
+    consumers_sync();  // every row's u w is in
+    if (tid == 0) {
+      float tot = 0.0f;
+      for (int r = 0; r < kWgRows; ++r) tot += rowu[(nh & 1) * kWgRows + r];
+      a.dsq_scan[((static_cast<size_t>(b) * H + h) * nc + c) * nq + t] = tot;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(head_empty);  // X_t is done with
+  }
+#pragma unroll
+  for (int rh = 0; rh < RHN; ++rh)
+#pragma unroll
+    for (int nb = 0; nb < NR / 8; ++nb) {
+      const int col = 64 * rh + 8 * nb + 2 * tq;
+      float* out = a.db_part + part_off + col;
+      *reinterpret_cast<float2*>(out + ia * ld_part) =
+          make_float2(dbs[rh][4 * nb], dbs[rh][4 * nb + 1]);
+      *reinterpret_cast<float2*>(out + ib * ld_part) =
+          make_float2(dbs[rh][4 * nb + 2], dbs[rh][4 * nb + 3]);
+    }
+}
+
 // -------------------------------------------------------------- launcher --
 template <int V>
 using Int = std::integral_constant<int, V>;
@@ -1246,7 +2157,7 @@ int with_pn(int p, int n, F&& f) {
 struct Args {
   const float *x, *dt, *a_log, *b, *c, *dy, *s, *states, *dh_final;
   float *dstate, *dsq_pass, *dsq_scan, *ds, *ddt_part, *db_part, *dc_part;
-  float *dx, *ddt, *da_log, *db, *dc, *dh0;
+  float *dx, *ddt, *da_log, *db, *dc, *dh0, *split;
   int B, L, H, G, chunk, heads;
   cudaStream_t stream;
 };
@@ -1271,8 +2182,35 @@ int launch_chunk(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// pass (ii); returns its blocks per (b, h) through *nblk
 template <int P, int N>
-int launch_all(const Args& a) {
+int launch_state_pass(const Args& a, int* nblk) {
+  const int pn4 = P * N / 4;
+  *nblk = (pn4 + kPassThreads - 1) / kPassThreads;
+  ssd_bwd_state_pass_kernel<<<dim3(*nblk, a.H, a.B), kPassThreads, 0,
+                              a.stream>>>(a.dstate, a.states, a.s,
+                                          a.dh_final, a.dh0, a.dsq_pass,
+                                          a.L, a.H, a.chunk, pn4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pass (iv)
+template <int N>
+int launch_finish(const Args& a, int nblk, int rows) {
+  const long long groups =
+      (static_cast<long long>(a.B) * a.L * a.G * N + kThreads - 1) / kThreads;
+  if (groups + a.H > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  ssd_bwd_finish_kernel<<<static_cast<unsigned>(a.H + groups), kThreads, 0,
+                          a.stream>>>(
+      a.dt, a.a_log, a.ds, a.ddt_part, a.dsq_pass, a.dsq_scan, a.db_part,
+      a.dc_part, a.ddt, a.da_log, a.db, a.dc, a.B, a.L, a.H, a.G, N, a.chunk,
+      nblk, a.chunk / rows, a.H / a.G / a.heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// route 2: the four passes on mma.sync
+template <int P, int N>
+int launch_sync(const Args& a) {
   using D = DstateShape<P, N>;
   const int nc = a.L / a.chunk;
   const int rows = a.chunk < 64 ? a.chunk : 64;
@@ -1286,35 +2224,201 @@ int launch_all(const Args& a) {
       a.dy, a.c, a.s, a.dstate, a.L, a.H, a.G, a.chunk);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  const int pn4 = P * N / 4;
-  const int nblk = (pn4 + kPassThreads - 1) / kPassThreads;
-  ssd_bwd_state_pass_kernel<<<dim3(nblk, a.H, a.B), kPassThreads, 0,
-                              a.stream>>>(a.dstate, a.states, a.s,
-                                          a.dh_final, a.dh0, a.dsq_pass,
-                                          a.L, a.H, a.chunk, pn4);
-  err = static_cast<int>(cudaGetLastError());
+  int nblk = 0;
+  err = launch_state_pass<P, N>(a, &nblk);
   if (err) return err;
   switch (rows) {
     case 16: err = launch_chunk<P, N, 16>(a); break;
     case 32: err = launch_chunk<P, N, 32>(a); break;
-    case 64: err = launch_chunk<P, N, 64>(a); break;
+    case 64:
+      // route 1 takes R = 64 at its (P, N): not instantiated here
+      if constexpr (wgmma_pn(P, N))
+        err = static_cast<int>(cudaErrorInvalidValue);
+      else
+        err = launch_chunk<P, N, 64>(a);
+      break;
     default: err = static_cast<int>(cudaErrorInvalidValue);
   }
   if (err) return err;
-  const long long groups =
-      (static_cast<long long>(a.B) * a.L * a.G * N + kThreads - 1) / kThreads;
-  if (groups + a.H > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  ssd_bwd_finish_kernel<<<static_cast<unsigned>(a.H + groups), kThreads, 0,
-                          a.stream>>>(
-      a.dt, a.a_log, a.ds, a.ddt_part, a.dsq_pass, a.dsq_scan, a.db_part,
-      a.dc_part, a.ddt, a.da_log, a.db, a.dc, a.B, a.L, a.H, a.G, N, a.chunk,
-      nblk, a.chunk / rows, a.H / a.G / a.heads);
+  return launch_finish<N>(a, nblk, rows);
+}
+
+SplitJob split_job(const float* src, float* dst, int nb, int na, int nc,
+                   long long sb, long long sa, long long sc, long long sr,
+                   long long sk, int rows, int depth, int unit_rows,
+                   int perm) {
+  SplitJob j;
+  j.src = src;
+  j.dst = dst;
+  j.sb = sb;
+  j.sa = sa;
+  j.sc = sc;
+  j.sr = sr;
+  j.sk = sk;
+  j.nb = nb;
+  j.na = na;
+  j.nc = nc;
+  j.depth = depth;
+  j.unit_rows = unit_rows;
+  j.units_k = (depth + 31) / 32;
+  j.units_r = rows / unit_rows;
+  j.perm = perm;
+  return j;
+}
+
+int launch_split(SplitJobs& jobs, cudaStream_t stream) {
+  long long blocks = 0;
+  for (int j = 0; j < jobs.count; ++j) {
+    const SplitJob& jb = jobs.job[j];
+    jobs.first[j] = blocks;
+    blocks += static_cast<long long>(jb.nb) * jb.na * jb.nc * jb.units_k *
+              jb.units_r;
+  }
+  jobs.first[jobs.count] = blocks;
+  if (blocks <= 0 || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ssd_bwd_split_kernel<<<static_cast<unsigned>(blocks), kSplitThreads, 0,
+                         stream>>>(jobs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// route 1: dt transposed and the split tiles of x, dy, b, c and h_in;
+// (i) D_c on wgmma; (ii); the split tiles of dS; (iii) on wgmma; (iv)
+template <int P, int N>
+int launch_wgmma(const Args& a) {
+  using W = Wg<P, N>;
+  const int B = a.B, L = a.L, H = a.H, G = a.G, chunk = a.chunk;
+  const int nc = L / chunk, nslab = L / kWgRows;
+  const SplitLayout lay = split_layout<P, N>(B, L, H, G, chunk);
+  float* sp = a.split;
+  const long long LHP = static_cast<long long>(L) * H * P;
+  const long long LGN = static_cast<long long>(L) * G * N;
+  const long long HP = static_cast<long long>(H) * P;
+  const long long PN = static_cast<long long>(P) * N;
+  const long long GN = static_cast<long long>(G) * N;
+  const long long total = static_cast<long long>(B) * H * L;
+  ssd_bwd_dt_kernel<<<static_cast<unsigned>(
+                          (total + kThreads - 1) / kThreads < 4096
+                              ? (total + kThreads - 1) / kThreads
+                              : 4096),
+                      kThreads, 0, a.stream>>>(a.dt, sp + lay.dtt, L, H,
+                                               total);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  SplitJobs first{};
+  auto add = [](SplitJobs& js, const SplitJob& j) { js.job[js.count++] = j; };
+  // per (b, h, slab): x and dy as 64 steps x P, dy^T as P x 64 steps
+  add(first, split_job(a.x, sp + lay.xs, B, H, nslab, LHP, P, 64 * HP, HP,
+                       1, kWgRows, P, kWgRows, 0));
+  add(first, split_job(a.dy, sp + lay.ys, B, H, nslab, LHP, P, 64 * HP, HP,
+                       1, kWgRows, P, kWgRows, 0));
+  add(first, split_job(a.dy, sp + lay.yt, B, H, nslab, LHP, P, 64 * HP, 1,
+                       HP, P, kWgRows, kWgRows, 1));
+  // per (b, g, slab): b and c as 64 steps x N, b^T and c^T as N x 64 steps
+  add(first, split_job(a.b, sp + lay.bs, B, G, nslab, LGN, N, 64 * GN, GN,
+                       1, kWgRows, N, kWgRows, 0));
+  add(first, split_job(a.c, sp + lay.cs, B, G, nslab, LGN, N, 64 * GN, GN,
+                       1, kWgRows, N, kWgRows, 0));
+  add(first, split_job(a.b, sp + lay.bt, B, G, nslab, LGN, N, 64 * GN, 1,
+                       GN, N, kWgRows, W::NR, 1));
+  add(first, split_job(a.c, sp + lay.ct, B, G, nslab, LGN, N, 64 * GN, 1,
+                       GN, N, kWgRows, W::NR, 1));
+  // per (b, h, chunk): h_in^T as N x P
+  add(first, split_job(a.states, sp + lay.hit, B, H, nc, H * nc * PN,
+                       nc * PN, PN, 1, N, N, P, W::NR, 0));
+  err = launch_split(first, a.stream);
+  if (err) return err;
+  // each chunk's C B^T tiles, once a group
+  auto cbk = ssd_bwd_cb_kernel<P, N>;
+  const size_t cb_smem = 1024 + 2 * W::KUN * kUnitBytes + 8;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      cbk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cb_smem)));
+  if (err) return err;
+  const int nq = chunk / kWgRows;
+  cbk<<<dim3(nq * (nq + 1) / 2, nc, B * G), 128, cb_smem, a.stream>>>(
+      sp + lay.bs, sp + lay.cs, sp + lay.cb, L, chunk);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  auto dstate = ssd_bwd_dstate_wgmma_kernel<P, N>;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      dstate, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(W::kDSmem)));
+  if (err) return err;
+  dstate<<<dim3(nc, H, B), kWgThreads, W::kDSmem, a.stream>>>(
+      sp + lay.yt, sp + lay.ct, a.s, a.dstate, L, H, G, chunk);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  int nblk = 0;
+  err = launch_state_pass<P, N>(a, &nblk);
+  if (err) return err;
+  // per (b, h, chunk): dS^T as N x P, dS as P x N
+  SplitJobs second{};
+  add(second, split_job(a.dstate, sp + lay.dst, B, H, nc, H * nc * PN,
+                        nc * PN, PN, 1, N, N, P, W::NR, 0));
+  add(second, split_job(a.dstate, sp + lay.dsn, B, H, nc, H * nc * PN,
+                        nc * PN, PN, N, 1, P, N, kWgRows, 0));
+  err = launch_split(second, a.stream);
+  if (err) return err;
+  auto chunk_kernel = ssd_bwd_chunk_wgmma_kernel<P, N>;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(W::kSmem)));
+  if (err) return err;
+  const WgArgs wa{sp + lay.xs,  sp + lay.ys,  sp + lay.yt,  sp + lay.bs,
+                  sp + lay.cs,  sp + lay.bt,  sp + lay.ct,  sp + lay.hit,
+                  sp + lay.dst, sp + lay.dsn, sp + lay.dtt, sp + lay.cb,
+                  a.s,          a.dt,         a.dx,         a.db_part,
+                  a.dc_part,    a.ds,         a.ddt_part,   a.dsq_scan,
+                  L,            H,            G,            chunk,
+                  a.heads};
+  const long long blocks = static_cast<long long>(nc) * nq;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  chunk_kernel<<<dim3(static_cast<unsigned>(blocks), H / a.heads, B),
+                 kWgThreads, W::kSmem, a.stream>>>(wa);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return launch_finish<N>(a, nblk, kWgRows);
+}
+
+// the route of (P, N, chunk), fixed at compile time for (P, N): route 1
+// is instantiated only at the (P, N) the table gives it
+template <int P, int N>
+int launch_all(const Args& a) {
+  if constexpr (wgmma_pn(P, N)) {
+    if (route_of(P, N, a.chunk) == 1) return launch_wgmma<P, N>(a);
+  }
+  return launch_sync<P, N>(a);
+}
+
+template <int P, int N>
+long long split_floats(int B, int L, int H, int G, int chunk) {
+  if constexpr (wgmma_pn(P, N))
+    return static_cast<long long>(
+        split_layout<P, N>(B, L, H, G, chunk).total);
+  else
+    return 0;
 }
 
 }  // namespace
 
 extern "C" {
+
+// The route the table gives (p, n, chunk): 1 wgmma, 2 mma.sync, 0 none
+// (the launch refuses it).
+int repro_ssd_bwd_route(int p, int n, int chunk) {
+  return route_of(p, n, chunk);
+}
+
+// Floats of the split scratch route 1 takes at this shape (0 on route 2).
+long long repro_ssd_bwd_split_floats(int B, int L, int H, int G, int p,
+                                     int n, int chunk) {
+  if (route_of(p, n, chunk) != 1 || B <= 0 || L <= 0 || H <= 0 || G <= 0 ||
+      L % chunk)
+    return 0;
+  return n == 128 ? split_floats<64, 128>(B, L, H, G, chunk)
+                  : split_floats<64, 16>(B, L, H, G, chunk);
+}
 
 // float32 only.  The caller guarantees contiguous, 16-byte aligned
 // operands on the current device: x and dy (B, L, H, P), dt (B, L, H),
@@ -1322,30 +2426,32 @@ extern "C" {
 // chunk-entry states (B, H, L / chunk, P, N), dh_final (B, H, P, N) or
 // null; the scratches dstate (B, H, L / chunk, P, N), dsq_pass (B, H,
 // L / chunk, ceil(P N / 512)), dsq_scan (B, H, L / chunk, chunk / R), ds
-// and ddt_part (B, H, L), db_part and dc_part (B, L, G H / (G heads), N);
-// the outputs dx, ddt, da_log, db, dc of their operands' shapes and dh0
-// (B, H, P, N).  The chunk is 16, 32 or a multiple of 64 and divides L;
-// `heads` (the heads of a chunk-pass block) divides H / G and is at most
-// kMaxHeads.
+// and ddt_part (B, H, L), db_part and dc_part (B, L, G H / (G heads), N),
+// and on route 1 `split` (repro_ssd_bwd_split_floats floats; null on route
+// 2); the outputs dx, ddt, da_log, db, dc of their operands' shapes and
+// dh0 (B, H, P, N).  (p, n, chunk) is a route of the table and the chunk
+// divides L; `heads` (the heads of a chunk-pass block) divides H / G and
+// is at most kMaxHeads.
 int repro_ssd_bwd(const void* x, const void* dt, const void* a_log,
                   const void* b, const void* c, const void* dy,
                   const void* s, const void* states, const void* dh_final,
                   void* dstate, void* dsq_pass, void* dsq_scan, void* ds,
                   void* ddt_part, void* db_part, void* dc_part, void* dx,
                   void* ddt, void* da_log, void* db, void* dc, void* dh0,
-                  int B, int L, int H, int G, int p, int n, int chunk,
-                  int heads, void* stream) {
+                  void* split, int B, int L, int H, int G, int p, int n,
+                  int chunk, int heads, void* stream) {
   auto cf = [](const void* v) { return static_cast<const float*>(v); };
   auto mf = [](void* v) { return static_cast<float*>(v); };
   const Args a{cf(x), cf(dt), cf(a_log), cf(b), cf(c), cf(dy), cf(s),
                cf(states), cf(dh_final), mf(dstate), mf(dsq_pass),
                mf(dsq_scan), mf(ds), mf(ddt_part), mf(db_part), mf(dc_part),
-               mf(dx), mf(ddt), mf(da_log), mf(db), mf(dc), mf(dh0), B, L,
-               H, G, chunk, heads, static_cast<cudaStream_t>(stream)};
-  const int rows = chunk < 64 ? chunk : 64;
+               mf(dx), mf(ddt), mf(da_log), mf(db), mf(dc), mf(dh0),
+               mf(split), B, L, H, G, chunk, heads,
+               static_cast<cudaStream_t>(stream)};
+  const int route = route_of(p, n, chunk);
   if (B <= 0 || L <= 0 || H <= 0 || G <= 0 || H % G || B > 65535 ||
-      H > 65535 || chunk < 16 || chunk % 16 || L % chunk || chunk % rows ||
-      heads <= 0 || heads > kMaxHeads || (H / G) % heads)
+      H > 65535 || route == 0 || L % chunk || heads <= 0 ||
+      heads > kMaxHeads || (H / G) % heads || (route == 1 && !split))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_pn(p, n, [&](auto P, auto N) {
     return launch_all<decltype(P)::value, decltype(N)::value>(a);

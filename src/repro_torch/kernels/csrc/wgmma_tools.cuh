@@ -1,12 +1,14 @@
-// Hopper tools shared by the attention kernels' wgmma routes: the
-// forward's (flash_attention.cu) and the backward's
-// (flash_attention_bwd.cu).  mbarriers that a TMA copy completes, 2-D TMA
-// loads of tiles stored as 64-column panels with the 128-byte swizzle and
-// 1-D bulk copies of rows, the wgmma shared-memory descriptors of such
-// panels, wgmma products (m64n64k16 and m64n128k16 with both operands in
-// shared memory, m64n64k16 with A from registers and B through the
-// transpose bit), and the tensor maps the copies read, encoded through the
-// runtime's entry point to the driver.
+// Hopper tools shared by the wgmma routes: the attention forward's
+// (flash_attention.cu), the attention backward's (flash_attention_bwd.cu)
+// and the SSD backward's (ssd_bwd.cu).  mbarriers that a TMA copy
+// completes, 2-D TMA loads of tiles stored as 64-column panels with the
+// 128-byte swizzle and 1-D bulk copies, the wgmma shared-memory
+// descriptors of such panels, bfloat16 wgmma products (m64n64k16 and
+// m64n128k16 with both operands in shared memory, m64n64k16 with A from
+// registers and B through the transpose bit), TF32 wgmma products
+// (m64n64k8 and m64n16k8, A from shared memory or from registers, B
+// K-major: the .tf32 forms have no transpose bit), and the tensor maps the
+// copies read, encoded by cuTensorMapEncodeTiled through the runtime.
 
 #pragma once
 
@@ -201,6 +203,77 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// TF32 products, float32 accumulators.  A float32 operand is read as
+// TF32 (its low 13 mantissa bits ignored), so a 3xTF32 product passes hi
+// and lo parts (split_tf32) and issues lo hi, hi lo and hi hi.  A K-major
+// tile of 128-byte rows (32 floats) with the 128-byte swizzle: a k8 step
+// moves the descriptor's start by 32 bytes, as a bf16 k16 step does.  The
+// register A fragment of m64nNk8 is warp w's rows 16 w + g, + 8 at depth
+// slots t, t + 4 (g = lane / 4, t = lane % 4), as mma.sync m16n8k8's;
+// scale_d 0 zeroes d first.
+#define REPRO_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define REPRO_D32                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "  \
+  "%26, %27, %28, %29, %30, %31}"
+#define REPRO_OUT8(d)                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7])
+#define REPRO_OUT32(d)                                                      \
+  REPRO_OUT8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),      \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),      \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),      \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= a b, m64n64k8, a and b from shared memory
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " REPRO_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : REPRO_OUT32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d (+)= a b, m64n16k8, a and b from shared memory
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " REPRO_D8
+      ", %8, %9, p, 1, 1;\n}\n"
+      : REPRO_OUT8(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d (+)= a b, m64n64k8, a a TF32 fragment in registers, b from shared
+// memory
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " REPRO_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : REPRO_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+// d (+)= a b, m64n16k8, a a TF32 fragment in registers
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const unsigned (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " REPRO_D8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : REPRO_OUT8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+#undef REPRO_D8
+#undef REPRO_D32
+#undef REPRO_OUT8
+#undef REPRO_OUT32
 
 // cuTensorMapEncodeTiled, reached through the runtime (no link to the
 // driver library)

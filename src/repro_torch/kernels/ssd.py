@@ -35,12 +35,17 @@ them; a fake tensor runs only the fake implementation.
 Training.  When grad is enabled and an operand requires it, :func:`ssd`
 runs :class:`SsdFn`: the same forward, which keeps its scratches (``s``
 and the chunk-entry states), and a backward through :func:`ssd_bwd` -- on
-CUDA tensors the four hand-written kernels of ``csrc/ssd_bwd.cu`` (each
+CUDA tensors the hand-written kernels of ``csrc/ssd_bwd.cu`` (each
 chunk's D_c, the reverse state pass over the chunks, the chunk backward
 over a block of heads, a fixed-order finish; the products on the tensor
-cores as 3xTF32), on CPU tensors :func:`ssd_bwd_plain`, the same passes.
-No atomics, so two calls give the same bits.  The reference has no
-backward kernel: it differentiates ``_ssd_chunked`` in XLA.
+cores as 3xTF32) by the route :func:`ssd_bwd_route` gives: ``"wgmma"`` at
+mamba2-2.7b's and jamba-v0.1-52b's (P, N) with a chunk that is a
+multiple of 64 (split operand tiles in a scratch, C B^T formed once a
+group, a producer warp streaming the tiles to one consumer warpgroup),
+``"mma_sync"`` for the rest; on CPU tensors :func:`ssd_bwd_plain`, the
+same passes.  No atomics, so two calls give the same bits.  The
+reference has no backward kernel: it differentiates ``_ssd_chunked`` in
+XLA.
 """
 
 from __future__ import annotations
@@ -74,6 +79,17 @@ BWD_PASS_THREADS = 128
 #: number).  10 at mamba2-2.7b's 80 heads timed 1 % faster than 8 at chunk
 #: 256 and 3 % at chunk 64 on the H100, 16 11 % slower (PERF.md)
 BWD_HEADS = 10
+#: the backward's routes (:func:`ssd_bwd_route`)
+BWD_ROUTES: Tuple[str, ...] = ("wgmma", "mma_sync")
+#: (P, N) the backward's wgmma route takes, at a chunk that is a multiple
+#: of :data:`ROWS`: mamba2-2.7b's and jamba-v0.1-52b's widths
+BWD_WGMMA_PN: Tuple[Tuple[int, int], ...] = ((64, 128), (64, 16))
+#: the wgmma route's ring stages, units of ``BWD_UNIT_BYTES`` each (64 rows
+#: of 32 depth steps, hi and lo): the chunk pass's at N above 64 and up to
+#: 64 (``Wg::NS``), D_c's (``Wg::NSD``)
+BWD_WGMMA_STAGES = (6, 9)
+BWD_WGMMA_DSTATE_STAGES = 4
+BWD_UNIT_BYTES = ROWS * 256
 
 
 def _rows(chunk: int) -> int:
@@ -574,22 +590,111 @@ def ssd_bwd_heads(h: int, g: int) -> int:
     return _group_heads(h, g, BWD_HEADS)
 
 
+def ssd_bwd_route(p: int, n: int, chunk: int) -> Optional[str]:
+    """The backward kernels' route at head dim ``p``, state ``n`` and
+    ``chunk``: ``"wgmma"`` at a (P, N) of :data:`BWD_WGMMA_PN` and a chunk
+    that is a multiple of :data:`ROWS` (every backward the models run),
+    ``"mma_sync"`` for every other instantiated (P, N) and for chunks 16
+    and 32, None where nothing is instantiated.  ``csrc/ssd_bwd.cu``'s
+    ``route_of`` is the same table."""
+    if p not in KERNEL_HEAD_DIMS or n not in KERNEL_STATES or chunk < 16 \
+            or chunk % 16 or (chunk > 32 and chunk % ROWS):
+        return None
+    if (p, n) in BWD_WGMMA_PN and chunk % ROWS == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def ssd_bwd_route_table() -> str:
+    """The backward's route table, for the message of a config it does
+    not route."""
+    return (f"wgmma: (P, N) in {BWD_WGMMA_PN}, chunk a multiple of {ROWS};"
+            f" mma_sync: P in {KERNEL_HEAD_DIMS}, N in {KERNEL_STATES}, "
+            f"chunk 16, 32 or a multiple of {ROWS}, where wgmma does not "
+            f"take it")
+
+
+def _wgmma_units(p: int, n: int) -> dict:
+    """The wgmma route's tile units (``Wg`` in ``csrc/ssd_bwd.cu``):
+    depth N padded to 32 in ``kun`` units of 32, depth P in ``kup``, a
+    tile of N rows in ``rhn`` row blocks of ``nr`` rows."""
+    nr = min(n, ROWS)
+    return {"kun": max(n, 32) // 32, "kup": p // 32, "nr": nr,
+            "rhn": n // nr}
+
+
 def ssd_bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of the backward's chunk pass (iii), its largest, all
-    float32 (``ChunkShape`` in ``csrc/ssd_bwd.cu``): the tile's own C or B
-    rows (R x N); two head buffers of a head's dY or X rows (R x P) with its
-    s and dt (2 R); two slab buffers of B_k or C_k, or a head's h_in or dS
-    (max(R, P) x N), with X_k or dY_k (R x P) and s, dt (2 R); each
-    warp's dx sums of a head (2 x R x P); and the row sums (2 x
-    :data:`BWD_HEADS` x R for the query role's heads, 3 x 2 x R for the key
-    role's).  R = min(chunk, 64): 205,312 bytes at (64, 128) and any chunk
-    of 64 or more."""
+    """Shared memory of the backward's chunk pass (iii), its largest, on
+    the route :func:`ssd_bwd_route` gives.
+
+    wgmma (``Wg`` in ``csrc/ssd_bwd.cu``): 1024 bytes to align the
+    128-byte swizzle, the role's own C_t or B_t as split units (64 rows x
+    N padded to 32, hi and lo) and the head's dY_t or X_t (64 x P), a
+    head's dx sums (64 x P float32), a ring of units of
+    :data:`BWD_UNIT_BYTES` (:data:`BWD_WGMMA_STAGES`: 6 at N = 128, 9 at
+    N = 16), each stage's s and dt of a slab (128 floats), the query role's
+    row sums (:data:`BWD_HEADS` x 64), u w of two heads (2 x 64) and the
+    mbarriers (two a stage, four more): 220,288 bytes at (64, 128),
+    221,872 at (64, 16).
+
+    mma_sync, all float32 (``ChunkShape``): the tile's own C or B rows
+    (R x N); two head buffers of a head's dY or X rows (R x P) with its s
+    and dt (2 R); two slab buffers of B_k or C_k, or a head's h_in or dS
+    (max(R, P) x N), with X_k or dY_k (R x P) and s, dt (2 R); each warp's
+    dx sums of a head (2 x R x P); and the row sums (2 x :data:`BWD_HEADS`
+    x R for the query role's heads, 3 x 2 x R for the key role's).  R =
+    min(chunk, 64)."""
+    if ssd_bwd_route(p, n, chunk) == "wgmma":
+        w = _wgmma_units(p, n)
+        ns = BWD_WGMMA_STAGES[0] if n > 64 else BWD_WGMMA_STAGES[1]
+        return (1024 + (w["kun"] + w["kup"]) * BWD_UNIT_BYTES +
+                4 * ROWS * p + ns * BWD_UNIT_BYTES + 4 * ns * 128 +
+                4 * BWD_HEADS * ROWS + 4 * 2 * ROWS + 8 * (2 * ns + 4))
     r = _rows(chunk)
     own = r * n
     head = r * p + 2 * r
     slab = max(r, p) * n + r * p + 2 * r
     rows = (2 * BWD_HEADS + 6) * r
     return 4 * (own + 2 * head + 2 * slab + 2 * r * p + rows)
+
+
+def ssd_bwd_dstate_smem_bytes() -> int:
+    """Shared memory of the wgmma route's D_c pass (``Wg::kDSmem``, the
+    same at both of its (P, N)): the alignment, a ring of
+    :data:`BWD_WGMMA_DSTATE_STAGES` units, each stage's s (128 floats) and
+    two mbarriers a stage: 68,672 bytes."""
+    ns = BWD_WGMMA_DSTATE_STAGES
+    return 1024 + ns * BWD_UNIT_BYTES + 4 * ns * 128 + 8 * 2 * ns
+
+
+def ssd_bwd_split_floats(b: int, l: int, h: int, g: int, p: int, n: int,
+                         chunk: int) -> int:
+    """Floats of the split scratch the wgmma route writes once a call
+    (``split_layout`` in ``csrc/ssd_bwd.cu``; 0 on the mma_sync route):
+    x and dy as split tiles of 64 steps x P and dy^T as P x 64 steps a
+    (batch, head, slab); b and c as 64 steps x N and N x 64 steps a (batch,
+    group, slab); h_in^T and dS^T as N x P and dS as P x N a (batch, head,
+    chunk); dt as (B, H, L); and each chunk's C B^T tiles, 64 x 64 float32
+    with their transposes, for every query tile and key slab on or below
+    it a (batch, group, chunk).  A split tile holds each value twice (hi
+    and lo), depth N padded to 32."""
+    if ssd_bwd_route(p, n, chunk) != "wgmma":
+        return 0
+    w = _wgmma_units(p, n)
+    per_h = b * h * (l // ROWS)
+    per_g = b * g * (l // ROWS)
+    states = b * h * (l // chunk)
+    nat_p = w["kup"] * ROWS * 64
+    nat_n = w["kun"] * ROWS * 64
+    time_p = 2 * ROWS * 64
+    time_n = 2 * w["rhn"] * w["nr"] * 64
+    state_t = w["kup"] * w["rhn"] * w["nr"] * 64
+    state_n = w["kun"] * ROWS * 64
+    nq = chunk // ROWS
+    pairs = b * g * (l // chunk) * (nq * (nq + 1) // 2)
+    return (per_h * (2 * nat_p + time_p) + per_g * 2 * (nat_n + time_n) +
+            states * (2 * state_t + state_n) + b * h * l +
+            pairs * 2 * ROWS * ROWS)
 
 
 def ssd_bwd_legal(l: int, chunk: int, p: int, n: int,
@@ -691,6 +796,10 @@ def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     _card_ready(ops, l, chunk, p, n)
     rep = h // g
     heads = ssd_bwd_heads(h, g)
+    route = ssd_bwd_route(p, n, chunk)
+    if route is None:
+        raise ValueError(f"no backward route takes chunk {chunk} at (P, N) ="
+                         f" ({p}, {n}): {ssd_bwd_route_table()}")
     f32 = dict(dtype=torch.float32, device=x.device)
     nq = chunk // _rows(chunk)
     d_s = torch.empty((bsz, h, nc, p, n), **f32)
@@ -703,12 +812,15 @@ def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     da_log = torch.empty_like(a_log)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     dh0 = torch.empty((bsz, h, p, n), **f32)
+    split = torch.empty((ssd_bwd_split_floats(bsz, l, h, g, p, n, chunk),),
+                        **f32) if route == "wgmma" else None
     _call("repro_ssd_bwd", "backward",
           (x, dt, a_log, b, c, dy, s, h_in, dh_final, d_s, dsq_pass,
            dsq_scan, ds, ddt_part, db_part, dc_part, dx, ddt, da_log, db, dc,
-           dh0),
+           dh0, split),
           (bsz, l, h, g, p, n, chunk, heads), x.device, lib_name="ssd_bwd")
     ssd_bwd.launches += 1
+    ssd_bwd.route_launches[route] += 1
     return dx, ddt, da_log, db, dc, dh0
 
 
@@ -754,16 +866,19 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     (B, H, L / chunk, P, N) (what :class:`SsdFn`'s forward keeps), y's
     gradient ``dy`` and the final state's ``dh_final`` (zero when None).
 
-    CUDA tensors launch the four hand-written kernels of
-    ``csrc/ssd_bwd.cu`` on the current stream -- (i) each chunk's D_c,
-    (ii) the reverse state pass, (iii) the chunk backward, each block over
-    :func:`ssd_bwd_heads` heads of one group, summing db and dc over them,
-    (iv) the fixed-order finish: ds's reverse sums into ddt and da_log, db
-    and dc added over each group's block partials -- in a fixed order with
-    no atomics, so two calls give the same bits; anything they do not take
-    raises.  CPU tensors run :func:`ssd_bwd_plain`, the same passes.
-    ``ssd_bwd.launches`` counts calls that launched the kernels: one per
-    backward, four kernel launches inside.
+    CUDA tensors launch the hand-written kernels of ``csrc/ssd_bwd.cu``
+    on the current stream, on the route :func:`ssd_bwd_route` gives -- (i)
+    each chunk's D_c, (ii) the reverse state pass, (iii) the chunk
+    backward, each block over :func:`ssd_bwd_heads` heads of one group,
+    summing db and dc over them, (iv) the fixed-order finish: ds's reverse
+    sums into ddt and da_log, db and dc added over each group's block
+    partials; the wgmma route first splits its operands into a scratch of
+    :func:`ssd_bwd_split_floats` floats and forms each chunk's C B^T once
+    -- in a fixed order with no atomics, so two calls give the same bits;
+    anything they do not take raises.  CPU tensors run
+    :func:`ssd_bwd_plain`, the same passes.  ``ssd_bwd.launches`` counts
+    calls that launched the kernels, one per backward, and
+    ``ssd_bwd.route_launches`` splits them by route.
     """
     chunk = _prepare(x, dt, a_log, b, c, chunk, None)
     bsz, l, h, p = x.shape
@@ -799,6 +914,7 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 ssd_bwd.launches = 0
+ssd_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class SsdFn(torch.autograd.Function):

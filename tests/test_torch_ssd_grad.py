@@ -26,7 +26,8 @@ from repro.models.mamba import _ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd import (KERNEL_HEAD_DIMS,  # noqa: E402
                                      KERNEL_STATES, SsdFn, _plain_parts,
                                      ssd, ssd_bwd, ssd_bwd_legal,
-                                     ssd_bwd_plain, ssd_bwd_smem_bytes,
+                                     ssd_bwd_plain, ssd_bwd_route,
+                                     ssd_bwd_smem_bytes,
                                      ssd_plain,
                                      ssd_state_grads_plain, ssd_tile_legal)
 
@@ -168,16 +169,26 @@ def test_ssd_routes_a_gradient_through_the_function_on_the_cpu():
 
 def test_backward_takes_whatever_the_forward_takes():
     """Every (chunk, P, N) the forward admits, the backward admits: its
-    chunk pass stages at most 205,312 bytes, the card's opt-in is 232,448."""
-    assert ssd_bwd_smem_bytes(256, 64, 128) == 205_312
-    assert ssd_bwd_smem_bytes(64, 64, 128) == 205_312
+    chunk pass stages at most 221,872 bytes on the route it takes (the
+    wgmma route at mamba2-2.7b's (64, 128) 220,288, the mma_sync route's
+    largest 156,160), the card's opt-in is 232,448."""
+    assert ssd_bwd_smem_bytes(256, 64, 128) == 220_288
+    assert ssd_bwd_smem_bytes(64, 64, 128) == 220_288
+    assert ssd_bwd_smem_bytes(64, 32, 128) == 156_160
+    assert max(ssd_bwd_smem_bytes(chunk, p, n)
+               for chunk in (16, 32, 64) for p in KERNEL_HEAD_DIMS
+               for n in KERNEL_STATES) == 221_872
+    assert max(ssd_bwd_smem_bytes(chunk, p, n)
+               for chunk in (16, 32, 64) for p in KERNEL_HEAD_DIMS
+               for n in KERNEL_STATES
+               if ssd_bwd_route(p, n, chunk) == "mma_sync") == 156_160
     for chunk in (16, 32, 64, 128, 256, 512, 1024):
         for p in KERNEL_HEAD_DIMS:
             for n in KERNEL_STATES:
                 assert ssd_bwd_legal(4096, chunk, p, n) == \
                     ssd_tile_legal(4096, chunk, p, n), (chunk, p, n)
     assert not ssd_bwd_legal(4096, 48, 64, 128)          # chunk 48
-    assert not ssd_bwd_legal(4096, 64, 64, 128, smem_limit=205_311)
+    assert not ssd_bwd_legal(4096, 64, 64, 128, smem_limit=220_287)
 
 
 def test_backward_refuses_operands_that_disagree():

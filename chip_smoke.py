@@ -10,22 +10,32 @@ csrc`` (one nvcc per source, all at once, into
 ``build/repro_torch_kernels/``), holds each against its plain PyTorch
 version, and drives every path of the port on the card:
 
-1. card and kernel build;
-2. kernel check: the CUDA matmul against its plain version on the test
-   shapes and on a shape for each of its (bm, bn, bk) instantiations that
-   the card can stage (float32 and bfloat16); a test shape whose tiles
-   the kernel does not take must be refused;
+1. card and kernel build (each source's nvcc seconds; registers and
+   spills of every instantiation, the matmul's ten wgmma kernels each);
+2. kernel check: the CUDA matmul's route table (the library's against
+   ``matmul_route``, with its staging and split scratch), then the matmul
+   against its plain version on the test shapes and on a shape for each
+   of its (bm, bn, bk) instantiations that the card can stage, on both
+   routes (wgmma, ffma) and in both dtypes, each call on its route; a
+   test shape whose tiles the kernel does not take must be refused;
 3. the paper's path at n = 4096, b from 64 to 1024: generate
    potf2/trsm/syrk/gemm models on the card over the domains the Cholesky
    tracers call, rank the three potrf variants and the block size without
    executing them, then execute them through ``ExecEngine`` and compare
    predicted with measured times; the performance yield is read on the
    whole grid and, on the same measurements, on the grid through 512;
-4. the matmul tile path: sweep every legal tile of the CUDA matmul on its
-   proxy problem, fit the transfer models and select the tile for 4096^3;
-   then run every legal tile at 4096^3, check each result against the
-   plain version and compare predicted with measured order;
-5. the matmul at 4096^3 beside its plain version and ``torch.matmul``;
+4. the matmul tile path: sweep every legal float32 tile of the CUDA
+   matmul, the union of its two routes' tiles, on its proxy problem (each
+   route's measurements a model of their own), fit the transfer models
+   and select the tile for 4096^3; then run every legal tile at 4096^3,
+   check each result against the plain version and compare predicted with
+   measured order: the selected tile's route, its rank against the
+   measured best, tau;
+5. the matmul at 4096^3 in float32 at the selected tile and in bfloat16
+   at the fastest of its wgmma tiles (a short sweep), each twice for the
+   same bits, beside its plain version, ``torch.matmul`` and its route's
+   bound; the matmul's SASS gate (HGMMA in every wgmma kernel, no
+   tensor-core instruction in any ffma kernel);
 6. kernel check: flash attention and the SSD scan against their plain
    versions on the reference tests' cases, then at gemma2-27b's attention
    width (local and global layers, float32 and bfloat16), at the head dims
@@ -171,7 +181,8 @@ version, and drives every path of the port on the card:
    the H100's rates);
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
-error, times and bound per kernel).  The count of every kernel is set to 0
+the matmul's, the attention forward's and backward's and the SSD
+backward's also per route; error, times and bound per kernel).  The count of every kernel is set to 0
 just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c, 15c, 16c
 and 17a and read just after (the paths 9 and 10 launch none of the
 kernels; 14c and 15c add to one path, ``train``; 16c is ``train_moe``, 17a
@@ -432,8 +443,9 @@ def ptxas_table(log_text: str) -> dict:
 
 def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
     """The ptxas_table keys of each kernel's instantiations at its selected
-    config: {kernel: [(what, key), ...]}.  The matmul's (bm, bn, bk) is
-    instantiated as (bm / 64, bn / 64, bk); attention's two routes are
+    config: {kernel: [(what, key), ...]}.  The matmul's float32 (bm, bn,
+    bk) is instantiated on its route: the wgmma kernel at (bm, bn), the
+    ffma kernel at (bm / 64, bn / 64, bk); attention's two routes are
     reported, the mma.sync route at the float32 family's selected (bq,
     bkv, d) and the wgmma route at the models' bfloat16 WGMMA_MAIN_KEY;
     the SSD's (chunk, p, n) as its three passes: chunk state (p, n), the
@@ -441,11 +453,15 @@ def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
     attention backward's dK/dV and dQ kernels on both routes, the
     mma.sync route's float32 ones at BWD_MAIN_KEY and the wgmma route's at
     BWD_WGMMA_KEYS."""
+    import torch
+    from repro_torch.kernels.matmul import matmul_route
     bm, bn, bk = matmul_cfg
     chunk, p, n = ssd_cfg
+    mm_key = (("matmul_wgmma_kernel", "float32", (bm, bn))
+              if matmul_route(torch.float32, bm, bn, bk) == "wgmma" else
+              ("matmul_kernel", "float32", (bm // 64, bn // 64, bk)))
     return {
-        "matmul": [("matmul", ("matmul_kernel", "float32",
-                               (bm // 64, bn // 64, bk)))],
+        "matmul": [("matmul", mm_key)],
         "flash_attention": [
             ("mma_sync", ("attn_sync_kernel", "float32", tuple(attn_cfg))),
             ("wgmma", ("attn_wgmma_kernel", "bfloat16", WGMMA_MAIN_KEY))],
@@ -566,52 +582,144 @@ def ssd_work(b, l, h, p, g, n, chunk):
 
 
 # ------------------------------------------------------------ phase 2 --
-def check_kernel_shapes() -> None:
+def check_matmul_tables() -> dict:
+    """The library's route table (``repro_matmul_route``) against
+    ``matmul_route`` at every (dtype, bm, bn, bk) the tuner may try, its
+    wgmma staging against ``smem_bytes`` and its split scratch against
+    ``split_scratch_floats``."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.matmul import (_lib, matmul_route, smem_bytes,
+                                            split_scratch_floats)
+    lib = _lib()
+    lib.repro_matmul_route.argtypes = [ctypes.c_int] * 4
+    lib.repro_matmul_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.repro_matmul_smem_bytes.restype = ctypes.c_longlong
+    lib.repro_matmul_scratch_floats.argtypes = [ctypes.c_int] * 7
+    lib.repro_matmul_scratch_floats.restype = ctypes.c_longlong
+    names = {0: None, 1: "wgmma", 2: "ffma"}
+    sizes = (8, 16, 32, 64, 128, 256)
+    differ, routes = [], {"wgmma": 0, "ffma": 0}
+    for code, dt in enumerate((torch.float32, torch.bfloat16)):
+        for bm in sizes:
+            for bn in sizes:
+                for bk in sizes:
+                    route = matmul_route(dt, bm, bn, bk)
+                    if route:
+                        routes[route] += 1
+                    if names[lib.repro_matmul_route(code, bm, bn, bk)] != \
+                            route:
+                        differ.append(("route", code, bm, bn, bk))
+                    if route == "wgmma" and lib.repro_matmul_smem_bytes(
+                            code, bm, bn, bk) != smem_bytes(bm, bn, bk, dt):
+                        differ.append(("smem", code, bm, bn, bk))
+                    if lib.repro_matmul_scratch_floats(
+                            code, 512, 256, 128, bm, bn, bk) != \
+                            split_scratch_floats(512, 256, 128, bm, bn, bk,
+                                                 dt):
+                        differ.append(("scratch", code, bm, bn, bk))
+    if differ:
+        raise AssertionError(f"the matmul library's tables differ from "
+                             f"matmul.py's at {differ[:10]}")
+    log(f"  matmul route table: the library's equals matmul_route at "
+        f"{2 * len(sizes) ** 3} (dtype, bm, bn, bk), {routes}; wgmma "
+        f"staging and split scratch equal too")
+    return routes
+
+
+def check_kernel_shapes() -> dict:
     """The test shapes, then one shape per (bm, bn, bk) instantiation of
-    the kernel that the card can stage (a 2 x 3 grid of blocks, k = 4 bk
+    both routes that the card can stage (a 2 x 3 grid of blocks, k = 4 bk
     up to the test shapes' 256, where the 2e-5 bound holds two float32
-    summation orders; phase 4 runs every legal tile at k = 4096), each in
-    both dtypes.  A test shape whose tiles the kernel does not take must
-    be refused by the wrapper."""
+    summation orders; phase 4 runs every legal float32 tile at k = 4096),
+    each in both dtypes and on its route (``matmul_route``; the wgmma route
+    takes bfloat16 at bk 64 and float32 at bk 32, ffma the rest).  A test
+    shape whose tiles the kernel does not take must be refused by the
+    wrapper."""
     import numpy as np
     import torch
     from repro_torch.kernels.matmul import (KERNEL_BKS, KERNEL_TILES,
-                                            matmul, matmul_plain, tile_legal)
+                                            matmul, matmul_plain,
+                                            matmul_route, tile_legal)
 
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    shapes = list(TEST_SHAPES) + [
-        (2 * bm, 3 * bn, min(4 * bk, 256), bm, bn, bk)
-        for bm, bn in KERNEL_TILES for bk in KERNEL_BKS
-        if tile_legal(2 * bm, 3 * bn, 4 * bk, bm, bn, bk, limit)]
+    dtypes = ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))
+    cases = [(shape, dtype, tol) for shape in TEST_SHAPES
+             for dtype, tol in dtypes] + [
+        ((2 * bm, 3 * bn, min(4 * bk, 256), bm, bn, bk), dtype, tol)
+        for bm, bn in KERNEL_TILES + ((128, 256),) for bk in KERNEL_BKS
+        for dtype, tol in dtypes
+        if tile_legal(2 * bm, 3 * bn, min(4 * bk, 256), bm, bn, bk, limit,
+                      dtype)]
     rng = np.random.default_rng(7)
-    for m, n, k, bm, bn, bk in shapes:
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            x = torch.from_numpy(rng.standard_normal((m, k)).astype(
-                np.float32)).to("cuda", dtype)
-            y = torch.from_numpy(rng.standard_normal((k, n)).astype(
-                np.float32)).to("cuda", dtype)
-            if not tile_legal(m, n, k, bm, bn, bk, limit):
-                try:
-                    matmul(x, y, bm=bm, bn=bn, bk=bk)
-                except ValueError as exc:
-                    log(f"  matmul {m}x{n}x{k} tiles ({bm},{bn},{bk}) "
-                        f"{str(dtype)[6:]}: not legal for the kernel, "
-                        f"refused ({str(exc)[:60]}...)")
-                    continue
-                raise AssertionError(f"matmul took illegal tiles "
-                                     f"{(bm, bn, bk)}")
-            out = matmul(x, y, bm=bm, bn=bn, bk=bk)
-            torch.cuda.synchronize()       # a fault surfaces here
-            ref = matmul_plain(x, y, bm=bm, bn=bn, bk=bk)
-            diff = (out.float() - ref.float()).abs()
-            ratio = float((diff / (tol + tol * ref.float().abs())).max())
-            log(f"  matmul {m}x{n}x{k} tiles ({bm},{bn},{bk}) "
-                f"{str(dtype)[6:]}: max_abs_err {float(diff.max()):.3e}, "
-                f"max |diff| / ({tol} + {tol} |plain|) {ratio:.3f} "
-                f"(bound 1)")
-            if not ratio <= 1.0:
-                raise AssertionError(f"matmul disagrees with its plain "
-                                     f"version at {(m, n, k)} {dtype}")
+    worst = {}
+    for (m, n, k, bm, bn, bk), dtype, tol in cases:
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to("cuda", dtype)
+        y = torch.from_numpy(rng.standard_normal((k, n)).astype(
+            np.float32)).to("cuda", dtype)
+        name = str(dtype)[6:]
+        if not tile_legal(m, n, k, bm, bn, bk, limit, dtype):
+            try:
+                matmul(x, y, bm=bm, bn=bn, bk=bk)
+            except ValueError as exc:
+                log(f"  matmul {m}x{n}x{k} tiles ({bm},{bn},{bk}) {name}: "
+                    f"not legal for the kernel, refused "
+                    f"({str(exc)[:60]}...)")
+                continue
+            raise AssertionError(f"matmul took illegal tiles "
+                                 f"{(bm, bn, bk)}")
+        route = matmul_route(dtype, bm, bn, bk)
+        before = dict(matmul.launches_by_route)
+        out = matmul(x, y, bm=bm, bn=bn, bk=bk)
+        torch.cuda.synchronize()           # a fault surfaces here
+        took = [r for r, c in matmul.launches_by_route.items()
+                if c != before[r]]
+        ref = matmul_plain(x, y, bm=bm, bn=bn, bk=bk)
+        diff = (out.float() - ref.float()).abs()
+        ratio = float((diff / (tol + tol * ref.float().abs())).max())
+        log(f"  matmul {m}x{n}x{k} tiles ({bm},{bn},{bk}) {name} on "
+            f"{route}: max_abs_err {float(diff.max()):.3e}, max |diff| / "
+            f"({tol} + {tol} |plain|) {ratio:.3f} (bound 1)")
+        if took != [route]:
+            raise AssertionError(f"matmul at {(bm, bn, bk)} {name} took "
+                                 f"{took}, not its route {route}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"matmul disagrees with its plain "
+                                 f"version at {(m, n, k)} {dtype}")
+        key = (route, name)
+        if ratio > worst.get(key, (-1.0,))[0]:
+            worst[key] = (ratio, [bm, bn, bk])
+    log("  worst reading by route and dtype: " + ", ".join(
+        f"{r} {d} {v[0]:.3f} at {tuple(v[1])}"
+        for (r, d), v in sorted(worst.items())))
+    return {f"{r}_{d}": {"ratio": v[0], "tile": v[1]}
+            for (r, d), v in worst.items()}
+
+
+def check_matmul_sass(sass_run) -> dict:
+    """The matmul's SASS gate (``sass_run`` from :func:`start_sass` on its
+    library): every wgmma kernel (``matmul_wgmma_kernel``) holds HGMMA, and
+    no ffma kernel (``matmul_kernel``) holds a tensor-core instruction
+    (HMMA or HGMMA)."""
+    hgmma = hmma_counts(sass_run, "HGMMA")
+    hmma = hmma_counts(sass_run)
+    wg = {k: hgmma[k] for k in hgmma if "matmul_wgmma_kernel" in k}
+    ff = {k: hgmma[k] + hmma[k] for k in hgmma if "matmul_kernel" in k}
+    if len(wg) != 10 or not ff:
+        raise AssertionError(f"the matmul library's SASS holds {len(wg)} "
+                             f"wgmma and {len(ff)} ffma kernels; 10 wgmma "
+                             f"expected")
+    log(f"  matmul SASS: HGMMA in the {len(wg)} wgmma kernels "
+        f"{min(wg.values())}-{max(wg.values())}; HMMA + HGMMA in the "
+        f"{len(ff)} ffma kernels {max(ff.values())} at most (cuobjdump "
+        f"-sass)")
+    if min(wg.values()) <= 0 or max(ff.values()) != 0:
+        raise AssertionError(f"the matmul's SASS fails its gate: wgmma "
+                             f"{wg}, ffma {ff}")
+    return {"wgmma_hgmma": sorted(wg.values()), "ffma_tensor_core":
+            max(ff.values()), "wgmma_kernels": len(wg),
+            "ffma_kernels": len(ff)}
 
 
 # ------------------------------------------------------------ phase 3 --
@@ -758,9 +866,17 @@ def tune_tiles(dev) -> dict:
                                              rank_tiles, select_tiles)
     from repro_torch.tc import PredictorSession
 
+    import torch
+    from repro_torch.kernels.matmul import matmul_route
+
     session = PredictorSession(repetitions=TILE_PASSES)
     ds = session.device_suite(device=dev)
     legal = legal_candidates(N, N, N, smem_limit=ds.smem_limit)
+    per_route = {r: [c for c in legal
+                     if matmul_route(torch.float32, *c) == r]
+                 for r in ("wgmma", "ffma")}
+    log(f"  {len(legal)} legal float32 tiles, the union of both routes: " +
+        "; ".join(f"{r} {len(c)}: {c}" for r, c in per_route.items()))
     t0 = time.perf_counter()
     ds.measure_grid(KERNEL, legal)
     h2d, d2h = ds.transfer_models()
@@ -775,7 +891,7 @@ def tune_tiles(dev) -> dict:
     analytic = rank_tiles(N, N, N, session=session, analytic=True,
                           smem_limit=ds.smem_limit)[0]
     return {"session": session, "kernel": KERNEL, "legal": legal,
-            "ranked": ranked,
+            "legal_by_route": per_route, "ranked": ranked,
             "transfer": (h2d, d2h),
             "choice": (choice.bm, choice.bn, choice.bk),
             "t_compute": choice.t_compute,
@@ -788,7 +904,7 @@ def check_tiles(dev, tuned: dict) -> dict:
     (max abs error), and add where the analytic oracle's tile ranks."""
     import numpy as np
     import torch
-    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.matmul import matmul, matmul_plain, matmul_route
 
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal((N, N)).astype(
@@ -810,11 +926,107 @@ def check_tiles(dev, tuned: dict) -> dict:
         "cuda_matmul", tuned, run, lambda cfg: cfg[2], "4096^3", within,
         f"max_abs_err <= {BIG_TOL} x max |plain|", chosen=tuned["choice"])
     analytic = tuned["analytic"]
-    log(f"  analytic oracle picks {analytic} ({meas[analytic]:.2f} ms "
-        f"measured)")
+    res["route"] = matmul_route(torch.float32, *res["choice"])
+    res["best_route"] = matmul_route(torch.float32, *res["best"])
+    res["within_best"] = res["meas_ms"] / res["best_ms"] - 1.0
+    log(f"  the selected tile {res['choice']} runs on the {res['route']} "
+        f"route, rank {res['rank_of_choice']} of {res['n_legal']}, "
+        f"{100 * res['within_best']:.1f} % above the measured best "
+        f"{res['best']} ({res['best_route']}), tau {res['tau']:.3f}")
+    by_route = {r: min((c for c in meas if matmul_route(torch.float32, *c)
+                        == r), key=lambda c: (meas[c], c))
+                for r in ("wgmma", "ffma")}
+    res["fastest_by_route"] = {r: {"config": list(c), "ms": meas[c]}
+                               for r, c in by_route.items()}
+    log("  fastest a route: " + ", ".join(
+        f"{r} {c} {meas[c]:.3f} ms" for r, c in by_route.items()))
+    log(f"  analytic oracle picks {analytic} "
+        f"({matmul_route(torch.float32, *analytic)}, {meas[analytic]:.2f} "
+        f"ms measured)")
     (OUT / "tiles_4096.json").write_text(json.dumps(res["rows"], indent=1))
     res.update(x=x, y=y, plain=plains[res["choice"][2]], analytic=analytic)
     return res
+
+
+def matmul_rows(tiles: dict, card) -> dict:
+    """Phase 5: the matmul at 4096^3 in float32 at phase 4's selected tile
+    and in bfloat16 at the fastest of a short sweep of its wgmma tiles,
+    each called twice for the same bits and timed beside its plain
+    version, ``torch.matmul`` (TF32 off; bfloat16) and its route's bound
+    (float32 on wgmma: three TF32 products at the TF32 rate, the FFMA
+    bound beside it; on ffma the FP32 rate; bfloat16 the bf16 rate)."""
+    import torch
+    from repro_torch.kernels.matmul import (WGMMA_TILES, matmul,
+                                            matmul_plain, matmul_route)
+
+    x, y = tiles.pop("x"), tiles.pop("y")
+    plain = tiles.pop("plain")
+    rows = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        a, b = x.to(dtype), y.to(dtype)
+        sweep = {}
+        if name == "float32":
+            cfg = tuple(tiles["choice"])
+            ref = plain
+        else:
+            for c in WGMMA_TILES[dtype]:
+                sweep[c] = event_ms(lambda: matmul(a, b, bm=c[0], bn=c[1],
+                                                   bk=c[2]), 3)
+            cfg = min(sweep, key=lambda c: (sweep[c], c))
+            ref = matmul_plain(a, b, bm=N, bn=N, bk=cfg[2]).float()
+        bm, bn, bk = cfg
+        route = matmul_route(dtype, *cfg)
+        out = matmul(a, b, bm=bm, bn=bn, bk=bk)
+        again = matmul(a, b, bm=bm, bn=bn, bk=bk)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        diff = (out.float() - ref).abs()
+        err = float(diff.max())
+        if name == "float32":
+            reading, limit = err, BIG_TOL * float(ref.abs().max())
+            rule = f"max_abs_err <= {BIG_TOL} x max |plain|"
+        else:
+            reading = float((diff / (2e-2 + 2e-2 * ref.abs())).max())
+            limit, rule = 1.0, "max |diff| / (2e-2 + 2e-2 |plain|) <= 1"
+        del out, again, ref
+        if not (same and reading <= limit):
+            raise AssertionError(f"matmul 4096^3 {name} at {cfg}: reading "
+                                 f"{reading:.3e} (limit {limit:.3e}, "
+                                 f"{rule}), same bits {same}")
+        kernel_ms = event_ms(lambda: matmul(a, b, bm=bm, bn=bn, bk=bk),
+                             TIME_REPS)
+        plain_ms = event_ms(lambda: matmul_plain(a, b, bm=bm, bn=bn, bk=bk),
+                            TIME_REPS)
+        library_ms = event_ms(lambda: torch.matmul(a, b), TIME_REPS)
+        flops, nbytes = 2.0 * N ** 3, a.element_size() * 3.0 * N * N
+        ffma = bound(flops, nbytes, card.fp32_flops, card)
+        if route == "ffma":
+            bd = ffma
+        elif name == "float32":
+            bd = bound(3 * flops, nbytes, card.tf32_tensor_flops, card)
+        else:
+            bd = bound(flops, nbytes, card.bf16_tensor_flops, card)
+        rows[name] = {"config": list(cfg), "route": route, "err": err,
+                      "reading": reading, "same_bits": same,
+                      "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms,
+                      "tflops": flops / kernel_ms / 1e9,
+                      "bound_ms_ffma": ffma["bound_ms"], **bd,
+                      "sweep_ms": {f"{c[0]}x{c[1]}x{c[2]}": t
+                                   for c, t in sweep.items()}}
+        if sweep:
+            log(f"  bfloat16 wgmma tiles at 4096^3: " + ", ".join(
+                f"{c} {t:.3f}" for c, t in sweep.items()) +
+                f" ms; fastest {cfg}")
+        log(f"    matmul 4096^3 {name} at {cfg} on {route}: kernel_ms "
+            f"{kernel_ms:.3f}, plain_ms {plain_ms:.3f}, library_ms "
+            f"{library_ms:.3f} (torch.matmul), bound_ms "
+            f"{bd['bound_ms']:.3f} ({bd['bound_by']}; FFMA "
+            f"{ffma['bound_ms']:.3f}); {rows[name]['tflops']:.1f} TFLOP/s;"
+            f" {rule}: {reading:.3e}; two calls the same bits")
+        del a, b
+    return rows
 
 
 def transfer_shares(models, h2d, d2h) -> dict:
@@ -4858,11 +5070,23 @@ def main() -> int:
         log(f"    ptxas {name}: {len(rows)} instantiations, registers "
             f"{min(r[0] for r in rows)}-{max(r[0] for r in rows)}, "
             f"{sum(1 for r in rows if r[1])} spill")
-    # the attention libraries' SASS for phases 6 and 14a, the SSD
-    # forward's for 6 and its backward's for 15a, dumped meanwhile
+    mm_wgmma_regs = {}
+    for key, (nreg, st, ld) in sorted(ptxas.items()):
+        if key[0] == "matmul_wgmma_kernel":
+            mm_wgmma_regs[f"{key[1]} {key[2]}"] = {
+                "registers": nreg, "spill_store_bytes": st,
+                "spill_load_bytes": ld}
+            log(f"    ptxas matmul_wgmma_kernel<{key[1]}, {key[2]}>: {nreg} "
+                f"registers, spills {st} B stored / {ld} B loaded")
+    if len(mm_wgmma_regs) != 10:
+        raise AssertionError(f"ptxas reports {len(mm_wgmma_regs)} wgmma "
+                             f"matmul kernels, not 10")
+    # the matmul's SASS for phase 5, the attention libraries' for phases 6
+    # and 14a, the SSD forward's for 6 and its backward's for 15a, dumped
+    # meanwhile
     sass_runs = {name: start_sass(libs[name])
-                 for name in ("flash_attention", "flash_attention_bwd",
-                              "ssd", "ssd_bwd")}
+                 for name in ("matmul", "flash_attention",
+                              "flash_attention_bwd", "ssd", "ssd_bwd")}
     the_card = card_of(dev)
     phase_s = {}
 
@@ -4873,8 +5097,10 @@ def main() -> int:
         log(f"    phase {label} took {phase_s[label]:.1f} s")
         return out
 
-    log("[2] kernel check (CUDA matmul vs its plain version)")
-    phase("2", check_kernel_shapes)
+    log("[2] kernel check (CUDA matmul vs its plain version, both "
+        "routes)")
+    mm_table = check_matmul_tables()
+    mm_phase2 = phase("2", check_kernel_shapes)
 
     # the main path: each of its paths runs with every kernel's count set
     # to 0 just before it and read just after
@@ -4883,7 +5109,8 @@ def main() -> int:
                 "ssd_bwd": ssd_bwd}
     launches = {name: {} for name in wrappers}
     # the attention forward's and backward's launches per route and path
-    routed = {"flash_attention": flash_attention.route_launches,
+    routed = {"matmul": matmul.launches_by_route,
+              "flash_attention": flash_attention.route_launches,
               "flash_attention_bwd": flash_attention_bwd.route_launches,
               "ssd_bwd": ssd_bwd.route_launches}
     by_route = {name: {} for name in routed}
@@ -4916,23 +5143,11 @@ def main() -> int:
     tiles = phase("4 check", check_tiles, dev, tuned)
 
     bm, bn, bk = tiles["choice"]
-    x, y = tiles.pop("x"), tiles.pop("y")
-    err = tiles["err"]
-    log(f"[5] 4096^3 float32 at the selected {tiles['choice']}: max_abs_err "
-        f"{err:.3e}, max |plain| {float(tiles.pop('plain').abs().max()):.1f}"
-        f" (bound {BIG_TOL} x max |plain|)")
-    kernel_ms = event_ms(lambda: matmul(x, y, bm=bm, bn=bn, bk=bk),
-                         TIME_REPS)
-    plain_ms = event_ms(lambda: matmul_plain(x, y, bm=bm, bn=bn, bk=bk),
-                        TIME_REPS)
-    library_ms = event_ms(lambda: torch.matmul(x, y), TIME_REPS)
-    mm_bound = bound(2.0 * N ** 3, 4.0 * 3 * N * N, the_card.fp32_flops,
-                     the_card)
-    del x, y
-    log(f"    matmul 4096^3 f32: kernel_ms {kernel_ms:.3f}, plain_ms "
-        f"{plain_ms:.3f}, library_ms {library_ms:.3f} (torch.matmul), "
-        f"bound_ms {mm_bound['bound_ms']:.3f} ({mm_bound['bound_by']}); "
-        f"{2.0 * N ** 3 / kernel_ms / 1e9:.1f} TFLOP/s")
+    log(f"[5] 4096^3 float32 at the selected {tiles['choice']} "
+        f"({tiles['route']}) and bfloat16 at its fastest wgmma tile")
+    mm_rows = phase("5", matmul_rows, tiles, the_card)
+    tiles["phase5"] = mm_rows
+    mm_sass = check_matmul_sass(sass_runs["matmul"])
 
     log("[6] kernel check (CUDA flash attention and SSD vs their plain "
         "versions)")
@@ -5087,8 +5302,18 @@ def main() -> int:
                 f"{r['spill_store_bytes']} B stored / "
                 f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
-    log(f"  the attention forward's and backward's and the SSD backward's "
-        f"launches per route and path: {by_route}")
+    log(f"  the matmul's, the attention forward's and backward's and the "
+        f"SSD backward's launches per route and path: {by_route}")
+    # the tile path and the store launch the matmul on the selected tile's
+    # route; the tile path's sweep launches both routes
+    for path in ("tiles", "store"):
+        got = by_route["matmul"][path]
+        if got[tiles["route"]] <= 0:
+            raise AssertionError(f"matmul on path {path} never took the "
+                                 f"selected tile's route: {got}")
+    if min(by_route["matmul"]["tiles"].values()) <= 0:
+        raise AssertionError(f"the tile path's sweep did not launch both "
+                             f"matmul routes: {by_route['matmul']}")
     # every attention call of gemma2-27b's prefill (12) and of the train
     # steps (14c, 16c, 17a), forward and backward, and every SSD backward
     # of the train steps (15c, 16c, 17a) takes the wgmma route
@@ -5198,10 +5423,30 @@ def main() -> int:
     kernels = {"kernels": [
         entry("matmul", f"{csrc}/matmul.cu",
               "src/repro/kernels/matmul.py:27 (_matmul_kernel)",
-              {"err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, **mm_bound}, regs["matmul"]["matmul"],
-              library="torch.matmul", shape=[N, N, N], dtype="float32",
-              config=[bm, bn, bk]),
+              mm_rows["float32"], regs["matmul"]["matmul"],
+              library="torch.matmul (TF32 off)", shape=[N, N, N],
+              dtype="float32", config=[bm, bn, bk],
+              route_detail="two routes by an explicit table "
+              "(matmul_route): wgmma (bfloat16 at bm in {64, 128}, bn in "
+              "{64, 128, 256}, bk 64 from the caller's tensors; float32 at "
+              "bm, bn in {64, 128}, bk 32 as 3xTF32 on x and y^T split once "
+              "into a scratch; a producer warp's TMA ring, bm / 64 consumer "
+              "warpgroups) and ffma (every other legal tile, FP32 FFMA); "
+              "this row is float32 at the tile path's selection, "
+              "'bfloat16' the wgmma route's fastest tile",
+              route=mm_rows["float32"]["route"],
+              launches_by_route=by_route["matmul"],
+              bound_ms_ffma=mm_rows["float32"]["bound_ms_ffma"],
+              bfloat16=mm_rows["bfloat16"],
+              routes={r: {"dtype": "float32",
+                          **tiles["fastest_by_route"][r]}
+                      for r in ("wgmma", "ffma")},
+              tile_path={k: tiles[k] for k in (
+                  "rank_of_choice", "n_legal", "tau", "best", "best_ms",
+                  "best_route", "within_best")},
+              wgmma_registers=mm_wgmma_regs, sass=mm_sass,
+              phase2=mm_phase2, route_table=mm_table,
+              nvcc_s=_build.BUILD_SECONDS.get("matmul")),
         entry("flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:37 (_attn_kernel)",
               attn, regs["flash_attention"]["mma_sync"],

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain version.
 
-* ``matmul`` — tiled FP32-FFMA matmul (the dgemm analogue; tunable tiles),
-  replacing ``repro/kernels/matmul.py::_matmul_kernel``
+* ``matmul`` — tiled matmul (the dgemm analogue; tunable tiles) by two
+  routes, ``wgmma`` on the tensor cores (bfloat16, and float32 as three
+  TF32 products) and FP32 FFMA, replacing
+  ``repro/kernels/matmul.py::_matmul_kernel``
 * ``flash_attention`` — online-softmax attention (GQA, causal, sliding
   window, softcap) on the tensor cores by two routes (``wgmma`` for the
   models' bfloat16 blocks, ``mma.sync`` for the rest), replacing

@@ -1,14 +1,15 @@
 // Hopper tools shared by the wgmma routes: the attention forward's
-// (flash_attention.cu), the attention backward's (flash_attention_bwd.cu)
-// and the SSD backward's (ssd_bwd.cu).  mbarriers that a TMA copy
-// completes, 2-D TMA loads of tiles stored as 64-column panels with the
-// 128-byte swizzle and 1-D bulk copies, the wgmma shared-memory
-// descriptors of such panels, bfloat16 wgmma products (m64n64k16 and
-// m64n128k16 with both operands in shared memory, m64n64k16 with A from
-// registers and B through the transpose bit), TF32 wgmma products
-// (m64n64k8 and m64n16k8, A from shared memory or from registers, B
-// K-major: the .tf32 forms have no transpose bit), and the tensor maps the
-// copies read, encoded by cuTensorMapEncodeTiled through the runtime.
+// (flash_attention.cu), the attention backward's (flash_attention_bwd.cu),
+// the SSD backward's (ssd_bwd.cu) and the matmul's (matmul.cu).  mbarriers
+// that a TMA copy completes, 2-D TMA loads of tiles stored as 64-column
+// panels with the 128-byte swizzle and 1-D bulk copies, the wgmma
+// shared-memory descriptors of such panels, bfloat16 wgmma products
+// (m64n64k16 and m64n128k16 with both operands in shared memory, m64n64k16
+// with A from registers and B through the transpose bit), TF32 wgmma
+// products (m64n64k8 and m64n16k8, A from shared memory or from registers, B
+// K-major: the .tf32 forms have no transpose bit), and the tensor maps of
+// bfloat16 and float32 matrices that the copies read, encoded by
+// cuTensorMapEncodeTiled through the runtime.
 
 #pragma once
 
@@ -302,22 +303,39 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the tensor map of a (rows, d) row-major bfloat16 matrix read in boxes of
-// 64 columns (128 bytes, the swizzle's width) by box_rows rows
-bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int d,
-                int box_rows) {
+// the tensor map of a (rows, d) row-major matrix of `bytes`-byte elements
+// read in boxes of 128 bytes (the swizzle's width) by box_rows rows
+bool tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+                   const void* ptr, long long rows, int d, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the tensor map of a (rows, d) row-major bfloat16 matrix read in boxes of
+// 64 columns by box_rows rows
+bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int d,
+                int box_rows) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows,
+                       d, box_rows);
+}
+
+// the tensor map of a (rows, d) row-major float32 matrix read in boxes of
+// 32 columns by box_rows rows
+bool tensor_map_f32(CUtensorMap* map, const void* ptr, long long rows, int d,
+                    int box_rows) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, d,
+                       box_rows);
 }
 
 }  // namespace

@@ -3,15 +3,17 @@ block-size optimization applied to kernel tiles).
 
 The paper tunes a blocked algorithm's block size b by predicting runtime
 over candidate b and taking the argmin (§4.6).  The GPU analogue tunes the
-CUDA matmul's (bm, bn, bk): candidates are filtered by *legality* (tiles
-that divide the problem, an instantiated register tile, a cp.async ring
-that fits the card's shared memory per block —
-:func:`~repro_torch.kernels.matmul.tile_legal`) and ranked by **measured
-per-step tile models** served through a
+CUDA matmul's (bm, bn, bk) across its two routes (the tile picks the route,
+:func:`~repro_torch.kernels.matmul.matmul_route`): candidates are the union
+of the routes' tiles, filtered by *legality* (tiles that divide the
+problem, a route that takes them, staging that fits the card's shared
+memory per block — :func:`~repro_torch.kernels.matmul.tile_legal`) and
+ranked by **measured per-step tile models** served through a
 :class:`~repro_torch.tc.session.PredictorSession`'s device facet
 (:mod:`repro_torch.tc.device`): each candidate's predicted total is
 ``T_h2d + per_step(bm, bn, bk) * grid_steps + T_d2h``, with the transfer
-terms fitted from the memcpy micro-benchmark.
+terms fitted from the memcpy micro-benchmark; each route's measurements
+fit a model of their own (:mod:`repro_torch.tc.device`).
 
 The *analytic* three-term model (:func:`predict_tile_time`) ranks with
 ``analytic=True`` or without a session: the measurement-free path, and
@@ -20,11 +22,18 @@ constants (:mod:`repro_torch.perf.roofline`): those of the session's
 card, or of the current card without a session; the CPU, which has none,
 ranks with the H100 SXM's:
 
-* compute:   2 m n k FLOPs at the card's FP32 rate (the kernel is FFMA
-  for both input types);
+* compute:   2 m n k FLOPs at the tile's route's rate: the card's FP32
+  rate on the ffma route (both input types), its bfloat16 tensor rate on
+  the wgmma route in bfloat16, and a third of its TF32 tensor rate on the
+  wgmma route in float32 (three TF32 products a product);
 * memory:    device-memory traffic: every block re-reads its operand
   panels, so total traffic = m*k*(n/bn) + k*n*(m/bm) + m*n elements —
-  small bm/bn re-stream the other operand;
+  small bm/bn re-stream the other operand (the float32 wgmma route's
+  panels are the operands' hi and lo halves, counted as the panels they
+  replace: the term stands for the panels' count, as L2 serves most
+  re-reads on the card); its split pre-passes, which read x and y and
+  write the 2 (m + n) k floats before the kernel runs, add their bytes'
+  time;
 * overhead:  a fixed cost per (block, k-slab) step (the barrier and the
   ring's bookkeeping of one slab), spread over the card's SMs, which run
   blocks in parallel.
@@ -39,13 +48,13 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from ..kernels._card import H100_SMEM_OPTIN
-from ..kernels.matmul import grid_steps, tile_legal
+from ..kernels.matmul import grid_steps, matmul_route, tile_legal
 from .roofline import H100_SXM, Card, card_of
 
 #: napkin cost of one (block, k-slab) step: one barrier and a ring slot
 _SLAB_OVERHEAD_S = 5e-7
-#: tile sizes tried in every dimension; legality keeps the kernel's
-#: instantiated (bm, bn) register tiles and the depths whose staging fits
+#: tile sizes tried in every dimension; legality keeps the tiles a route
+#: takes whose staging fits
 _CANDIDATES = (8, 16, 32, 64, 128, 256)
 #: the device-suite registry name of the hand-written matmul
 KERNEL = "cuda_matmul"
@@ -67,21 +76,38 @@ class TileChoice:
     source: str = "analytic"     # "analytic" | "measured" | "model"
 
 
+def _dtype(itemsize: int) -> torch.dtype:
+    """The operands' dtype of an itemsize: 4 float32, 2 bfloat16."""
+    return torch.float32 if itemsize == 4 else torch.bfloat16
+
+
 def predict_tile_time(m: int, n: int, k: int, bm: int, bn: int, bk: int,
                       itemsize: int = 4, card: Card = H100_SXM) -> float:
-    """The analytic three-term estimate — the measured path's oracle."""
-    compute = 2.0 * m * n * k / card.fp32_flops
+    """The analytic three-term estimate — the measured path's oracle — at
+    the rate of the route the tile takes."""
+    flops = 2.0 * m * n * k
+    split_bytes = 0.0
+    if matmul_route(_dtype(itemsize), bm, bn, bk) != "wgmma":
+        compute = flops / card.fp32_flops
+    elif itemsize == 4:
+        compute = 3.0 * flops / card.tf32_tensor_flops
+        split_bytes = 4.0 * 3 * (m + n) * k
+    else:
+        compute = flops / card.bf16_tensor_flops
     traffic = itemsize * (m * k * (n / bn) + k * n * (m / bm) + m * n)
     memory = traffic / card.hbm_bytes_per_s
     steps = grid_steps(m, n, k, bm, bn, bk)
-    return max(compute, memory) + steps * _SLAB_OVERHEAD_S / card.sms
+    return max(compute, memory) + split_bytes / card.hbm_bytes_per_s + \
+        steps * _SLAB_OVERHEAD_S / card.sms
 
 
 def legal_candidates(m: int, n: int, k: int,
                      candidates: Sequence[int] = _CANDIDATES,
                      smem_limit: int = H100_SMEM_OPTIN,
+                     dtype: torch.dtype = torch.float32,
                      ) -> List[Tuple[int, int, int]]:
-    """Clamped-to-dims, deduplicated, legality-filtered candidate tiles."""
+    """Clamped-to-dims, deduplicated, legality-filtered candidate tiles:
+    the union of both routes' tiles in ``dtype``."""
     legal = []
     seen = set()
     for bm, bn, bk in itertools.product(candidates, repeat=3):
@@ -89,7 +115,7 @@ def legal_candidates(m: int, n: int, k: int,
         if cfg in seen:
             continue
         seen.add(cfg)
-        if tile_legal(m, n, k, *cfg, smem_limit):
+        if tile_legal(m, n, k, *cfg, smem_limit, dtype):
             legal.append(cfg)
     return legal
 
@@ -112,7 +138,8 @@ def rank_tiles(m: int, n: int, k: int, *,
     card (of the current card without a session, of the H100 SXM on the
     CPU).  ``smem_limit`` is the card's opt-in shared memory per block.
     """
-    legal = legal_candidates(m, n, k, candidates, smem_limit)
+    legal = legal_candidates(m, n, k, candidates, smem_limit,
+                             _dtype(itemsize))
     if not legal:
         raise ValueError(f"no legal tile for ({m},{n},{k}) "
                          f"within {smem_limit} B of shared memory")

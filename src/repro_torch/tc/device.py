@@ -23,7 +23,10 @@ A host clock around an asynchronous launch would measure the enqueue.
 **Shared-memory classes**: a config whose staging fits in half of the
 card's opt-in shared memory per block is RESIDENT (two blocks can share
 an SM's shared memory); one that claims more is TIGHT and runs one block
-per SM — measurably different, so the two do not share measurements.
+per SM — measurably different, so the two do not share measurements.  A
+family whose configs run by more than one route (the matmul's ``wgmma``
+and ``ffma`` tiles) puts the route beside the shared-memory class in the
+key's classes, so each route's measurements fit a model of their own.
 
 **Transfer terms**: predictions decompose as ``T_total = T_h2d +
 T_compute + T_d2h`` with per-direction bandwidth + fixed-overhead models
@@ -55,7 +58,7 @@ from ..kernels.flash_attention import (attn_grid_steps, attn_proxy_problem,
                                        attn_smem_bytes, flash_attention)
 from ..kernels._card import H100_SMEM_OPTIN
 from ..kernels.matmul import grid_steps as matmul_grid_steps
-from ..kernels.matmul import matmul, proxy_problem, smem_bytes
+from ..kernels.matmul import matmul, matmul_route, proxy_problem, smem_bytes
 from ..kernels.ssd import (ssd, ssd_grid_steps, ssd_proxy_problem,
                            ssd_smem_bytes)
 from .suite import MicroBenchmark, MicroBenchmarkKey, MicroBenchmarkSuite
@@ -87,13 +90,20 @@ def shared_memory_limit(device: torch.device) -> int:
 
 # --------------------------------------------------------------- registry --
 class _MatmulDevice:
-    """(bm, bn, bk) tiles of the CUDA matmul (``kernels/matmul.py``)."""
+    """(bm, bn, bk) tiles of the CUDA matmul (``kernels/matmul.py``),
+    float32 operands.  The tile picks its route (``wgmma`` or ``ffma``,
+    :func:`~repro_torch.kernels.matmul.matmul_route`), and the two run
+    different kernels at different rates, so the route is a facet of the
+    key's classes beside the shared-memory class."""
 
     name = "cuda_matmul"
     config_dims = ("bm", "bn", "bk")
 
     def smem_bytes(self, cfg: Tuple[int, ...]) -> int:
         return smem_bytes(*cfg)
+
+    def classes(self, cfg: Tuple[int, ...], cls: str) -> Tuple[str, str]:
+        return cls, matmul_route(torch.float32, *cfg) or "unrouted"
 
     def proxy(self, cfg, steps_per_dim: int) -> Tuple[int, ...]:
         return proxy_problem(*cfg, steps_per_dim=steps_per_dim)
@@ -140,6 +150,9 @@ class _FlashAttentionDevice:
     def smem_bytes(self, cfg: Tuple[int, ...]) -> int:
         return attn_smem_bytes(*cfg)
 
+    def classes(self, cfg: Tuple[int, ...], cls: str) -> Tuple[str, str]:
+        return cls, cls
+
     def proxy(self, cfg, steps_per_dim: int) -> Tuple[int, ...]:
         return attn_proxy_problem(*cfg, steps_per_dim=steps_per_dim)
 
@@ -183,6 +196,9 @@ class _SsdDevice:
 
     def smem_bytes(self, cfg: Tuple[int, ...]) -> int:
         return ssd_smem_bytes(*cfg)
+
+    def classes(self, cfg: Tuple[int, ...], cls: str) -> Tuple[str, str]:
+        return cls, cls
 
     def proxy(self, cfg, steps_per_dim: int) -> Tuple[int, ...]:
         return ssd_proxy_problem(*cfg, steps_per_dim=steps_per_dim)
@@ -229,9 +245,10 @@ def device_key(kernel_name: str, config: Sequence[int], *,
                steps_per_dim: int = STEPS_PER_DIM,
                smem_limit: int = H100_SMEM_OPTIN) -> MicroBenchmarkKey:
     """The suite key of one (kernel, tile config, shared-memory class)
-    benchmark.  The operand shapes are the config's proxy-problem
-    operands, so the key fully reconstructs its measurement and two
-    problems tuned at the same config share one key."""
+    benchmark (and route, for the matmul).  The operand shapes are the
+    config's proxy-problem operands, so the key fully reconstructs its
+    measurement and two problems tuned at the same config share one
+    key."""
     kernel = DEVICE_KERNELS[kernel_name]
     config = tuple(int(c) for c in config)
     problem = kernel.proxy(config, steps_per_dim)
@@ -239,7 +256,8 @@ def device_key(kernel_name: str, config: Sequence[int], *,
     cls = smem_class(kernel.smem_bytes(config), smem_limit)
     return MicroBenchmarkKey(equation=kernel_name, a_shape=tuple(a_sh),
                              b_shape=tuple(b_sh), out_shape=tuple(o_sh),
-                             classes=(cls, cls), config=config)
+                             classes=kernel.classes(config, cls),
+                             config=config)
 
 
 @dataclass(frozen=True)

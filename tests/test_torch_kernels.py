@@ -128,17 +128,34 @@ def test_tile_legality_is_shared_memory_and_register_tiles():
 
 
 def test_stage_count_sets_the_ring_and_legal_set():
-    from repro_torch.kernels.matmul import KERNEL_BKS, STAGES
+    from repro_torch.kernels.matmul import (KERNEL_BKS, STAGES, WGMMA_TILES,
+                                            matmul_route)
     from repro_torch.perf.tile_tuner import legal_candidates
     assert (STAGES, KERNEL_BKS) == (3, (8, 16, 32, 64, 128))
     for bm, bn in KERNEL_TILES:
         for bk in KERNEL_BKS:
-            assert smem_bytes(bm, bn, bk) == 4 * STAGES * (bm + bn) * bk
+            if matmul_route(torch.float32, bm, bn, bk) == "ffma":
+                assert smem_bytes(bm, bn, bk) == \
+                    4 * STAGES * (bm + bn) * bk
     legal = legal_candidates(4096, 4096, 4096)
-    # small enough to sweep in seconds, every instantiated tile in it
+    # small enough to sweep in seconds, every instantiated tile in it: the
+    # union of both routes, the four float32 wgmma tiles among the 23
     assert len(legal) == 23
+    by_route = {r: [c for c in legal
+                    if matmul_route(torch.float32, *c) == r]
+                for r in ("wgmma", "ffma")}
+    assert sorted(by_route["wgmma"]) == sorted(WGMMA_TILES[torch.float32])
+    assert len(by_route["ffma"]) == 19
     assert {(bm, bn) for bm, bn, _ in legal} == set(KERNEL_TILES)
     assert max(smem_bytes(*c) for c in legal) <= 232_448
+    # bfloat16: the six wgmma tiles (128 x 256 only there) and 19 ffma
+    legal16 = legal_candidates(4096, 4096, 4096, dtype=torch.bfloat16)
+    assert len(legal16) == 25
+    assert sorted(c for c in legal16
+                  if matmul_route(torch.bfloat16, *c) == "wgmma") == \
+        sorted(WGMMA_TILES[torch.bfloat16])
+    assert (128, 256, 64) in legal16 and (128, 256, 64) not in legal
+    assert max(smem_bytes(*c, torch.bfloat16) for c in legal16) <= 232_448
 
 
 @pytest.mark.parametrize("bm,bn", KERNEL_TILES)
@@ -232,6 +249,8 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
     names = {
         ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_c44b2bfd13matmul_kernelIf"
          "Li2ELi2ELi64EEEvPKT_S4_PS2_iiii"): (161, 0, 0),
+        ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_c44b2bfd19matmul_wgmma_"
+         "kernelIfLi128ELi128EEEv14CUtensorMap_stS1_PT_iii"): (152, 0, 0),
         ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_c44b2bfd13matmul_kernelI13"
          "__nv_bfloat16Li2ELi2ELi64EEEvPKT_S4_PS2_iiii"): (150, 0, 0),
         ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_e37e835c16"
@@ -290,3 +309,8 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
     key = dict(smoke.selected_ptxas_keys((128, 128, 64), (128, 128, 128),
                                          (32, 64, 128))["ssd"])["chunk_scan"]
     assert table[key] == (128, 12, 32)
+    # a float32 matmul tile on the wgmma route reads that route's kernel
+    key = dict(smoke.selected_ptxas_keys((128, 128, 32), (128, 128, 128),
+                                         (64, 64, 128))["matmul"])["matmul"]
+    assert key == ("matmul_wgmma_kernel", "float32", (128, 128))
+    assert table[key] == (152, 0, 0)

@@ -330,7 +330,12 @@ def test_device_model_set_round_trips_and_loads_in_reference():
     warm = PredictorSession(suite=MicroBenchmarkSuite(repetitions=2))
     ds = warm.device_suite(device="cpu", steps_per_dim=2,
                            sweep_fn=lambda *a: pytest.fail("measured"))
-    assert ds.load_model_set(ModelSet.from_dict(ms.to_dict())) == 1
+    # one model a (shared-memory class, route): CONFIGS span the wgmma
+    # route's (64, 64, 32), the ffma route and two tiles no route takes
+    classes = {ds.key("cuda_matmul", c).classes for c in CONFIGS}
+    assert {r for _, r in classes} == {"wgmma", "ffma", "unrouted"}
+    assert ds.load_model_set(ModelSet.from_dict(ms.to_dict())) == \
+        len(classes) == 3
     ranked = warm.rank_device_tiles("cuda_matmul", (256, 256, 256), CONFIGS)
     assert {r.source for r in ranked} == {"model"}
     assert warm.suite.measured == 0

@@ -788,7 +788,9 @@ def _refuse(*args):
     raise AssertionError("a warm-started session swept or probed")
 
 
-#: (kernel, problem, configs) of the three tile paths at a small size
+#: (kernel, problem, configs) of the three tile paths at a small size; the
+#: matmul's span both its routes: (64, 64, 32) and (128, 64, 32) on wgmma,
+#: the bk-64 tiles on ffma
 TILE_PATHS = [
     ("cuda_matmul", (256, 256, 256),
      [(64, 64, 32), (64, 64, 64), (128, 64, 32), (64, 128, 64)]),
@@ -821,6 +823,10 @@ def test_warm_started_tile_rankings_are_bit_identical(tmp_path):
     assert {"cuda_matmul", "cuda_flash_attention", "cuda_ssd",
             "memcpy_h2d", "memcpy_d2h"} <= \
         set(store.device_model_set().models)
+    # the matmul's two routes keep a model each
+    assert {classes[1] for classes, _ in
+            store.device_model_set().models["cuda_matmul"].cases} == \
+        {"wgmma", "ffma"}
     warm = PredictorSession(store=path, device=CPU)
     warm.device_suite(device=CPU, steps_per_dim=2, sweep_fn=_refuse,
                       transfer_measure_fn=_refuse)

@@ -11,7 +11,8 @@ csrc`` (one nvcc per source, all at once, into
 version, and drives every path of the port on the card:
 
 1. card and kernel build (each source's nvcc seconds; registers and
-   spills of every instantiation, the matmul's ten wgmma kernels each);
+   spills of every instantiation, the matmul's ten wgmma kernels each and
+   the SSD forward's six wgmma kernels each, none of them spilling);
 2. kernel check: the CUDA matmul's route table (the library's against
    ``matmul_route``, with its staging and split scratch), then the matmul
    against its plain version on the test shapes and on a shape for each
@@ -43,15 +44,20 @@ version, and drives every path of the port on the card:
    phi3-mini-3.8b's 96, causal, at 4096 tokens, both dtypes and both
    masks, each architecture's own mask timed beside SDPA at the same head
    dim and the bound at the true one) and at mamba2-2.7b's SSD width, each
-   timed beside its bound; the SSD forward's SASS gate (tensor-core
-   instructions in its chunk-state and chunk-scan kernels);
+   timed beside its bound; the SSD forward also on small cases at the
+   models' (P, N) on each route (the call's route read from its launch
+   count) and at jamba-v0.1-52b's width, its route table against
+   ``ssd_route``, and its SASS gate (HGMMA in the wgmma route's chunk-state,
+   C B^T and chunk-scan kernels, HMMA in the mma.sync route's);
 7. the attention tile path: sweep the legal (bq, bkv, 128) blocks on their
    proxies and rank them for gemma2-27b's query heads at 4096 tokens; then
    run every legal block there, check and time it, and compare orders;
-8. the SSD chunk path: the same for the (chunk, 64, 128) configs and
-   mamba2-2.7b's 80 heads at 4096 tokens, then the three passes (chunk
-   state, state pass, chunk scan) timed one by one at the selected chunk
-   and at the model's 256;
+8. the SSD chunk path: the same for the (chunk, 64, 128) configs over both
+   routes (chunk 32 on mma.sync, 64 to 256 on wgmma; each route's
+   measurements a model of their own) and mamba2-2.7b's 80 heads at 4096
+   tokens, the pick's route and the fastest on each route, then the three
+   passes (chunk state, state pass, chunk scan) timed one by one on their
+   route at the selected chunk and at the model's 256;
 9. the contraction path (Ch. 6) through one ``backend="torch"`` session
    whose warm/cold classes are decided against the card's L2: the skewed
    ``abc=ai,ibc`` at a = b = c = 512, i = 8; the batched ``bij,bjk->bik``
@@ -97,17 +103,17 @@ version, and drives every path of the port on the card:
 13. the serve path: gemma2-27b (bfloat16) and mamba2-2.7b (float32) at
    full width and depth served through the port's ``ServeEngine`` (4
    slots, 4096-token context) under FIFO over an open-loop smoke trace of
-   101 requests (prompts of 16-256 tokens, 4 new tokens each, Poisson
+   41 requests (prompts of 16-256 tokens, 4 new tokens each, Poisson
    arrivals 0.25 s apart on average).  Each blocking admission runs its
    prompt's longest kernel-legal head in batched passes over every slot
    (the attention or SSD kernel in every layer) and replays the tail
    through ``decode_step``; every admission and decode tick is timed.
-   Three prompts of 300-2000 tokens are then admitted one at a time, and
+   Two prompts of 300-2000 tokens are then admitted one at a time, and
    the head of the longest runs under ``torch.profiler`` for the
    kernel's share.  13c builds gemma2-27b's step-cost model through a
    session measuring on the card and sets its predicted tick beside the
    measured one; 13d runs FIFO and the model-guided scheduler over one
-   short trace (8 requests, prompts of 16-64 tokens, 16 new, gaps of 0.2
+   short trace (8 requests, prompts of 16-64 tokens, 8 new, gaps of 0.2
    s).  The checks at 2 periods, on 256-slot rings and at the timed
    path's shape: two admissions' caches against a hand-driven decode
    replay (float32), the kernel route against the plain route, and the
@@ -182,7 +188,8 @@ version, and drives every path of the port on the card:
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 the matmul's, the attention forward's and backward's and the SSD
-backward's also per route; error, times and bound per kernel).  The count of every kernel is set to 0
+forward's and backward's also per route; error, times and bound per
+kernel).  The count of every kernel is set to 0
 just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c, 15c, 16c
 and 17a and read just after (the paths 9 and 10 launch none of the
 kernels; 14c and 15c add to one path, ``train``; 16c is ``train_moe``, 17a
@@ -239,6 +246,11 @@ ATTN_CASES = [(4, 4, 64, 32, dict(causal=True)),
 #: test_kernels_pallas.py's SSD cases: (l, h, p, g, n, chunk)
 SSD_CASES = [(64, 4, 16, 2, 8, 16), (128, 4, 16, 1, 16, 32),
              (64, 8, 8, 4, 8, 64)]
+#: small SSD cases at the models' (P, N), each checked as SSD_CASES are and
+#: on the route its launch count says: (l, h, p, g, n, chunk, route)
+SSD_ROUTE_CASES = [(512, 8, 64, 2, 128, 256, "wgmma"),
+                   (256, 6, 64, 2, 16, 64, "wgmma"),
+                   (256, 4, 64, 1, 128, 32, "mma_sync")]
 #: gemma2-27b (src/repro/configs/gemma2_27b.py): 32 query heads, 16 kv
 #: heads, head dim 128, attention softcap 50, sliding window 4096 on local
 #: layers, none on global ones
@@ -313,18 +325,19 @@ SERVE_RUNS = (("gemma2-27b", "bfloat16"), ("mamba2-2.7b", "float32"))
 SERVE_SLOTS, SERVE_CTX = 4, 4096
 #: 13a/b's served trace, (requests, shortest and longest prompt, new
 #: tokens, mean Poisson gap in s).  A smoke mix: the repo holds no
-#: published serving workload, and nothing is concluded from its mix.  101
-#: requests, so that p99 (numpy's linear percentile) is the second slowest
-#: request and not the slowest; prompts drawn uniformly and not rounded, so
-#: most admissions have a tail; arrivals faster than either model serves,
-#: so the run measures capacity and its latencies include the backlog.
+#: published serving workload, and nothing is concluded from its mix.  41
+#: requests, so that p99 (numpy's linear percentile) lies between the two
+#: slowest requests, 0.6 of the way to the slowest; prompts drawn uniformly
+#: and not rounded, so most admissions have a tail; arrivals faster than
+#: either model serves, so the run measures capacity and its latencies
+#: include the backlog.
 #: 13d's trace is short, one trace for both policies
-SERVE_TRACE = (101, 16, 256, 4, 0.25)
-GUIDED_TRACE = (8, 16, 64, 16, 0.2)
+SERVE_TRACE = (41, 16, 256, 4, 0.25)
+GUIDED_TRACE = (8, 16, 64, 8, 0.2)
 #: 13a/b's admission sample: (prompts, shortest, longest), admitted one at
 #: a time after the trace, each timed by head passes and tail; the head of
 #: the longest is admitted once more and profiled
-ADMIT_SAMPLE = (3, 300, 2000)
+ADMIT_SAMPLE = (2, 300, 2000)
 #: 13 check, at CHECK_PERIODS periods: an admission of a second prompt
 #: while the first is live, twice: on rings of SERVE_CHECK_CTX (shorter
 #: than the second prompt, so its head's write rolls; a head of 304, so
@@ -448,15 +461,29 @@ def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
     ffma kernel at (bm / 64, bn / 64, bk); attention's two routes are
     reported, the mma.sync route at the float32 family's selected (bq,
     bkv, d) and the wgmma route at the models' bfloat16 WGMMA_MAIN_KEY;
-    the SSD's (chunk, p, n) as its three passes: chunk state (p, n), the
-    state pass (no template) and chunk scan (p, n, min(chunk, 64)); the
+    the SSD's (chunk, p, n) as its passes on its route (``ssd_route``):
+    on wgmma the chunk state and chunk scan at (p, n) and the C B^T
+    pre-pass at (n,), on mma.sync the chunk state at (p, n) and the chunk
+    scan at (p, n, min(chunk, 64)), and the state pass (no template); the
     attention backward's dK/dV and dQ kernels on both routes, the
     mma.sync route's float32 ones at BWD_MAIN_KEY and the wgmma route's at
     BWD_WGMMA_KEYS."""
     import torch
     from repro_torch.kernels.matmul import matmul_route
+    from repro_torch.kernels.ssd import ssd_route
     bm, bn, bk = matmul_cfg
     chunk, p, n = ssd_cfg
+    if ssd_route(p, n, chunk) == "wgmma":
+        ssd_keys = [("chunk_state", ("ssd_chunk_state_wgmma_kernel",
+                                     "float32", (p, n))),
+                    ("cb", ("ssd_cb_wgmma_kernel", "float32", (n,))),
+                    ("chunk_scan", ("ssd_chunk_scan_wgmma_kernel",
+                                    "float32", (p, n)))]
+    else:
+        ssd_keys = [("chunk_state", ("ssd_chunk_state_kernel", "float32",
+                                     (p, n))),
+                    ("chunk_scan", ("ssd_chunk_scan_kernel", "float32",
+                                    (p, n, min(chunk, 64))))]
     mm_key = (("matmul_wgmma_kernel", "float32", (bm, bn))
               if matmul_route(torch.float32, bm, bn, bk) == "wgmma" else
               ("matmul_kernel", "float32", (bm // 64, bn // 64, bk)))
@@ -470,11 +497,8 @@ def selected_ptxas_keys(matmul_cfg, attn_cfg, ssd_cfg) -> dict:
             ("dq", ("attn_bwd_dq_kernel", "float32", BWD_MAIN_KEY)),
             *((f"{kern.split('_')[3]}_wgmma", (kern, "bfloat16", key))
               for kern, key in BWD_WGMMA_KEYS.items())],
-        "ssd": [("chunk_state", ("ssd_chunk_state_kernel", "float32",
-                                 (p, n))),
-                ("state_pass", ("ssd_state_pass_kernel", "float32", ())),
-                ("chunk_scan", ("ssd_chunk_scan_kernel", "float32",
-                                (p, n, min(chunk, 64))))]}
+        "ssd": ssd_keys + [("state_pass", ("ssd_state_pass_kernel",
+                                           "float32", ()))]}
 
 
 #: results the special-function unit (MUFU: ex2, rcp, ...) issues a clock
@@ -1252,61 +1276,136 @@ def ssd_inputs(problem, rng, model_like: bool):
     return [torch.from_numpy(a).to("cuda") for a in (x, dt, a_log, bb, cc)]
 
 
-#: the SSD forward's instantiations its SASS gate reads: mamba2-2.7b's
-#: (P, N) for the chunk state and (P, N, R) for the chunk scan
-SSD_MAIN_KEY = (64, 128, 64)
+#: the SSD forward's instantiations its SASS gate reads: the wgmma route's
+#: at mamba2-2.7b's (P, N) (its C B^T pre-pass at N), the mma.sync route's
+#: at that (P, N) and chunk 32 (R = 32; route 1 takes R = 64 there, and
+#: mma.sync's R = 64 kernel is not built at it)
+SSD_MAIN_KEY = (64, 128)
+SSD_SYNC_KEY = (64, 128, 32)
 
 
 def check_ssd_sass(sass_run) -> dict:
     """The SASS gate of the SSD forward (``sass_run`` from
-    :func:`start_sass` on its library): the chunk-state and chunk-scan
-    kernels at SSD_MAIN_KEY hold tensor-core instructions and fewer than
-    two FFMA an HMMA.  The same products on FFMA would take about 11 an
-    HMMA (an m16n8k8 is 1,024 multiply-adds, 32 FFMA a warp, and a 3xTF32
-    product issues three), so an FFMA product loop cannot pass; the FFMA
-    left are the exps' range reductions."""
-    hmma, ffma = hmma_counts(sass_run), hmma_counts(sass_run, "FFMA")
-    p, n, r = SSD_MAIN_KEY
-    found = {}
-    for kern, tag in (("ssd_chunk_state_kernel", f"ILi{p}ELi{n}EE"),
-                      ("ssd_chunk_scan_kernel", f"ILi{p}ELi{n}ELi{r}EE")):
+    :func:`start_sass` on its library).  The wgmma route's chunk-state,
+    C B^T and chunk-scan kernels at SSD_MAIN_KEY hold HGMMA and fewer than
+    64 FFMA an HGMMA: an m64n64k8 HGMMA is 32,768 multiply-adds, 256 FFMA
+    in each of the four warps that issue it, three a 3xTF32 product, so an
+    FFMA product loop cannot pass.  The mma.sync route's chunk state at
+    SSD_MAIN_KEY and chunk scan at SSD_SYNC_KEY hold HMMA and fewer than
+    two FFMA an HMMA (the same products on FFMA would take about 11 an
+    HMMA: an m16n8k8 is 1,024 multiply-adds, 32 FFMA a warp); the FFMA
+    left are the exps' range reductions.  mma.sync's chunk scan at
+    (64, 128, 64) is not built."""
+    hgmma, hmma = hmma_counts(sass_run, "HGMMA"), hmma_counts(sass_run)
+    ffma = hmma_counts(sass_run, "FFMA")
+
+    def one(kern, key):
+        tag = "I" + "".join(f"Li{c}E" for c in key) + "E"
         names = [k for k in hmma if kern in k and tag in k]
         if len(names) != 1:
             raise AssertionError(f"no single SASS function for {kern} at "
-                                 f"{SSD_MAIN_KEY}: {names}")
-        found[kern] = {"HMMA": hmma[names[0]], "FFMA": ffma[names[0]]}
-    log(f"  SSD forward SASS at (P, N, R) = {SSD_MAIN_KEY}: {found} "
-        f"(cuobjdump -sass)")
-    if not all(0 < v["HMMA"] and v["FFMA"] < 2 * v["HMMA"]
-               for v in found.values()):
-        raise AssertionError(f"the SSD forward's SASS at {SSD_MAIN_KEY} "
-                             f"lacks tensor-core products: {found}")
+                                 f"{key}: {names}")
+        return names[0]
+
+    p, n = SSD_MAIN_KEY
+    found, ok = {}, True
+    for kern, key in (("ssd_chunk_state_wgmma_kernel", (p, n)),
+                      ("ssd_cb_wgmma_kernel", (n,)),
+                      ("ssd_chunk_scan_wgmma_kernel", (p, n))):
+        name = one(kern, key)
+        found[f"{kern}<{','.join(map(str, key))}>"] = v = {
+            "HGMMA": hgmma[name], "FFMA": ffma[name]}
+        ok &= 0 < v["HGMMA"] and v["FFMA"] < 64 * v["HGMMA"]
+    for kern, key in (("ssd_chunk_state_kernel", (p, n)),
+                      ("ssd_chunk_scan_kernel", SSD_SYNC_KEY)):
+        name = one(kern, key)
+        found[f"{kern}<{','.join(map(str, key))}>"] = v = {
+            "HMMA": hmma[name], "FFMA": ffma[name]}
+        ok &= 0 < v["HMMA"] and v["FFMA"] < 2 * v["HMMA"]
+    gone = [k for k in hmma if "ssd_chunk_scan_kernel" in k
+            and f"ILi{p}ELi{n}ELi64EE" in k]
+    log(f"  SSD forward SASS: wgmma route at (P, N) = {SSD_MAIN_KEY}, "
+        f"mma.sync at {SSD_MAIN_KEY} / {SSD_SYNC_KEY}: {found}; mma.sync's "
+        f"chunk scan at (64, 128, 64) built: {bool(gone)} (cuobjdump -sass)")
+    if not ok or gone:
+        raise AssertionError(f"the SSD forward's SASS lacks its tensor-core "
+                             f"products, or holds mma.sync's (64, 128, 64) "
+                             f"scan: {found}, {gone}")
     return found
+
+
+def check_ssd_routes() -> dict:
+    """The forward library's route table (``repro_ssd_route``), staging
+    (``repro_ssd_smem_bytes``) and C B^T scratch (``repro_ssd_cb_floats``)
+    against ``ssd_route``, ``ssd_smem_bytes`` and ``ssd_cb_floats`` at
+    every instantiated (P, N) and more, chunks 8 to 4096."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import (KERNEL_HEAD_DIMS, KERNEL_STATES,
+                                         ssd_cb_floats, ssd_route,
+                                         ssd_smem_bytes)
+    lib = _build.load("ssd")
+    lib.repro_ssd_route.argtypes = [ctypes.c_int] * 3
+    lib.repro_ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
+    lib.repro_ssd_cb_floats.argtypes = [ctypes.c_int] * 6
+    lib.repro_ssd_cb_floats.restype = ctypes.c_longlong
+    names = {0: None, 1: "wgmma", 2: "mma_sync"}
+    grid = [(p, n, chunk) for p in KERNEL_HEAD_DIMS + (128,)
+            for n in KERNEL_STATES + (256,)
+            for chunk in (8, 16, 32, 48, 64, 96, 128, 256, 512, 4096)]
+    table = {k: names[lib.repro_ssd_route(*k)] for k in grid}
+    differ = [k for k in grid if table[k] != ssd_route(*k)]
+    differ += [k for k in grid if table[k] and (
+        lib.repro_ssd_smem_bytes(*k) != ssd_smem_bytes(k[2], k[0], k[1]) or
+        lib.repro_ssd_cb_floats(2, 8192, 3, *k) !=
+        ssd_cb_floats(2, 8192, 3, *k))]
+    if differ:
+        raise AssertionError(f"the SSD forward library's route table, "
+                             f"staging or scratch differ from ssd_route / "
+                             f"ssd_smem_bytes / ssd_cb_floats at {differ}")
+    counts = {r: sum(v == r for v in table.values())
+              for r in ("wgmma", "mma_sync", None)}
+    log(f"  SSD forward route table: the library's equals ssd_route at "
+        f"{len(grid)} (P, N, chunk), and its staging and C B^T scratch "
+        f"ssd_smem_bytes' and ssd_cb_floats': {counts}")
+    return {"configs": len(grid), "routes": counts}
 
 
 def check_ssd(card, sass_run) -> dict:
     """The SSD kernel against its plain version and the sequential oracle
-    on the reference test's cases, then against its plain version at
-    mamba2-2.7b's width, timed beside its bound; then its SASS gate
-    (:func:`check_ssd_sass`)."""
+    on the reference test's cases and on SSD_ROUTE_CASES (each on its
+    route), then against its plain version at mamba2-2.7b's width, timed
+    beside its bound, and at jamba-v0.1-52b's; then its route table
+    (:func:`check_ssd_routes`) and SASS gate (:func:`check_ssd_sass`)."""
     import numpy as np
     import torch
     from repro_torch.kernels.ref import ssd_ref
-    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.ssd import ssd, ssd_plain, ssd_route
 
     rng = np.random.default_rng(7)
     tol = 2e-4
-    for l, h, p, g, n, chunk in SSD_CASES:
+    routes = {}
+    for case in SSD_CASES + SSD_ROUTE_CASES:
+        l, h, p, g, n, chunk = case[:6]
         ops = ssd_inputs((2, l, h, p, g, n), rng, model_like=True)
+        before = dict(ssd.route_launches)
         out = ssd(*ops, chunk=chunk)
         torch.cuda.synchronize()           # a fault surfaces here
+        took = [r for r, k in ssd.route_launches.items() if k != before[r]]
+        want = case[6] if len(case) > 6 else ssd_route(p, n, chunk)
+        routes[str(case[:6])] = took
+        if took != [want]:
+            raise AssertionError(f"ssd at {case[:6]} took {took}, not "
+                                 f"{want}")
         for what, ref in (("plain", ssd_plain(*ops, chunk=chunk)),
                           ("ssd_ref", ssd_ref(*ops))):
             diff = (out - ref).abs()
             ratio = float((diff / (tol + tol * ref.abs())).max())
-            log(f"  ssd l={l} h={h} p={p} g={g} n={n} chunk={chunk} vs "
-                f"{what}: max_abs_err {float(diff.max()):.3e}, max |diff| / "
-                f"({tol} + {tol} |{what}|) {ratio:.3f} (bound 1)")
+            log(f"  ssd l={l} h={h} p={p} g={g} n={n} chunk={chunk} "
+                f"({want}) vs {what}: max_abs_err {float(diff.max()):.3e}, "
+                f"max |diff| / ({tol} + {tol} |{what}|) {ratio:.3f} "
+                f"(bound 1)")
             if not ratio <= 1.0:
                 raise AssertionError(f"ssd disagrees with {what} at "
                                      f"{(l, h, p, g, n, chunk)}")
@@ -1345,16 +1444,37 @@ def check_ssd(card, sass_run) -> dict:
     plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), 3)
     flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
     bd = bwd_bound(flops, nbytes, torch.float32, card)
-    log(f"  mamba2-2.7b SSD {SSD_PROBLEM}, chunk {chunk}, model-like dt and "
-        f"a_log: normwise {err:.3e} (bound {WIDE_TOL['float32']:.0e}), "
-        f"max_abs_err {max_abs:.3e} (max |plain| "
-        f"{float(ref.abs().max()):.1f}); kernel {ms:.3f} ms, plain "
+    log(f"  mamba2-2.7b SSD {SSD_PROBLEM}, chunk {chunk} "
+        f"({ssd_route(SSD_PROBLEM[3], SSD_PROBLEM[5], chunk)}), model-like "
+        f"dt and a_log: normwise {err:.3e} (bound "
+        f"{WIDE_TOL['float32']:.0e}), max_abs_err {max_abs:.3e} (max |plain|"
+        f" {float(ref.abs().max()):.1f}); kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
         f"({bd['bound_by']}, {bd['bound_terms']})")
+    del ops, out, ref, y_s, y_h, ref_y_h
+    # jamba-v0.1-52b's width at its chunk, on the wgmma route
+    ops = ssd_inputs(MOE_SSD_PROBLEM, rng, model_like=True)
+    before = ssd.route_launches["wgmma"]
+    out = ssd(*ops, chunk=SSD_MODEL_CHUNK)
+    torch.cuda.synchronize()
+    ref = ssd_plain(*ops, chunk=SSD_MODEL_CHUNK)
+    jamba = {"chunk": SSD_MODEL_CHUNK, "normwise": rel_err(out, ref),
+             "max_abs_err": float((out - ref).abs().max()),
+             "route": "wgmma" if ssd.route_launches["wgmma"] > before
+             else "mma_sync"}
+    log(f"  jamba-v0.1-52b SSD {MOE_SSD_PROBLEM}, chunk {SSD_MODEL_CHUNK} "
+        f"({jamba['route']}): normwise {jamba['normwise']:.3e} (bound "
+        f"{WIDE_TOL['float32']:.0e}), max_abs_err {jamba['max_abs_err']:.3e}")
+    if not (jamba["normwise"] <= WIDE_TOL["float32"] and
+            jamba["route"] == "wgmma"):
+        raise AssertionError(f"ssd at jamba-v0.1-52b's width: {jamba}")
+    del ops, out, ref
     return {"mamba2_2_7b": {"chunk": chunk, "normwise": err,
                             "state_normwise": state_errs,
                             "max_abs_err": max_abs, "kernel_ms": ms,
                             "plain_ms": plain_ms, **bd},
+            "jamba_v0_1_52b": jamba, "case_routes": routes,
+            "ssd_routes": check_ssd_routes(),
             "ssd_sass": check_ssd_sass(sass_run)}
 
 
@@ -1606,18 +1726,39 @@ def finish_ssd(tuned: dict, card) -> dict:
                                          _launch_chunk_state,
                                          _launch_state_pass, ssd,
                                          ssd_grid_steps, ssd_plain,
-                                         ssd_scan_blocks, ssd_scan_heads,
-                                         ssd_scratch, ssd_scratch_bytes,
-                                         ssd_state_heads)
+                                         ssd_route, ssd_scan_blocks,
+                                         ssd_scan_heads, ssd_scratch,
+                                         ssd_scratch_bytes, ssd_state_heads)
     ops = ssd_inputs(SSD_PROBLEM, np.random.default_rng(17),
                      model_like=False)
 
     def run(cfg, plain=False):
         return (ssd_plain if plain else ssd)(*ops, chunk=cfg[0])
 
-    res = check_family("cuda_ssd", tuned, run, lambda cfg: cfg[0],
-                       f"{SSD_PROBLEM}")[0]
+    res, meas, _ = check_family("cuda_ssd", tuned, run, lambda cfg: cfg[0],
+                                f"{SSD_PROBLEM}")
     chunk = res["choice"][0]
+    routes = {cfg: ssd_route(cfg[1], cfg[2], cfg[0]) for cfg in meas}
+    fastest = {}
+    for cfg, r in routes.items():
+        if r not in fastest or meas[cfg] < meas[fastest[r]]:
+            fastest[r] = cfg
+    res.update(route=routes[res["choice"]],
+               routes={str(list(c)): r for c, r in routes.items()},
+               fastest_by_route={r: {"config": list(c), "ms": meas[c],
+                                     "plain_ms": event_ms(
+                                         lambda: run(c, plain=True), 3),
+                                     "bound_ms": bwd_bound(*ssd_work(
+                                         *SSD_PROBLEM, c[0]), torch.float32,
+                                         card)["bound_ms"]}
+                                 for r, c in fastest.items()})
+    log(f"  the SSD chunk path ranked {len(meas)} chunks over both routes "
+        f"({', '.join(f'{c[0]}: {r}' for c, r in sorted(routes.items()))});"
+        f" its pick, chunk {chunk}, runs on {res['route']}; the fastest on "
+        f"each route (beside the plain version at its chunk): " + ", ".join(
+            f"{r} chunk {v['config'][0]} {v['ms']:.3f} ms (plain "
+            f"{v['plain_ms']:.3f}, bound {v['bound_ms']:.3f})" for r, v in
+            res["fastest_by_route"].items()))
     kernel_ms = event_ms(lambda: ssd(*ops, chunk=chunk), TIME_REPS)
     plain_ms = event_ms(lambda: ssd_plain(*ops, chunk=chunk), TIME_REPS)
     flops, nbytes = ssd_work(*SSD_PROBLEM, chunk)
@@ -1644,9 +1785,11 @@ def finish_ssd(tuned: dict, card) -> dict:
         f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, no library call, "
         f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, {bd['bound_terms']})")
     for c, ms in passes.items():
-        log(f"  ssd passes at chunk {c}, in sequence: " + ", ".join(
+        log(f"  ssd passes at chunk {c} ({ssd_route(p, n, c)}), in "
+            f"sequence: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in ms.items()) +
-            f" (sum {sum(ms.values()):.3f}); blocks of pass 1 "
+            f" (sum {sum(ms.values()):.3f}; the chunk scan's with its C B^T "
+            f"pre-pass on wgmma); blocks of pass 1 "
             f"{ssd_grid_steps(b, l, h // heads['chunk_state'], c)} "
             f"({heads['chunk_state']} heads a block), of pass 3 "
             f"{ssd_scan_blocks(b, l, h, c, heads['chunk_scan'])} "
@@ -5081,6 +5224,23 @@ def main() -> int:
     if len(mm_wgmma_regs) != 10:
         raise AssertionError(f"ptxas reports {len(mm_wgmma_regs)} wgmma "
                              f"matmul kernels, not 10")
+    # the SSD forward's wgmma route: chunk state, C B^T, chunk scan at each
+    # of its two (P, N), none spilling
+    ssd_wgmma_regs = {}
+    for key, (nreg, st, ld) in sorted(ptxas.items()):
+        if key[0] in ("ssd_chunk_state_wgmma_kernel", "ssd_cb_wgmma_kernel",
+                      "ssd_chunk_scan_wgmma_kernel"):
+            ssd_wgmma_regs[f"{key[0]}<{','.join(map(str, key[2]))}>"] = {
+                "registers": nreg, "spill_store_bytes": st,
+                "spill_load_bytes": ld}
+            log(f"    ptxas {key[0]}<{key[2]}>: {nreg} registers, spills "
+                f"{st} B stored / {ld} B loaded")
+    spilled = [k for k, v in ssd_wgmma_regs.items()
+               if v["spill_store_bytes"] or v["spill_load_bytes"]]
+    if len(ssd_wgmma_regs) != 6 or spilled:
+        raise AssertionError(f"ptxas reports {len(ssd_wgmma_regs)} wgmma SSD "
+                             f"forward kernels, not 6, or spills in "
+                             f"{spilled}")
     # the matmul's SASS for phase 5, the attention libraries' for phases 6
     # and 14a, the SSD forward's for 6 and its backward's for 15a, dumped
     # meanwhile
@@ -5112,6 +5272,7 @@ def main() -> int:
     routed = {"matmul": matmul.launches_by_route,
               "flash_attention": flash_attention.route_launches,
               "flash_attention_bwd": flash_attention_bwd.route_launches,
+              "ssd": ssd.route_launches,
               "ssd_bwd": ssd_bwd.route_launches}
     by_route = {name: {} for name in routed}
     route_launches = by_route["flash_attention"]
@@ -5303,7 +5464,8 @@ def main() -> int:
                 f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
     log(f"  the matmul's, the attention forward's and backward's and the "
-        f"SSD backward's launches per route and path: {by_route}")
+        f"SSD forward's and backward's launches per route and path: "
+        f"{by_route}")
     # the tile path and the store launch the matmul on the selected tile's
     # route; the tile path's sweep launches both routes
     for path in ("tiles", "store"):
@@ -5315,12 +5477,13 @@ def main() -> int:
         raise AssertionError(f"the tile path's sweep did not launch both "
                              f"matmul routes: {by_route['matmul']}")
     # every attention call of gemma2-27b's prefill (12) and of the train
-    # steps (14c, 16c, 17a), forward and backward, and every SSD backward
-    # of the train steps (15c, 16c, 17a) takes the wgmma route
+    # steps (14c, 16c, 17a), forward and backward, and every SSD forward
+    # and backward of the train steps (15c, 16c, 17a) takes the wgmma route
     for name, paths in (("flash_attention", ("models", "train", "train_moe",
                                              "train_sharded")),
                         ("flash_attention_bwd", ("train", "train_moe",
                                                  "train_sharded")),
+                        ("ssd", ("train", "train_moe", "train_sharded")),
                         ("ssd_bwd", ("train", "train_moe",
                                      "train_sharded"))):
         for path in paths:
@@ -5529,11 +5692,20 @@ def main() -> int:
               regs["ssd"]["chunk_scan"], library="none",
               shape=list(SSD_PROBLEM), dtype="float32",
               config=list(ssd_res["choice"]),
-              route_detail="mma.sync: float32 as 3xTF32 in the chunk state "
-              f"({ssd_res['heads']['chunk_state']} heads a block, B staged "
-              "once) and the chunk scan (C B^T formed once for the "
-              f"{ssd_res['heads']['chunk_scan']} heads of a block); the "
-              "state pass elementwise",
+              route_detail="two routes by an explicit table (ssd_route): "
+              "wgmma at (P, N) in {(64, 128), (64, 16)} and a chunk that is "
+              "a multiple of 64 (float32 as 3xTF32: the chunk state and "
+              "chunk scan on wgmma, raw tiles by TMA split into K-major hi / "
+              "lo tiles in the kernels, C B^T formed once a group by a "
+              "pre-pass), mma_sync for every other (P, N) and chunks 16 and "
+              f"32; {ssd_res['heads']['chunk_state']} heads a chunk-state "
+              f"block, {ssd_res['heads']['chunk_scan']} a chunk-scan block; "
+              "the state pass elementwise",
+              route=ssd_res["route"], launches_by_route=by_route["ssd"],
+              routes_ranked=ssd_res["routes"],
+              fastest_by_route=ssd_res["fastest_by_route"],
+              route_table=wide["ssd_routes"],
+              wgmma_registers=ssd_wgmma_regs,
               bound_ms_ffma=ssd_res["bound_ms_ffma"],
               sass_counts=wide["ssd_sass"],
               passes_ms=ssd_res["passes_ms"],
@@ -5542,7 +5714,8 @@ def main() -> int:
               **in_prefill("ssd"), **in_admission("ssd"),
               **in_train_step("ssd", ssd_training),
               **in_train_step("ssd", moe_training, "train_moe_step"),
-              jamba_width=jamba_ssd["forward"]),
+              jamba_width=jamba_ssd["forward"],
+              jamba_check=wide["jamba_v0_1_52b"]),
         entry("ssd_bwd", f"{csrc}/ssd_bwd.cu",
               "none: no Pallas body. The backward of "
               "src/repro/kernels/ssd.py:30 (_ssd_kernel), which the "

@@ -159,6 +159,7 @@
 #include <type_traits>
 
 #include "mma_tools.cuh"
+#include "ssd_tools.cuh"
 #include "wgmma_tools.cuh"
 
 namespace {
@@ -1151,27 +1152,8 @@ ssd_bwd_finish_kernel(const float* __restrict__ dt,
 
 // ------------------------------------------------------- route 1: wgmma --
 
-// The route table (ssd_bwd_route in kernels/ssd.py): route 1 (wgmma) at
-// P = 64, N in {128, 16} and a chunk that is a multiple of 64 -- the
-// widths of mamba2-2.7b and jamba-v0.1-52b, every backward the models
-// run; route 2 (mma.sync) for every other instantiated (P, N) and for
-// chunks 16 and 32; 0 for none.
-__host__ __device__ constexpr bool is_head_dim(int p) {
-  return p == 8 || p == 16 || p == 32 || p == 64;
-}
-__host__ __device__ constexpr bool is_state(int n) {
-  return n == 8 || n == 16 || n == 32 || n == 64 || n == 128;
-}
-__host__ __device__ constexpr bool wgmma_pn(int p, int n) {
-  return p == 64 && (n == 128 || n == 16);
-}
-__host__ __device__ constexpr int route_of(int p, int n, int chunk) {
-  return !is_head_dim(p) || !is_state(n) || chunk < 16 || chunk % 16 ||
-                 (chunk > 32 && chunk % 64)
-             ? 0
-         : wgmma_pn(p, n) && chunk % 64 == 0 ? 1
-                                             : 2;
-}
+// The route table (ssd_bwd_route in kernels/ssd.py) is ssd_tools.cuh's
+// route_of.
 
 // Split tiles.  Route 1 reads every float32 operand of a product from a
 // K-major tile of its hi and lo parts (split_tf32), which
@@ -1186,19 +1168,9 @@ __host__ __device__ constexpr int route_of(int p, int n, int chunk) {
 // 2q of each 8-step group at depth slot q and step 2q + 1 at slot q + 4:
 // the order in which an m64n64 accumulator of M or G^T is the register A
 // fragment of the next product (a_from_acc).
-constexpr int kWgRows = 64;                // R: tile rows, steps of a slab
-constexpr int kUnitBytes = kWgRows * 256;  // a 64-row unit, hi and lo
 constexpr int kWgThreads = 160;  // a consumer warpgroup and a producer warp
 constexpr int kSplitThreads = 256;
 
-// the step that depth slot q of a time-depth tile holds
-__host__ __device__ constexpr int kperm(int q) {
-  return (q & ~7) | ((q & 7) < 4 ? 2 * (q & 7) : 2 * (q & 7) - 7);
-}
-// the float offset of (row r, depth k) in a panel
-__host__ __device__ constexpr int panel_at(int r, int k) {
-  return r * 32 + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
-}
 // the float offset of (r, col) in a 64 x 64 C B^T tile: the 16-byte chunk
 // col / 4 of row r at chunk (col / 4) ^ (r & 7), so that the eight rows of
 // a warp's pair-math reads fall in distinct banks
@@ -1357,12 +1329,6 @@ ssd_bwd_dt_kernel(const float* __restrict__ dt, float* __restrict__ dtt,
   }
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-__device__ __forceinline__ uint64_t sdesc(const unsigned char* p) {
-  return desc_sw128(p, 16, 1024);
-}
 // hi + lo of (r, k) in a unit of `rows` rows: the float32 value itself
 __device__ __forceinline__ float unit_val(const unsigned char* u, int rows,
                                           int r, int k) {
@@ -1370,13 +1336,6 @@ __device__ __forceinline__ float unit_val(const unsigned char* u, int rows,
   const int at = panel_at(r, k);
   return f[at] + f[rows * 32 + at];
 }
-template <int M>
-__device__ __forceinline__ void zero_regs(float (&r)[M]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) r[i] = 0.0f;
-  fence_regs(r);
-}
-
 // d += A B^T over the four k8 steps of a unit, 3xTF32 into one
 // accumulator (lo hi, hi lo, hi hi): A the 64-row unit at a, B the unit of
 // brows rows at b

@@ -3,20 +3,25 @@ version.
 
 The counterpart of ``repro/kernels/ssd.py``.  The kernels are
 ``csrc/ssd.cu``, Mamba-2's chunk-parallel three-pass form, passes 1 and 3
-on the tensor cores (3xTF32 ``mma.sync``):
+on the tensor cores as 3xTF32 by the route :func:`ssd_route` gives:
+``"wgmma"`` at mamba2-2.7b's and jamba-v0.1-52b's (P, N) with a chunk that
+is a multiple of 64 (TMA into an mbarrier ring, the operands split into
+K-major TF32 tiles in the kernels, two warpgroups a block), ``"mma_sync"``
+for the rest:
 
-1. ``ssd_chunk_state_kernel``, one block per (batch, chunk, two heads of a
-   group, :func:`ssd_state_heads`): each head's cumulative log-decay ``s``
-   and its own state contribution ``S_c = X^T (B * w)``, both written to
-   scratch, the B rows staged once for both heads;
+1. the chunk state, one block per (batch, chunk, two heads of a group,
+   :func:`ssd_state_heads`): each head's cumulative log-decay ``s`` and its
+   own state contribution ``S_c = X^T (B * w)``, both written to scratch,
+   the B rows staged once for both heads;
 2. ``ssd_state_pass_kernel``: the short scan over chunks, turning each
    ``S_c`` in place into ``h_in[c]``, the state entering chunk ``c``,
    from an initial state ``h0`` (zero unless given), and writing the
    state after the last chunk where it is asked for;
-3. ``ssd_chunk_scan_kernel``, one block per (batch, chunk, query tile,
+3. the chunk scan, one block per (batch, chunk, query tile,
    :func:`ssd_scan_heads` heads of a group): the outputs from ``h_in[c]``
-   and from the key slabs on and below the diagonal, ``C B^T`` formed once
-   a slab for all the block's heads.
+   and from the key slabs on and below the diagonal; ``C B^T`` formed once
+   a slab for all the block's heads (mma_sync), or once a group by a
+   pre-pass into a scratch of :func:`ssd_cb_floats` floats (wgmma).
 
 Its note says what bounds each pass and why it is built so.  The
 recurrence is ``h_t = h_{t-1} * exp(a dt_t) + dt_t x_t (x) b_t``,
@@ -24,9 +29,10 @@ recurrence is ``h_t = h_{t-1} * exp(a dt_t) + dt_t x_t (x) b_t``,
 dual form; no softplus on dt and no D skip (the kernel's contract).
 
 :func:`ssd` dispatches on where its operands lie: CUDA tensors launch the
-three kernels (or raise); CPU tensors take :func:`ssd_plain`, the same
-three passes in plain PyTorch — the counterpart of Pallas
-``interpret=True``.  There is no fall back from one to the other.  The
+kernels of their route (or raise); CPU tensors take :func:`ssd_plain`, the
+same three passes in plain PyTorch — the counterpart of Pallas
+``interpret=True``, and the plain version of both routes.  There is no
+fall back from one to the other.  The
 forward and the backward are ``torch.library`` operators
 (``repro_torch::ssd_fwd`` and ``ssd_bwd``) with fake implementations,
 autograd and flop formulas, so that a sharded step and a traced one reach
@@ -72,6 +78,20 @@ LANES = 2
 #: the most heads a block of the forward's pass 3 takes (``kMaxHeads``;
 #: :func:`ssd_scan_heads` picks the number)
 SCAN_HEADS = 4
+#: the forward's routes (:func:`ssd_route`)
+ROUTES: Tuple[str, ...] = ("wgmma", "mma_sync")
+#: (P, N) the forward's wgmma route takes, at a chunk that is a multiple
+#: of :data:`ROWS`: mamba2-2.7b's and jamba-v0.1-52b's widths (the
+#: backward's :data:`BWD_WGMMA_PN`)
+WGMMA_PN: Tuple[Tuple[int, int], ...] = ((64, 128), (64, 16))
+#: the wgmma route's pass-3 ring stages of up to ``WGMMA_RAW_BYTES``
+#: (``NS3`` in ``csrc/ssd.cu``): at N above 64 and up to 64; pass 1's
+#: (``NS1``)
+WGMMA_SCAN_STAGES = (5, 8)
+WGMMA_RAW_BYTES = 16384
+WGMMA_STATE_STAGES = (3, 4)
+#: steps the wgmma route's pass 1 scans at a time (``kScanSeg``)
+WGMMA_SCAN_SEG = 256
 #: threads of a block of the backward's reverse state pass (ii)
 BWD_PASS_THREADS = 128
 #: the most heads a block of the backward's chunk pass (iii) takes
@@ -83,7 +103,7 @@ BWD_HEADS = 10
 BWD_ROUTES: Tuple[str, ...] = ("wgmma", "mma_sync")
 #: (P, N) the backward's wgmma route takes, at a chunk that is a multiple
 #: of :data:`ROWS`: mamba2-2.7b's and jamba-v0.1-52b's widths
-BWD_WGMMA_PN: Tuple[Tuple[int, int], ...] = ((64, 128), (64, 16))
+BWD_WGMMA_PN: Tuple[Tuple[int, int], ...] = WGMMA_PN
 #: the wgmma route's ring stages, units of ``BWD_UNIT_BYTES`` each (64 rows
 #: of 32 depth steps, hi and lo): the chunk pass's at N above 64 and up to
 #: 64 (``Wg::NS``), D_c's (``Wg::NSD``)
@@ -119,17 +139,88 @@ def ssd_scan_heads(h: int, g: int) -> int:
     return _group_heads(h, g, SCAN_HEADS)
 
 
+def ssd_route(p: int, n: int, chunk: int) -> Optional[str]:
+    """The forward kernels' route at head dim ``p``, state ``n`` and
+    ``chunk``: ``"wgmma"`` at a (P, N) of :data:`WGMMA_PN` and a chunk that
+    is a multiple of :data:`ROWS` (every forward of more than 32 steps the
+    models run), ``"mma_sync"`` for every other instantiated (P, N) and for
+    chunks 16 and 32, None where nothing is instantiated.  ``csrc/ssd.cu``'s
+    ``route_of`` is the same table, and so is the backward's
+    (:func:`ssd_bwd_route`)."""
+    if p not in KERNEL_HEAD_DIMS or n not in KERNEL_STATES or chunk < 16 \
+            or chunk % 16 or (chunk > 32 and chunk % ROWS):
+        return None
+    if (p, n) in WGMMA_PN and chunk % ROWS == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def ssd_route_table() -> str:
+    """The forward's route table, for the message of a config it does not
+    route."""
+    return (f"wgmma: (P, N) in {WGMMA_PN}, chunk a multiple of {ROWS}; "
+            f"mma_sync: P in {KERNEL_HEAD_DIMS}, N in {KERNEL_STATES}, chunk "
+            f"16, 32 or a multiple of {ROWS}, where wgmma does not take it")
+
+
+def _wgmma_smem(n: int) -> Tuple[int, int, int]:
+    """(pass 1, C B^T, pass 3) shared memory of the wgmma route at state
+    ``n`` (``WgShape`` in ``csrc/ssd.cu``), bytes with the 1024 that align
+    the 128-byte swizzle; none depends on the chunk."""
+    kun = -(-n // 32)
+    nrw = min(n, 64)
+    unit = ROWS * 256                       # a split unit, hi and lo
+    ns1 = WGMMA_STATE_STAGES[0] if n > 64 else WGMMA_STATE_STAGES[1]
+    ns3 = WGMMA_SCAN_STAGES[0] if n > 64 else WGMMA_SCAN_STAGES[1]
+    state = (ns1 * (128 * n + 2 * 8192) + 3 * (n // nrw) * nrw * 256 +
+             4 * LANES * WGMMA_SCAN_SEG + 4 * 2 * 2 * 32 + 4 * 2 * 8 +
+             8 * 2 * ns1)
+    cb = 2 * 256 * n + 2 * kun * unit + 8
+    scan = (kun * unit + 4 * unit + ns3 * WGMMA_RAW_BYTES + 4 * 2 * 6 * ROWS +
+            4 * SCAN_HEADS * ROWS + 8 * 2 * ns3)
+    return 1024 + state, 1024 + cb, 1024 + scan
+
+
+def ssd_cb_floats(b: int, l: int, g: int, p: int, n: int,
+                  chunk: int) -> int:
+    """Floats of the C B^T scratch the wgmma route's pass 3 takes
+    (``repro_ssd_cb_floats``; 0 on the mma_sync route): a 64 x 64 float32
+    tile for each query tile and key slab on or below it, a (batch, group,
+    chunk), 2.6 MB at mamba2-2.7b's width and chunk 256."""
+    if ssd_route(p, n, chunk) != "wgmma":
+        return 0
+    nq = chunk // ROWS
+    return b * g * (l // chunk) * (nq * (nq + 1) // 2) * ROWS * ROWS
+
+
 def ssd_smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory the larger of the two staging passes takes, all
-    float32 (``ScanShape`` and ``StateShape`` in ``csrc/ssd.cu``).  Pass 3:
+    """Shared memory the larger of the two staging passes takes on the
+    route :func:`ssd_route` gives (``repro_ssd_smem_bytes`` in
+    ``csrc/ssd.cu``).
+
+    wgmma (``WgShape``): pass 3 the query tile's C rows as K-major split
+    units (64 rows x 32 depth, hi and lo: 16 KB a unit, N padded to 32),
+    two split slots a warpgroup, a ring of raw stages of
+    :data:`WGMMA_RAW_BYTES` (:data:`WGMMA_SCAN_STAGES`), each warpgroup's s
+    and dt of a slab, s of the tile's rows for :data:`SCAN_HEADS` heads,
+    the mbarriers; its C B^T pre-pass the raw C and B rows of a tile pair
+    and both split; pass 1 a ring of raw stages (32 steps of B and of two
+    heads' X), three B^T split tiles, the scan's segment of
+    :data:`WGMMA_SCAN_SEG` steps, w of two units, the scan's warp totals,
+    the mbarriers; each with 1024 bytes to align the swizzle.  216,144
+    bytes at (64, 128) (pass 3; pass 1 200,304, C B^T 197,640), 216,192 at
+    (64, 16), at any chunk.
+
+    mma_sync, all float32 (``ScanShape`` and ``StateShape``).  Pass 3:
     the C rows of a query tile (R x N); two step buffers, each the larger
     of a pair of heads' h_in (2 x P x N) and a key slab's B rows (R x N)
     with two heads' X rows (R x P), s and dt (2 R); the swap of the C B^T
-    halves (R x R); s of the tile's rows for :data:`SCAN_HEADS` heads;
-    R = min(chunk, 64): 183,296 bytes at (64, 128) and any chunk of 64 or
-    more.  Pass 1: two slab buffers of the B rows (32 x N) and two heads'
-    X rows (32 x P), w of the chunk for two heads, and two totals of each
-    of its warps."""
+    halves (R x R); s of the tile's rows for :data:`SCAN_HEADS` heads; R =
+    min(chunk, 64).  Pass 1: two slab buffers of the B rows (32 x N) and
+    two heads' X rows (32 x P), w of the chunk for two heads, and two
+    totals of each of its warps."""
+    if ssd_route(p, n, chunk) == "wgmma":
+        return max(_wgmma_smem(n))
     r = _rows(chunk)
     step = max(r * n + LANES * (r * p + 2 * r), LANES * p * n)
     scan = r * n + 2 * step + r * r + SCAN_HEADS * r
@@ -151,11 +242,12 @@ def ssd_tile_legal(l: int, chunk: int, p: int, n: int,
     """Can the kernel scan ``l`` steps in chunks of ``chunk`` at head dim
     ``p`` and state ``n``?  The chunk must divide ``l`` and be 16, 32 or a
     multiple of 64 (the kernel's row tiles), ``(p, n)`` must be
-    instantiated, and the staging must fit ``smem_limit`` — the card's
-    opt-in shared memory per block."""
+    instantiated (so :func:`ssd_route` routes it), and the staging on its
+    route must fit ``smem_limit`` — the card's opt-in shared memory per
+    block."""
     if min(p, n) <= 0 or not ssd_chunk_legal(l, chunk):
         return False
-    if p not in KERNEL_HEAD_DIMS or n not in KERNEL_STATES:
+    if ssd_route(p, n, chunk) is None:
         return False
     return ssd_smem_bytes(chunk, p, n) <= smem_limit
 
@@ -170,8 +262,10 @@ def ssd_grid_steps(b: int, l: int, h: int, chunk: int) -> int:
 def ssd_query_tiles(chunk: int) -> List[int]:
     """Pass 3's query tiles of a chunk in launch order: tile ``t`` holds
     rows ``t R .. t R + R - 1`` and visits ``t + 1`` key slabs, so the
-    heaviest tiles come first (the kernel's outermost block index), so
-    the one-slab tiles fill the tail of the last wave."""
+    heaviest tiles come first: the mma_sync kernel's outermost block index
+    (the one-slab tiles fill the tail of the last wave), the wgmma
+    kernel's innermost (a chunk's tiles run together, their reads of the
+    same h_in and X rows meeting in L2)."""
     nq = chunk // _rows(chunk)
     return [nq - 1 - i for i in range(nq)]
 
@@ -504,13 +598,17 @@ def _launch_state_pass(s, states, chunk: int, h0=None,
 def _launch_chunk_scan(x, dt, b, c, s, states, y, chunk: int,
                        heads: Optional[int] = None) -> None:
     """Pass 3: ``y`` from ``h_in`` and the key slabs, ``heads`` heads a
-    block (:func:`ssd_scan_heads` when None)."""
+    block (:func:`ssd_scan_heads` when None); on the wgmma route its C B^T
+    pre-pass first, into a scratch of :func:`ssd_cb_floats` floats."""
     bsz, l, h, p = x.shape
-    g = b.shape[2]
+    g, n = b.shape[2], b.shape[3]
     heads = ssd_scan_heads(h, g) if heads is None else heads
+    size = ssd_cb_floats(bsz, l, g, p, n, chunk)
+    cb = torch.empty((size,), dtype=torch.float32, device=x.device) \
+        if size else None
     _call("repro_ssd_chunk_scan", "chunk-scan pass",
-          (x, dt, b, c, s, states, y),
-          (bsz, l, h, g, p, b.shape[3], chunk, heads), x.device)
+          (x, dt, b, c, s, states, cb, y),
+          (bsz, l, h, g, p, n, chunk, heads), x.device)
 
 
 def _prepare(x, dt, a_log, b, c, chunk: int, h0) -> int:
@@ -545,9 +643,8 @@ def _card_legal(ops, l: int, chunk: int, p: int, n: int) -> None:
     if not ssd_tile_legal(l, chunk, p, n, limit):
         raise ValueError(
             f"chunk {chunk} at (P, N) = ({p}, {n}) is not legal for the "
-            f"kernel: the chunk must be 16, 32 or a multiple of {ROWS}, P in "
-            f"{KERNEL_HEAD_DIMS}, N in {KERNEL_STATES}, and the staging "
-            f"{ssd_smem_bytes(chunk, p, n)} B must fit {limit} B")
+            f"kernel: a route must take it ({ssd_route_table()}) and the "
+            f"staging {ssd_smem_bytes(chunk, p, n)} B must fit {limit} B")
 
 
 def _card_ready(ops, l: int, chunk: int, p: int, n: int) -> None:
@@ -567,10 +664,15 @@ def _kernel_parts(x, dt, a_log, b, c, chunk: int, h0, want_state: bool):
     h_final = torch.empty((x.shape[0], x.shape[2], x.shape[3], b.shape[3]),
                           dtype=torch.float32,
                           device=x.device) if want_state else None
+    route = ssd_route(x.shape[3], b.shape[3], chunk)
+    if route is None:
+        raise ValueError(f"no forward route takes chunk {chunk} at (P, N) = "
+                         f"({x.shape[3]}, {b.shape[3]}): {ssd_route_table()}")
     _launch_chunk_state(x, dt, a_log, b, s, states, chunk)
     _launch_state_pass(s, states, chunk, h0, h_final)
     _launch_chunk_scan(x, dt, b, c, s, states, y, chunk)
     ssd.launches += 1
+    ssd.route_launches[route] += 1
     return y, h_final, s, states
 
 
@@ -595,14 +697,10 @@ def ssd_bwd_route(p: int, n: int, chunk: int) -> Optional[str]:
     ``chunk``: ``"wgmma"`` at a (P, N) of :data:`BWD_WGMMA_PN` and a chunk
     that is a multiple of :data:`ROWS` (every backward the models run),
     ``"mma_sync"`` for every other instantiated (P, N) and for chunks 16
-    and 32, None where nothing is instantiated.  ``csrc/ssd_bwd.cu``'s
-    ``route_of`` is the same table."""
-    if p not in KERNEL_HEAD_DIMS or n not in KERNEL_STATES or chunk < 16 \
-            or chunk % 16 or (chunk > 32 and chunk % ROWS):
-        return None
-    if (p, n) in BWD_WGMMA_PN and chunk % ROWS == 0:
-        return "wgmma"
-    return "mma_sync"
+    and 32, None where nothing is instantiated: the forward's table
+    (:func:`ssd_route`).  ``csrc/ssd_bwd.cu``'s ``route_of`` is the same
+    table."""
+    return ssd_route(p, n, chunk)
 
 
 def ssd_bwd_route_table() -> str:
@@ -951,14 +1049,16 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     ``h0`` of the reference model's ``_ssd_chunked``.
 
     The chunk is clamped to L and must divide it, as in the reference.
-    CUDA tensors launch the three hand-written kernels on the current
-    stream — contiguous float32, a chunk and (P, N) legal for the card —
-    and anything the kernels do not take raises; CPU tensors run
-    :func:`ssd_plain`.  When grad is enabled and an operand requires it,
-    the call goes through :class:`SsdFn`, whose backward is
-    :func:`ssd_bwd` (the four backward kernels on the card, their plain
-    version on the CPU).  ``ssd.launches`` counts calls that launched the
-    forward kernels: one per scan, three kernel launches inside.
+    CUDA tensors launch the hand-written kernels on the current stream, on
+    the route :func:`ssd_route` gives — contiguous float32, a chunk and
+    (P, N) legal for the card — and anything the kernels do not take
+    raises; CPU tensors run :func:`ssd_plain`.  When grad is enabled and an
+    operand requires it, the call goes through :class:`SsdFn`, whose
+    backward is :func:`ssd_bwd` (the four backward kernels on the card,
+    their plain version on the CPU).  ``ssd.launches`` counts calls that
+    launched the forward kernels, one per scan (three kernel launches
+    inside on mma_sync, four on wgmma: its C B^T pre-pass), and
+    ``ssd.route_launches`` splits them by route.
     """
     chunk = _prepare(x, dt, a_log, b, c, chunk, h0)
     ops = (x, dt, a_log, b, c) + (() if h0 is None else (h0,))
@@ -980,3 +1080,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 ssd.launches = 0
+ssd.route_launches = dict.fromkeys(ROUTES, 0)

@@ -25,8 +25,9 @@ card's opt-in shared memory per block is RESIDENT (two blocks can share
 an SM's shared memory); one that claims more is TIGHT and runs one block
 per SM — measurably different, so the two do not share measurements.  A
 family whose configs run by more than one route (the matmul's ``wgmma``
-and ``ffma`` tiles) puts the route beside the shared-memory class in the
-key's classes, so each route's measurements fit a model of their own.
+and ``ffma`` tiles, the SSD's ``wgmma`` and ``mma_sync`` chunks) puts the
+route beside the shared-memory class in the key's classes, so each
+route's measurements fit a model of their own.
 
 **Transfer terms**: predictions decompose as ``T_total = T_h2d +
 T_compute + T_d2h`` with per-direction bandwidth + fixed-overhead models
@@ -60,7 +61,7 @@ from ..kernels._card import H100_SMEM_OPTIN
 from ..kernels.matmul import grid_steps as matmul_grid_steps
 from ..kernels.matmul import matmul, matmul_route, proxy_problem, smem_bytes
 from ..kernels.ssd import (ssd, ssd_grid_steps, ssd_proxy_problem,
-                           ssd_smem_bytes)
+                           ssd_route, ssd_smem_bytes)
 from .suite import MicroBenchmark, MicroBenchmarkKey, MicroBenchmarkSuite
 
 #: the two shared-memory classes: two blocks per SM fit, or one
@@ -189,7 +190,10 @@ class _FlashAttentionDevice:
 class _SsdDevice:
     """(chunk, p, n) configs of the CUDA SSD scan (``kernels/ssd.py``),
     measured on the reference's operands: dt = 1e-3 and a_log = 0
-    everywhere, x, b and c standard normal."""
+    everywhere, x, b and c standard normal.  The config picks its route
+    (``wgmma`` or ``mma_sync``, :func:`~repro_torch.kernels.ssd.ssd_route`),
+    and the two run different kernels at different rates, so the route is
+    a facet of the key's classes beside the shared-memory class."""
 
     name = "cuda_ssd"
     config_dims = ("chunk", "p", "n")
@@ -198,7 +202,8 @@ class _SsdDevice:
         return ssd_smem_bytes(*cfg)
 
     def classes(self, cfg: Tuple[int, ...], cls: str) -> Tuple[str, str]:
-        return cls, cls
+        chunk, p, n = cfg
+        return cls, ssd_route(p, n, chunk) or "unrouted"
 
     def proxy(self, cfg, steps_per_dim: int) -> Tuple[int, ...]:
         return ssd_proxy_problem(*cfg, steps_per_dim=steps_per_dim)

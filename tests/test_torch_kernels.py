@@ -241,8 +241,8 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
     compilers' ``-Xptxas -v`` reports by key: every key it builds must be
     found under the mangled names nvcc gives those instantiations (the
     attention forward's two routes, the backward's dK/dV and dQ kernels on
-    its two routes and the SSD's three passes included, one of them not a
-    template)."""
+    its two routes and the SSD's passes on each of its two routes included,
+    one of them not a template)."""
     smoke = _chip_smoke()
     prefix = "_ZN38_GLOBAL__N__025e8cd1_6_ssd_cu_aa245fc2"
     bwd = "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_f13b085c"
@@ -266,6 +266,12 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
          "S2_S2_Pfiiiii"): (128, 0, 0),
         (prefix + "21ssd_chunk_scan_kernelILi64ELi128ELi32EEEvPKfS2_S2_S2_"
          "S2_S2_Pfiiiii"): (128, 12, 32),
+        (prefix + "28ssd_chunk_state_wgmma_kernelILi64ELi128EEEv14CUtensorMap"
+         "_stS1_PKfS3_PfS4_iiiii"): (200, 0, 0),
+        (prefix + "19ssd_cb_wgmma_kernelILi128EEEv14CUtensorMap_stS1_Pfiii"):
+            (90, 0, 0),
+        (prefix + "27ssd_chunk_scan_wgmma_kernelILi64ELi128EEEv14CUtensorMap"
+         "_stS1_S1_PKfS3_S3_Pfiiiiii"): (255, 0, 0),
         (bwd + "20attn_bwd_dkdv_kernelIfLi4ELi128EEEvPKT_S3_S3_S3_PKfS5_PS1_"
          "S6_iiiiNS_8PairArgsE"): (255, 8, 8),
         (bwd + "18attn_bwd_dq_kernelIfLi4ELi128EEEvPKT_S3_S3_S3_PKfS5_PS1_"
@@ -289,8 +295,10 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
     assert len(table) == len(names)
     keys = smoke.selected_ptxas_keys((128, 128, 64), (128, 128, 128),
                                      (64, 64, 128))
-    assert [what for what, _ in keys["ssd"]] == ["chunk_state",
-                                                 "state_pass", "chunk_scan"]
+    # chunk 64 at mamba2-2.7b's (P, N) is the SSD's wgmma route: its chunk
+    # state, C B^T pre-pass and chunk scan, and the state pass
+    assert [what for what, _ in keys["ssd"]] == ["chunk_state", "cb",
+                                                 "chunk_scan", "state_pass"]
     found = {what: table[key] for kernel in keys.values()
              for what, key in kernel}
     assert [what for what, _ in keys["flash_attention"]] == ["mma_sync",
@@ -301,14 +309,18 @@ def test_selected_ptxas_keys_are_found_in_a_ptxas_log():
         "dkdv", "dq", "dkdv_wgmma", "dq_wgmma"]
     assert found == {"matmul": (161, 0, 0), "mma_sync": (255, 0, 0),
                      "wgmma": (168, 12, 8),
-                     "chunk_state": (80, 4, 4), "state_pass": (48, 0, 0),
-                     "chunk_scan": (128, 0, 0), "dkdv": (255, 8, 8),
+                     "chunk_state": (200, 0, 0), "cb": (90, 0, 0),
+                     "state_pass": (48, 0, 0),
+                     "chunk_scan": (255, 0, 0), "dkdv": (255, 8, 8),
                      "dq": (255, 0, 0), "dkdv_wgmma": (246, 0, 0),
                      "dq_wgmma": (168, 0, 0)}
-    # chunk 32 selects the 32-row scan instantiation
-    key = dict(smoke.selected_ptxas_keys((128, 128, 64), (128, 128, 128),
-                                         (32, 64, 128))["ssd"])["chunk_scan"]
-    assert table[key] == (128, 12, 32)
+    # chunk 32 selects the mma_sync route: its chunk state and the 32-row
+    # scan instantiation
+    keys = dict(smoke.selected_ptxas_keys((128, 128, 64), (128, 128, 128),
+                                          (32, 64, 128))["ssd"])
+    assert list(keys) == ["chunk_state", "chunk_scan", "state_pass"]
+    assert table[keys["chunk_scan"]] == (128, 12, 32)
+    assert table[keys["chunk_state"]] == (80, 4, 4)
     # a float32 matmul tile on the wgmma route reads that route's kernel
     key = dict(smoke.selected_ptxas_keys((128, 128, 32), (128, 128, 128),
                                          (64, 64, 128))["matmul"])["matmul"]

@@ -275,12 +275,12 @@ def test_ssd_proxy_fills_the_card(chunk):
 
 
 def test_ssd_legality_takes_the_models_chunk_and_the_smem_limit():
-    # mamba2-2.7b: P 64, N 128, chunk 256 at L = 4096
+    # mamba2-2.7b: P 64, N 128, chunk 256 at L = 4096, on the wgmma route
     assert ssd_tile_legal(4096, 256, 64, 128)
-    assert ssd_smem_bytes(256, 64, 128) == 183_296 <= H100_SMEM_OPTIN
+    assert ssd_smem_bytes(256, 64, 128) == 218_192 <= H100_SMEM_OPTIN
     # pass 3 runs one block an SM, its staging the same at every chunk of
     # the path from 64 up (its query tiles and key slabs are 64 rows)
-    assert all(ssd_smem_bytes(c, 64, 128) == 183_296 for c in (64, 128, 256))
+    assert all(ssd_smem_bytes(c, 64, 128) == 218_192 for c in (64, 128, 256))
     assert ssd_smem_bytes(32, 64, 128) <= H100_SMEM_OPTIN
     assert all(ssd_tile_legal(4096, c, 64, 128) for c in (32, 64, 128, 256))
     assert not ssd_tile_legal(4096, 256, 64, 128,
@@ -292,8 +292,10 @@ def test_ssd_legality_takes_the_models_chunk_and_the_smem_limit():
     assert not ssd_tile_legal(4000, 256, 64, 128)     # does not divide
     assert not ssd_tile_legal(4096, 256, 128, 128)    # P not built
     assert not ssd_tile_legal(4096, 256, 64, 256)     # N not built
-    # the chunk's own staging grows with it, past the limit eventually
-    assert not ssd_tile_legal(2 ** 16, 2 ** 15, 64, 128)
+    # on the mma_sync route the chunk's own staging grows with it, past the
+    # limit eventually; the wgmma route's does not grow with the chunk
+    assert not ssd_tile_legal(2 ** 16, 2 ** 15, 32, 128)
+    assert ssd_tile_legal(2 ** 16, 2 ** 15, 64, 128)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -255,12 +255,14 @@ def _chunks_before(p, n):
 @pytest.mark.parametrize("p", KERNEL_HEAD_DIMS)
 def test_every_config_legal_before_stays_legal(p):
     """The full grid: every (chunk, P, N) the FFMA kernels took is legal
-    for the tensor-core kernels, whose staging is reckoned anew."""
+    for the tensor-core kernels on the route that takes it, whose staging
+    is reckoned anew."""
     for n in KERNEL_STATES:
         chunks = _chunks_before(p, n)
         assert len(chunks) > 100
         for chunk in chunks:
             assert ssd_tile_legal(chunk, chunk, p, n), (chunk, p, n)
             assert ssd_smem_bytes(chunk, p, n) <= H100_SMEM_OPTIN
-    # mamba2-2.7b's widths at its chunk: pass 3's staging, one block an SM
-    assert ssd_smem_bytes(256, 64, 128) == 183_296
+    # mamba2-2.7b's widths at its chunk, on the wgmma route: pass 3's
+    # staging, one block an SM
+    assert ssd_smem_bytes(256, 64, 128) == 218_192

@@ -1,42 +1,65 @@
 #!/usr/bin/env python3
-"""Time the SSD forward's kernels on a CUDA card at mamba2-2.7b's width.
+"""Check and time the SSD forward's passes by route on a CUDA card.
 
 Usage, from the root of a checkout on a machine with a card::
 
     python3 tools/ssd_forward_times.py [--rounds 3] [--reps 20] [--seed 0]
+        [--report-only] [--check-only] [--checkout DIR]
 
-The problem is chip_smoke's ``SSD_PROBLEM``, mamba2-2.7b's (batch, L, H,
-P, G, N) = (1, 4096, 80, 64, 1, 128) in float32, with the reference
-test's operands (dt = |N(0, 1)| 0.1, a_log = N(0, 1) 0.5, x, b, c standard
-normal), at chunks 64 and 256 (the model's).  At each chunk the forward
-(``ssd``) is first held against ``ssd_plain`` (normwise within 1e-5,
-chip_smoke's float32 gate), then timed whole, and each pass alone at
-every head count a block may take: pass 1 (the chunk state) at 1 and 2
-heads, pass 3 (the chunk scan) at 1, 2 and 4, each held against the
-default's output bits first (the head count changes which block computes
-a head, not its arithmetic).  Times are ``--rounds`` medians of
-``--reps`` calls, each call between CUDA events.  The last line of the
-output is one JSON object: the card's name and power limit as
-``nvidia-smi`` prints them, the checkout's path, and per chunk the error,
-the head counts the wrapper picks, and the medians.  The kernels build
-from the checkout's ``csrc/`` into its ``build/`` at first use.  Compare
-two checkouts only within one session on one card.
+First the compiler's report for the forward's kernels (registers and
+spills, ``-Xptxas -v``), then the checks, each the kernels' y (and the
+final state where asked for) against ``ssd_plain`` in float64 on the same
+operands, within chip_smoke's float32 gates (|diff| <= 2e-4 + 2e-4 |plain|
+elementwise, 1e-5 normwise), two calls the same bits, each call on the
+route ``ssd_route`` gives (its launch count):
+
+* the library's route table, staging and C B^T scratch against
+  ``ssd_route``, ``ssd_smem_bytes`` and ``ssd_cb_floats`` (chip_smoke's
+  ``check_ssd_routes``, imported from this script's checkout);
+* small cases (batch 2, L 512) at each wgmma (P, N) and chunks 64 and
+  256, with h0 and the final state, at 1, 2 and 4 heads a group, and on
+  the mma.sync route at chunks 16 and 32 and at (32, 64) chunk 64;
+* mamba2-2.7b's (1, 4096, 80, 64, 1, 128) and jamba-v0.1-52b's (1, 4096,
+  128, 64, 1, 16), with the reference test's operands (dt = |N(0, 1)|
+  0.1, a_log = N(0, 1) 0.5, x, b, c standard normal), at chunks 32
+  (mma.sync), 64 and 256.
+
+Then, at those six wide cases, the forward whole and each of its three
+passes alone (``_launch_chunk_state``, ``_launch_state_pass``,
+``_launch_chunk_scan`` at the head counts the wrapper picks), as
+``--rounds`` medians of ``--reps`` calls, each call between CUDA events.
+
+The last line of the output is one JSON object: the card's name and power
+limit as ``nvidia-smi`` prints them, the checkout's path, the checks and
+the times.  The kernels build from the checkout's ``csrc/`` into its
+``build/`` at first use.  ``--checkout DIR`` runs another checkout's
+kernels (its ``src/``; one without the route table is checked and timed
+without the route checks): to compare two checkouts, run the script for
+each on one card in one command, the other first, and compare the times
+only within that command.
 """
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT / "src"))
-
-PROBLEM = (1, 4096, 80, 64, 1, 128)
-CHUNKS = (64, 256)
-TOL = 1e-5
-STATE_HEADS = (1, 2)
-SCAN_HEADS = (1, 2, 4)
+ELEMWISE, NORMWISE = 2e-4, 1e-5
+#: (batch, L, H, P, G, N)
+WIDE = {"mamba2-2.7b": (1, 4096, 80, 64, 1, 128),
+        "jamba-v0.1-52b": (1, 4096, 128, 64, 1, 16)}
+WIDE_CHUNKS = (32, 64, 256)
+#: small cases: (batch, L, H, P, G, N, chunk, with h0 and the final state)
+SMALL_CASES = ((2, 512, 8, 64, 2, 128, 64, True),
+               (2, 512, 8, 64, 1, 128, 256, False),
+               (2, 512, 2, 64, 2, 128, 128, True),
+               (2, 512, 8, 64, 2, 16, 64, False),
+               (2, 512, 6, 64, 2, 16, 256, True),
+               (2, 512, 8, 64, 2, 128, 16, True),
+               (2, 512, 8, 64, 2, 16, 32, False),
+               (2, 512, 8, 32, 2, 64, 64, True))
 
 
 def median_ms(fn, reps: int) -> float:
@@ -54,19 +77,43 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def operands(seed: int):
-    """The reference test's operands at PROBLEM on the card."""
-    import numpy as np
+def ptxas_report(lib_name: str = "ssd") -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of each of
+    a library's kernels, from its ``-Xptxas -v`` log."""
+    from repro_torch.kernels import _build
+    text = _build.library_path(lib_name).with_suffix(".log").read_text()
+    rows, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            kern = re.search(r"\d+(ssd_[a-z_]+_kernel)(?:I(.*?)EE)?v", name)
+            label = (f"{kern.group(1)}<{kern.group(2) or ''}>" if kern
+                     else name)
+            rows.append((label, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
+def operands(gen, b, l, h, p, g, n, with_h0):
+    """The reference test's operands on the card, h0 standard normal."""
     import torch
-    b, l, h, p, g, n = PROBLEM
-    rng = np.random.default_rng(seed)
-    arrays = (rng.standard_normal((b, l, h, p)),
-              np.abs(rng.standard_normal((b, l, h))) * 0.1,
-              rng.standard_normal((h,)) * 0.5,
-              rng.standard_normal((b, l, g, n)),
-              rng.standard_normal((b, l, g, n)))
-    return [torch.from_numpy(a.astype(np.float32)).to("cuda")
-            for a in arrays]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = randn(b, l, h, p)
+    dt = randn(b, l, h).abs() * 0.1
+    a_log = randn(h) * 0.5
+    bb, cc = randn(b, l, g, n), randn(b, l, g, n)
+    h0 = randn(b, h, p, n) if with_h0 else None
+    return x, dt, a_log, bb, cc, h0
 
 
 def main() -> None:
@@ -74,71 +121,116 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--report-only", action="store_true",
+                    help="build, print the compiler's report and stop")
+    ap.add_argument("--check-only", action="store_true",
+                    help="stop after the checks")
+    ap.add_argument("--checkout", type=Path,
+                    default=Path(__file__).resolve().parent.parent,
+                    help="the checkout whose kernels run")
     args = ap.parse_args()
+    root = args.checkout.resolve()
+    sys.path.insert(0, str(root / "src"))
+    # chip_smoke's route-table check, from this script's own checkout
+    sys.path.insert(1, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
     import torch
     if not torch.cuda.is_available():
         sys.exit("ssd_forward_times: no CUDA device")
-    from repro_torch.kernels.ssd import (_launch_chunk_scan,
-                                         _launch_chunk_state,
-                                         _launch_state_pass, ssd, ssd_plain,
-                                         ssd_scan_heads, ssd_scratch,
-                                         ssd_state_heads)
-    x, dt, a_log, bb, cc = ops = operands(args.seed)
-    _, _, h, _, g, _ = PROBLEM
-    out = {}
-    for chunk in CHUNKS:
-        got = ssd(*ops, chunk=chunk)
+    import importlib
+    from repro_torch.kernels import _build
+    mod = importlib.import_module("repro_torch.kernels.ssd")
+    ssd, ssd_plain = mod.ssd, mod.ssd_plain
+    _build.build_all(["ssd"])
+    for row in ptxas_report():
+        print("ptxas: %s %d registers, spills %d B stored / %d B loaded"
+              % row, flush=True)
+    if args.report_only:
+        return
+    route_of = getattr(mod, "ssd_route", None)
+    routes = chip_smoke.check_ssd_routes() if route_of else None
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def check(label, ops, chunk):
+        x, dt, a_log, bb, cc, h0 = ops
+        routes = getattr(ssd, "route_launches", {})
+        before = dict(routes)
+        got = ssd(x, dt, a_log, bb, cc, chunk=chunk, h0=h0,
+                  return_state=True)
+        torch.cuda.synchronize()           # a fault surfaces here
+        again = ssd(x, dt, a_log, bb, cc, chunk=chunk, h0=h0,
+                    return_state=True)
         torch.cuda.synchronize()
-        want = ssd_plain(*ops, chunk=chunk)
-        err = float((got - want).norm() / want.norm())
-        if not err <= TOL:
-            sys.exit(f"ssd_forward_times: chunk {chunk}: normwise {err:.3e}"
-                     f" from ssd_plain, over {TOL}")
-        s, states = ssd_scratch(x, bb, chunk)
-        y = torch.empty_like(x)
-        ref_states = torch.empty_like(states)
-        _launch_chunk_state(x, dt, a_log, bb, s, ref_states, chunk)
-        passes = {}
-        for heads in STATE_HEADS:
-            _launch_chunk_state(x, dt, a_log, bb, s, states, chunk, heads)
-            torch.cuda.synchronize()
-            if not torch.equal(states, ref_states):
-                sys.exit(f"ssd_forward_times: pass 1 at {heads} heads a "
-                         f"block is not the default's bits")
-            passes[f"chunk_state_{heads}"] = [median_ms(
-                lambda: _launch_chunk_state(x, dt, a_log, bb, s, states,
-                                            chunk, heads), args.reps)
-                for _ in range(args.rounds)]
-        _launch_state_pass(s, states, chunk)
-        passes["state_pass"] = [median_ms(
-            lambda: _launch_state_pass(s, ref_states, chunk), args.reps)
-            for _ in range(args.rounds)]
-        for heads in SCAN_HEADS:
-            _launch_chunk_scan(x, dt, bb, cc, s, states, y, chunk, heads)
-            torch.cuda.synchronize()
-            if not torch.equal(y, got):
-                sys.exit(f"ssd_forward_times: pass 3 at {heads} heads a "
-                         f"block is not the default's bits")
-            passes[f"chunk_scan_{heads}"] = [median_ms(
-                lambda: _launch_chunk_scan(x, dt, bb, cc, s, states, y,
-                                           chunk, heads), args.reps)
-                for _ in range(args.rounds)]
-        whole = [median_ms(lambda: ssd(*ops, chunk=chunk), args.reps)
-                 for _ in range(args.rounds)]
-        out[chunk] = {"normwise": err, "forward_ms": whole,
-                      "heads": {"chunk_state": ssd_state_heads(h, g),
-                                "chunk_scan": ssd_scan_heads(h, g)},
-                      "passes_ms": passes}
-        print(f"chunk {chunk}: normwise {err:.3e}; forward "
-              + " / ".join(f"{t:.4f}" for t in whole) + " ms; " + "; ".join(
-                  f"{k} " + " / ".join(f"{t:.4f}" for t in v)
-                  for k, v in passes.items()), flush=True)
+        took = sorted(r for r, k in routes.items() if k != before[r])
+        want = ssd_plain(*(t.double() for t in (x, dt, a_log, bb, cc)),
+                         chunk=chunk, return_state=True,
+                         h0=None if h0 is None else h0.double())
+        errs = {}
+        for what, g_, w_ in zip(("y", "h_final"), got, want):
+            d = (g_.double() - w_).abs()
+            errs[what] = {
+                "elementwise": float((d / (ELEMWISE + ELEMWISE *
+                                           w_.abs())).max()) * ELEMWISE,
+                "normwise": float(d.norm() / w_.norm())}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        p, n = x.shape[3], bb.shape[3]
+        route = route_of(p, n, chunk) if route_of else None
+        ok = same and all(e["elementwise"] <= ELEMWISE and
+                          e["normwise"] <= NORMWISE for e in errs.values()) \
+            and (route_of is None or took == [route])
+        print(f"{label} (P {p}, N {n}, chunk {chunk}, {route}): "
+              + "; ".join(f"{k} elementwise {e['elementwise']:.3e}, "
+                          f"normwise {e['normwise']:.3e}"
+                          for k, e in errs.items())
+              + f"; two calls {'the same bits' if same else 'DIFFER'}"
+              + ("" if ok else f"  FAILED (took {took})"), flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: the forward disagrees with the "
+                                 f"float64 plain version: {errs}, same bits "
+                                 f"{same}, routes {took}")
+        return {"label": label, "p": p, "n": n, "chunk": chunk,
+                "route": route, "errors": errs, "same_bits": same}
+
+    checks = [check(f"small {case[:6]}", operands(gen, *case[:6], case[7]),
+                    case[6]) for case in SMALL_CASES]
+    times = {}
+    for name, shape in WIDE.items():
+        ops = operands(gen, *shape, False)
+        x, dt, a_log, bb, cc, _ = ops
+        b, l, h, p, g, n = shape
+        for chunk in WIDE_CHUNKS:
+            checks.append(check(name, ops, chunk))
+            if args.check_only:
+                continue
+            s, states = mod.ssd_scratch(x, bb, chunk)
+            y = torch.empty_like(x)
+            reps = args.reps
+
+            def rounds(fn):
+                return [median_ms(fn, reps) for _ in range(args.rounds)]
+            row = {"route": route_of(p, n, chunk) if route_of else None,
+                   "forward_ms": rounds(lambda: ssd(*ops[:5], chunk=chunk)),
+                   "chunk_state_ms": rounds(lambda: mod._launch_chunk_state(
+                       x, dt, a_log, bb, s, states, chunk)),
+                   "state_pass_ms": rounds(lambda: mod._launch_state_pass(
+                       s, states, chunk)),
+                   "chunk_scan_ms": rounds(lambda: mod._launch_chunk_scan(
+                       x, dt, bb, cc, s, states, y, chunk))}
+            times[f"{name}/{chunk}"] = row
+            print(f"{name} chunk {chunk} ({row['route']}): " + "; ".join(
+                f"{k} " + " / ".join(f"{t:.4f}" for t in v)
+                for k, v in row.items() if k != "route"), flush=True)
+            del s, states, y
+        del ops, x, dt, a_log, bb, cc
+        torch.cuda.empty_cache()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "checkout": str(ROOT),
-                      "problem": list(PROBLEM), "chunks": out}))
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"card": card, "checkout": str(root),
+                      "ptxas": ptxas_report(), "route_table": routes,
+                      "checks": checks, "times": times}))
 
 
 if __name__ == "__main__":

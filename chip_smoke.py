@@ -11,14 +11,24 @@ csrc`` (one nvcc per source, all at once, into
 version, and drives every path of the port on the card:
 
 1. card and kernel build (each source's nvcc seconds; registers and
-   spills of every instantiation, the matmul's ten wgmma kernels each and
-   the SSD forward's six wgmma kernels each, none of them spilling);
+   spills of every instantiation, the matmul's ten wgmma kernels each,
+   the SSD forward's six wgmma kernels each and AdamW's eleven entry
+   functions each, none of them spilling);
 2. kernel check: the CUDA matmul's route table (the library's against
    ``matmul_route``, with its staging and split scratch), then the matmul
    against its plain version on the test shapes and on a shape for each
    of its (bm, bn, bk) instantiations that the card can stage, on both
    routes (wgmma, ffma) and in both dtypes, each call on its route; a
-   test shape whose tiles the kernel does not take must be refused;
+   test shape whose tiles the kernel does not take must be refused; then
+   AdamW's kernels: the update kernel against its plain version on the
+   card bit for bit (m, v, u, and p when it writes p) over three
+   (parameter, gradient) dtype pairs, weight decay on and off, no clip
+   and the clip active, 1, 7 and 2^20 + 3 elements, a view one element
+   into its buffers and gemma2-27b's embedding, ``AdamW.update_apply``
+   against ``update`` and ``apply_updates`` (and the plain route), the
+   norm kernel within 1e-6 of a float64 sum and the same bits twice, and
+   both timed at the embedding beside their byte bounds, their plain
+   versions and one PyTorch call each;
 3. the paper's path at n = 4096, b from 64 to 1024: generate
    potf2/trsm/syrk/gemm models on the card over the domains the Cholesky
    tracers call, rank the three potrf variants and the block size without
@@ -188,9 +198,10 @@ version, and drives every path of the port on the card:
 
 and prints a ``kernels`` JSON line (launches on each path of the main run,
 the matmul's, the attention forward's and backward's and the SSD
-forward's and backward's also per route; error, times and bound per
-kernel).  The count of every kernel is set to 0
-just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c, 15c, 16c
+forward's and backward's also per route, AdamW's per kernel; error,
+times and bound per kernel).  Every train path's launches of AdamW's two
+kernels are exact: one of each a parameter tensor a step.  The count of
+every kernel is set to 0 just before each of the paths 3, 4, 7, 8, 9, 10, 11, 12, 13, 14c, 15c, 16c
 and 17a and read just after (the paths 9 and 10 launch none of the
 kernels; 14c and 15c add to one path, ``train``; 16c is ``train_moe``, 17a
 ``train_sharded``); the checks and timings of phases 2, 5, 6, 14a, 14b,
@@ -427,30 +438,40 @@ def rel_err(out, ref) -> float:
     return float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
 
 
-def ptxas_table(log_text: str) -> dict:
-    """Registers and spill bytes per instantiation, from ``-Xptxas -v``:
-    {(kernel, dtype, template ints): (registers, spill stores, spill
-    loads)}, the kernel name and arguments read from the mangled name (no
-    template ints for a kernel that is not a template)."""
+def ptxas_entries(log_text: str) -> dict:
+    """Registers and spill bytes of every entry function in a ``-Xptxas
+    -v`` report, by its mangled name: {name: (registers, spill stores,
+    spill loads)}."""
     import re
-    table, key, spills = {}, None, (0, 0)
+    table, name, spills = {}, None, (0, 0)
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            kern = re.search(r"\d+([a-z_]+_kernel)[IE]", name)
-            dtype = "bfloat16" if "__nv_bfloat16" in name else "float32"
-            key = (kern.group(1) if kern else name, dtype,
-                   tuple(int(a) for a in re.findall(r"Li(\d+)E", name)))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and key is not None:
-            table[key] = (int(m.group(1)), *spills)
-            key, spills = None, (0, 0)
+        if m and name is not None:
+            table[name] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
+    return table
+
+
+def ptxas_table(log_text: str) -> dict:
+    """:func:`ptxas_entries` keyed by instantiation: {(kernel, dtype,
+    template ints): (registers, spill stores, spill loads)}, the kernel
+    name and arguments read from the mangled name (no template ints for a
+    kernel that is not a template)."""
+    import re
+    table = {}
+    for name, row in ptxas_entries(log_text).items():
+        kern = re.search(r"\d+([a-z_]+_kernel)[IE]", name)
+        dtype = "bfloat16" if "__nv_bfloat16" in name else "float32"
+        table[(kern.group(1) if kern else name, dtype,
+               tuple(int(a) for a in re.findall(r"Li(\d+)E", name)))] = row
     return table
 
 
@@ -744,6 +765,319 @@ def check_matmul_sass(sass_run) -> dict:
     return {"wgmma_hgmma": sorted(wg.values()), "ffma_tensor_core":
             max(ff.values()), "wgmma_kernels": len(wg),
             "ffma_kernels": len(ff)}
+
+
+# ------------------------------------------------------- phase 2, adamw --
+#: phase 2's AdamW check: (parameter, gradient) dtypes -- bfloat16 with
+#: bfloat16 gradients (every train step), float32 with float32, bfloat16
+#: with float32 gradients (the micro-batch accumulation's sums)
+ADAMW_DTYPES = (("bfloat16", "bfloat16"), ("float32", "float32"),
+                ("bfloat16", "float32"))
+#: flat sizes: one element, fewer than a vector, and a million and three
+#: (a head of vectors, then a tail); the last also as a view one element
+#: into its buffers (every pointer off its 16-byte boundary)
+ADAMW_SIZES = (1, 7, (1 << 20) + 3)
+#: gemma2-27b's embedding (vocab x d_model), the largest tensor a train
+#: path updates: 1.18e9 elements, 4.7 GB in each moment
+ADAMW_EMBED = (256000, 4608)
+#: the step whose bias corrections the checks use
+ADAMW_STEP = 3
+#: entry functions of csrc/adamw.cu: the norm's partial pass (float32,
+#: bfloat16) and finish, the update at four (g, p) dtype pairs in two modes
+ADAMW_INSTANTIATIONS = 11
+#: the norm kernel against a float64 sum, relative: it sums in float64 and
+#: rounds once (2^-24), against float32 sums whose error grows with n
+ADAMW_NORM_TOL = 1e-6
+#: the AdamW-level check's parameters: 1-D (not decayed) and 2-D (decayed)
+ADAMW_PARAMS = ((7,), (1,), (257, 4099), (64, 3))
+
+
+def adamw_tensors(gen, shape, p_dtype, g_dtype, offset: int = 0) -> dict:
+    """A parameter, its gradient and mid-training moments of ``shape`` on
+    the card, each a view ``offset`` elements into a buffer of its own:
+    p ~ N(0, 1), g ~ 4 N(0, 1), m ~ 0.1 N(0, 1), v ~ 0.01 U(0, 1)."""
+    import math
+    import torch
+    n = math.prod(shape)
+
+    def draw(dtype, scale, uniform=False):
+        fn = torch.rand if uniform else torch.randn
+        buf = (fn(n + offset, generator=gen, device="cuda") * scale).to(
+            dtype)
+        return buf[offset:].view(shape)
+
+    return {"p": draw(p_dtype, 1.0), "g": draw(g_dtype, 4.0),
+            "m": draw(torch.float32, 0.1),
+            "v": draw(torch.float32, 0.01, uniform=True)}
+
+
+def adamw_constants(dev, opt) -> dict:
+    """The bias corrections at ADAMW_STEP as ``AdamW`` forms them (0-d
+    float32 tensors on the card) and the hyperparameters."""
+    import torch
+    stepf = torch.tensor(ADAMW_STEP, dtype=torch.int32, device=dev).float()
+    return {"bc1": 1 - torch.tensor(opt.b1, device=dev) ** stepf,
+            "bc2": 1 - torch.tensor(opt.b2, device=dev) ** stepf,
+            "lr": opt.lr, "b1": opt.b1, "b2": opt.b2, "eps": opt.eps,
+            "weight_decay": opt.weight_decay}
+
+
+def like_at(x):
+    """A copy of ``x`` in a buffer of its own at ``x``'s storage offset
+    modulo 8 elements, so its pointer sits as far off a 16-byte boundary
+    as ``x``'s."""
+    import torch
+    off = x.storage_offset() % 8
+    out = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)[
+        off:].view(x.shape)
+    return out.copy_(x)
+
+
+def adamw_case(t: dict, scale, decay: bool, consts: dict) -> dict:
+    """One tensor through the update kernel in both modes against the
+    plain version on the card, on copies of the same inputs: m, v and u
+    (``adamw_update``, u written) and m, v and p (``u`` None, p written;
+    against the plain u added to p, as ``apply_updates`` adds).  The
+    kernel's copies keep the inputs' alignment, so a view off its 16-byte
+    boundary runs the vector loop with a head when p is written, and the
+    scalar loop when u is (u is fresh, at another offset than the rest).
+    Returns which tensors came out the same bits and the largest
+    |difference|."""
+    import torch
+    from repro_torch.kernels.adamw import adamw_update, adamw_update_plain
+    kw = dict(scale=scale, decay=[decay], **consts)
+    g, p = t["g"], t["p"]
+    want_m, want_v = t["m"].clone(), t["v"].clone()
+    want_u = torch.empty_like(p)
+    adamw_update_plain([g], [want_m], [want_v], [p], [want_u], **kw)
+    want_p = p.clone().add_(want_u)
+    got_m, got_v = like_at(t["m"]), like_at(t["v"])
+    got_u = torch.empty_like(p)
+    adamw_update([g], [got_m], [got_v], [p], [got_u], **kw)
+    torch.cuda.synchronize()                # a fault surfaces here
+    same = {"m": torch.equal(got_m, want_m), "v": torch.equal(got_v, want_v),
+            "u": torch.equal(got_u, want_u)}
+    err = float((got_u.float() - want_u.float()).abs().max())
+    got_m.copy_(t["m"])
+    got_v.copy_(t["v"])
+    got_p = like_at(p)
+    del got_u
+    adamw_update([g], [got_m], [got_v], [got_p], None, **kw)
+    torch.cuda.synchronize()
+    same.update(m_apply=torch.equal(got_m, want_m),
+                v_apply=torch.equal(got_v, want_v),
+                p_apply=torch.equal(got_p, want_p))
+    err = max(err, float((got_p.float() - want_p.float()).abs().max()))
+    return {"same": same, "err": err}
+
+
+def check_adamw(card) -> dict:
+    """Phase 2's AdamW check, the optimizer's two kernels on the card.
+
+    The update kernel against its plain version, bit for bit
+    (:func:`adamw_case`): every ADAMW_DTYPES pair, weight decay on and
+    off, no clip and the clip active (the scale from the global norm of
+    the pair's gradients, by the norm kernel), each ADAMW_SIZES tensor and
+    the largest as a view one element into its buffers; then gemma2-27b's
+    embedding (bfloat16, decayed, clipped).  ``AdamW.update_apply``
+    against ``update`` followed by ``apply_updates`` for three steps of
+    ADAMW_PARAMS in each dtype pair (p, m and v the same bits), at
+    ``grad_clip`` 1 through the kernels, and at 0 also against the plain
+    route (``use_kernel=False``).  The norm kernel within ADAMW_NORM_TOL
+    of a float64 sum, two calls the same bits, a second tensor's sum
+    added on the card as torch adds the two.  Then at the embedding: the
+    update kernel (p written), its plain version and
+    ``torch._fused_adamw_`` timed, beside the byte bound; the norm kernel,
+    ``torch.sum(torch.square(g.float()))`` and ``torch.linalg.vector_norm``
+    likewise."""
+    import gc
+    import math
+    import torch
+    from repro_torch.kernels.adamw import (adamw_sqnorm, adamw_sqnorm_plain,
+                                           adamw_update, adamw_update_bytes,
+                                           adamw_update_plain)
+    from repro_torch.train.optimizer import AdamW, apply_updates
+    dev = torch.device("cuda")
+    opt = AdamW(lr=TRAIN_LR)
+    consts = adamw_constants(dev, opt)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cases, failed, worst_err = 0, [], 0.0
+    norms = []
+
+    first = torch.full((3,), 0.5, device=dev)
+
+    def check_norm(what, g):
+        got = adamw_sqnorm([g])
+        again = adamw_sqnorm([g])
+        want = sum(float(torch.sum(torch.square(c.double())))
+                   for c in g.reshape(-1).split(1 << 26))
+        rel = abs(float(got) - want) / want if want else abs(float(got))
+        # a second tensor's sum added on the card as torch adds the two
+        chained = adamw_sqnorm([first, g])
+        ok = (torch.equal(got, again) and rel <= ADAMW_NORM_TOL and
+              torch.equal(chained, adamw_sqnorm([first]) + got))
+        norms.append({"case": what, "rel_err": rel, "ok": ok})
+        if not ok:
+            failed.append(("norm", what, rel))
+        return got
+
+    for p_name, g_name in ADAMW_DTYPES:
+        p_dt, g_dt = getattr(torch, p_name), getattr(torch, g_name)
+        tensors = [(f"n={n}", adamw_tensors(gen, (n,), p_dt, g_dt))
+                   for n in ADAMW_SIZES]
+        n = ADAMW_SIZES[-1]
+        tensors.append((f"n={n} at offset 1",
+                        adamw_tensors(gen, (n,), p_dt, g_dt, offset=1)))
+        for what, t in tensors:
+            check_norm(f"{g_name} {what}", t["g"])
+        total = adamw_sqnorm([t["g"] for _, t in tensors])
+        scale = torch.clamp(opt.grad_clip / (torch.sqrt(total) + 1e-9),
+                            max=1.0)
+        if not float(scale) < 1.0:
+            raise AssertionError(f"the clip is not active: scale "
+                                 f"{float(scale)}")
+        for what, t in tensors:
+            for decay in (True, False):
+                for clipped in (False, True):
+                    res = adamw_case(t, scale if clipped else None, decay,
+                                     consts)
+                    cases += 1
+                    worst_err = max(worst_err, res["err"])
+                    if not all(res["same"].values()):
+                        failed.append((p_name, g_name, what, decay, clipped,
+                                       res["same"]))
+        del tensors
+    log(f"  adamw_update against its plain version on the card, bit for "
+        f"bit: {cases} cases ({len(ADAMW_DTYPES)} dtype pairs x "
+        f"{len(ADAMW_SIZES) + 1} tensors x decay on/off x clip off/active),"
+        f" each in both modes (u written; p written); max |diff| "
+        f"{worst_err:.3e}; failed {failed}")
+    # gemma2-27b's embedding
+    t = adamw_tensors(gen, ADAMW_EMBED, torch.bfloat16, torch.bfloat16)
+    g_sq = check_norm("bfloat16 gemma2-27b embedding", t["g"])
+    scale = torch.clamp(opt.grad_clip / (torch.sqrt(g_sq) + 1e-9), max=1.0)
+    res = adamw_case(t, scale, True, consts)
+    cases += 1
+    worst_err = max(worst_err, res["err"])
+    if not all(res["same"].values()):
+        failed.append(("embedding", res["same"]))
+    log(f"  adamw_update at gemma2-27b's embedding {ADAMW_EMBED} (bfloat16 "
+        f"p and g, decayed, clipped): {res['same']}")
+    # AdamW: update_apply against update + apply_updates, and the plain
+    # route without a clip
+    steps = {}
+    for p_name, g_name in ADAMW_DTYPES:
+        p_dt, g_dt = getattr(torch, p_name), getattr(torch, g_name)
+        params = [torch.randn(s, generator=gen, device=dev).to(p_dt)
+                  for s in ADAMW_PARAMS]
+        for clip in (1.0, 0.0):
+            a = AdamW(lr=TRAIN_LR, grad_clip=clip)
+            runs = {"update_apply": [p.clone() for p in params],
+                    "update": [p.clone() for p in params]}
+            if clip == 0.0:
+                runs["plain"] = [p.clone() for p in params]
+            states = {k: a.init(v) for k, v in runs.items()}
+            for _ in range(3):
+                grads = [(4 * torch.randn(s, generator=gen, device=dev)).to(
+                    g_dt) for s in ADAMW_PARAMS]
+                states["update_apply"] = a.update_apply(
+                    grads, states["update_apply"], runs["update_apply"])
+                upd, states["update"] = a.update(grads, states["update"],
+                                                 runs["update"])
+                apply_updates(runs["update"], upd)
+                if "plain" in runs:
+                    upd, states["plain"] = a.update(
+                        grads, states["plain"], runs["plain"],
+                        use_kernel=False)
+                    apply_updates(runs["plain"], upd)
+            torch.cuda.synchronize()
+            for k in runs:
+                if k == "update_apply":
+                    continue
+                same = all(torch.equal(x, y) for x, y in zip(
+                    runs["update_apply"] + states["update_apply"].mu +
+                    states["update_apply"].nu,
+                    runs[k] + states[k].mu + states[k].nu))
+                steps[f"{p_name}/{g_name} clip {clip} vs {k}"] = same
+                if not same:
+                    failed.append(("AdamW", p_name, g_name, clip, k))
+        del params, runs, states
+    log(f"  AdamW.update_apply, 3 steps of {len(ADAMW_PARAMS)} tensors "
+        f"{ADAMW_PARAMS}: p, m and v the same bits as update followed by "
+        f"apply_updates (clip 1 and 0) and as the plain route (clip 0): "
+        f"{steps}")
+    worst_norm = max(r["rel_err"] for r in norms)
+    log(f"  adamw_sqnorm: {len(norms)} gradients within "
+        f"{ADAMW_NORM_TOL:.0e} of the float64 sum (worst {worst_norm:.3e}),"
+        f" two calls the same bits, a second tensor's sum added as torch "
+        f"adds: "
+        f"{all(r['ok'] for r in norms)}")
+    if failed:
+        raise AssertionError(f"the AdamW kernels disagree with their plain "
+                             f"versions: {failed}")
+    # times at the embedding: p written (the train step's mode)
+    n = math.prod(ADAMW_EMBED)
+    kw = dict(scale=scale, decay=[True], **consts)
+    g, m, v, p = [t["g"]], [t["m"]], [t["v"]], [t["p"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel_ms = event_ms(lambda: adamw_update(g, m, v, p, None, **kw),
+                         TIME_REPS)
+    u = [torch.empty_like(p[0])]
+    u_ms = event_ms(lambda: adamw_update(g, m, v, p, u, **kw), TIME_REPS)
+    del u
+    plain_ms = event_ms(lambda: adamw_update_plain(g, m, v, p, None, **kw),
+                        3)
+    nbytes = adamw_update_bytes(n, torch.bfloat16, torch.bfloat16)
+    bd = bound(18.0 * n, nbytes, card.fp32_flops, card)
+    step_t = torch.full((), float(ADAMW_STEP), device=dev)
+    fused = dict(lr=opt.lr, beta1=opt.b1, beta2=opt.b2,
+                 weight_decay=opt.weight_decay, eps=opt.eps, amsgrad=False,
+                 maximize=False)
+    try:
+        library_ms = event_ms(lambda: torch._fused_adamw_(
+            p, g, m, v, [], [step_t], **fused), TIME_REPS)
+        library_on = "the same tensors (bfloat16 p and g, float32 m and v)"
+    except (RuntimeError, TypeError) as exc:
+        p32, g32 = [p[0].float()], [g[0].float()]
+        library_ms = event_ms(lambda: torch._fused_adamw_(
+            p32, g32, m, v, [], [step_t], **fused), TIME_REPS)
+        library_on = (f"float32 copies of p and g with the same m and v "
+                      f"(it refused the mixed dtypes: {str(exc)[:80]})")
+        del p32, g32
+    share = bd["bound_ms"] / kernel_ms
+    log(f"  adamw_update at the embedding ({n} elements, bfloat16 p and g, "
+        f"p written): kernel {kernel_ms:.3f} ms ({100 * share:.1f} % of the "
+        f"bound), u written {u_ms:.3f} ms; plain "
+        f"route {plain_ms:.3f} ms; bound {bd['bound_ms']:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB at {card.hbm_bytes_per_s / 1e12:.2f} TB/s, "
+        f"{bd['bound_by']}); torch._fused_adamw_ {library_ms:.3f} ms on "
+        f"{library_on} (a time only: it rounds in another order and "
+        f"decays every tensor)")
+    sq_ms = event_ms(lambda: adamw_sqnorm(g), TIME_REPS)
+    sq_plain_ms = event_ms(lambda: adamw_sqnorm_plain(g), TIME_REPS)
+    sq_lib_ms = event_ms(lambda: torch.linalg.vector_norm(
+        g[0], dtype=torch.float32), TIME_REPS)
+    sq_bd = bound(2.0 * n, 2.0 * n, card.fp32_flops, card)
+    sq_share = sq_bd["bound_ms"] / sq_ms
+    log(f"  adamw_sqnorm at the embedding: kernel {sq_ms:.3f} ms ("
+        f"{100 * sq_share:.1f} % of the bound), plain "
+        f"{sq_plain_ms:.3f} ms, torch.linalg.vector_norm {sq_lib_ms:.3f} "
+        f"ms, bound {sq_bd['bound_ms']:.3f} ms ({2 * n / 1e9:.2f} GB)")
+    del t, g, m, v, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cases": cases, "err": worst_err, "adamw_level": steps,
+            "norms": norms, "shape": list(ADAMW_EMBED), "dtype": "bfloat16",
+            "kernel_ms": kernel_ms, "bound_share": share,
+            "u_written_ms": u_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_on": library_on, "bytes": nbytes, **bd,
+            "sqnorm": {"kernel_ms": sq_ms, "plain_ms": sq_plain_ms,
+                       "library_ms": sq_lib_ms, "bound_share": sq_share,
+                       "library": "torch.linalg.vector_norm(g, dtype="
+                       "torch.float32)", "bytes": 2 * n, **sq_bd,
+                       "worst_rel_err": worst_norm}}
 
 
 # ------------------------------------------------------------ phase 3 --
@@ -3714,10 +4048,13 @@ def profile_train_step(fn) -> dict:
     """One train step under ``torch.profiler``: device time by class,
     with AdamW's kernels told apart by time (the step reads the loss on
     the host before the update, so every kernel that starts after the
-    update's ``record_function`` range opens is the optimizer's), and the
-    device's idle share of the step's wall time.  The range's own event on
-    the device timeline (a span over the optimizer's kernels, not a
-    kernel) is left out of the sums."""
+    update's ``record_function`` range opens is the optimizer's), the six
+    longest kernels by name (``top_kernels_ms``, as :func:`profile_call`),
+    the range's host time (``adamw_host_ms``: the step reads the loss
+    before the update, so the update's host work is on the step's path),
+    and the device's idle share of the step's wall time.  The range's own
+    event on the device timeline (a span over the optimizer's kernels, not
+    a kernel) is left out of the sums."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3730,7 +4067,11 @@ def profile_train_step(fn) -> dict:
     events = prof.events()
     marks = [e.time_range.start for e in events if e.name == "adamw"]
     t_opt = min(marks) if marks else None
-    by_class, spans = {}, 0
+    opt_host_ms = sum(
+        (e.time_range.end - e.time_range.start) / 1e3 for e in events
+        if e.name == "adamw" and
+        e.device_type == torch.autograd.DeviceType.CPU)
+    by_class, by_name, spans = {}, {}, 0
     for evt in events:
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -3742,11 +4083,14 @@ def profile_train_step(fn) -> dict:
             cls = "adamw"
         dur = (evt.time_range.end - evt.time_range.start) / 1e3
         by_class[cls] = by_class.get(cls, 0.0) + dur
+        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + dur
     busy = sum(by_class.values())
     if not busy:
         return {"measured": False, "wall_ms": wall_ms}
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms, "by_class_ms": by_class,
+            "top_kernels_ms": top, "adamw_host_ms": opt_host_ms,
             "shares": {k: v / wall_ms for k, v in by_class.items()},
             "optimizer_marked": t_opt is not None,
             "device_spans_left_out": spans}
@@ -3769,6 +4113,10 @@ def train_path(dev, card) -> dict:
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    steps = TRAIN_STEPS + 1
+    exact_launches(f"{steps} steps of {cfg.n_layers} layers' "
+                   f"{res['tensors']} tensors", adamw_launches(),
+                   adamw_want(steps, res["tensors"]))
     flops = train_flops(cfg, TRAIN_SEQ)
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log(f"  products {flops / 1e12:.1f} TFLOP a step (train_flops)")
@@ -4244,8 +4592,9 @@ def log_model_flops(what: str, mf: dict) -> None:
 
 
 def marked_adamw(lr: float):
-    """AdamW whose update opens a ``record_function`` range named
-    "adamw", so a profile can tell the optimizer's kernels apart."""
+    """AdamW whose update (``update``, and ``update_apply``, which the train
+    step calls) opens a ``record_function`` range named "adamw", so a
+    profile can tell the optimizer's kernels apart."""
     import torch
     from repro_torch.train.optimizer import AdamW
 
@@ -4255,6 +4604,10 @@ def marked_adamw(lr: float):
         def update(self, *args, **kwargs):
             with torch.profiler.record_function("adamw"):
                 return super().update(*args, **kwargs)
+
+        def update_apply(self, *args, **kwargs):
+            with torch.profiler.record_function("adamw"):
+                return super().update_apply(*args, **kwargs)
 
     return MarkedAdamW(lr=lr)
 
@@ -4304,7 +4657,7 @@ def train_cell(dev, cfg, arch: str) -> tuple:
     batch = to_device(batch_at(data_cfg, TRAIN_STEPS), dev)
     prof = profile_train_step(lambda: step_fn(params, opt_state, batch))
     res = {"arch": arch, "layers": cfg.n_layers, "params": n_params,
-           "tokens": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "tensors": len(list(params.parameters())), "tokens": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
            "steps_ms": steps_ms, "step_ms_median": step_ms,
            "step_ms_min": min(later), "first_step_ms": steps_ms[0],
            "tokens_per_s": TRAIN_SEQ * 1e3 / step_ms, "peak_bytes": peak,
@@ -4328,12 +4681,29 @@ def train_cell(dev, cfg, arch: str) -> tuple:
                                    key=lambda kv: -kv[1])) +
             ("" if prof["optimizer_marked"] else
              " (the optimizer's range was not found: adamw not split out)") +
+            f"; the optimizer's host time {prof['adamw_host_ms']:.1f} ms" +
             f"; {prof['device_spans_left_out']} device-side span of the "
             f"range left out")
+        log(f"    longest kernels: " + "; ".join(
+            f"{k} {v:.2f} ms" for k, v in prof["top_kernels_ms"].items()))
     else:
         log("  the profiled step's trace holds no device time: shares not "
             "measured")
     return res, (params, opt_state, opt, batch)
+
+
+def adamw_launches() -> dict:
+    """The optimizer's two kernel wrappers' launch counts, by name."""
+    from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
+    return {"adamw_update": adamw_update.launches,
+            "adamw_sqnorm": adamw_sqnorm.launches}
+
+
+def adamw_want(steps: int, tensors: int) -> dict:
+    """What ``steps`` AdamW steps over ``tensors`` parameters launch: one
+    update and one norm a tensor a step (every train path clips)."""
+    return {"adamw_update": steps * tensors,
+            "adamw_sqnorm": steps * tensors}
 
 
 def exact_launches(what: str, got: dict, want: dict) -> None:
@@ -4364,9 +4734,11 @@ def ssd_train_path(dev, card) -> dict:
     torch.cuda.empty_cache()
     steps = TRAIN_STEPS + 1
     exact_launches(f"{steps} steps of {cfg.n_layers} Mamba layers",
-                   {"ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches},
+                   {"ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches,
+                    **adamw_launches()},
                    {"ssd": 2 * steps * cfg.n_layers,
-                    "ssd_bwd": steps * cfg.n_layers})
+                    "ssd_bwd": steps * cfg.n_layers,
+                    **adamw_want(steps, res["tensors"])})
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log_model_flops(f"{SSD_TRAIN_ARCH} train step", mf)
     return {**res, "ssd_launches": ssd.launches,
@@ -4477,6 +4849,7 @@ def check_moe_train_grads(dev) -> dict:
     choice), from ``moe._route`` on each route's MoE input."""
     import gc
     import torch
+    from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.ssd import ssd, ssd_bwd
@@ -4485,7 +4858,8 @@ def check_moe_train_grads(dev) -> dict:
     cfg = moe_cell_config()
     wrappers = {"flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
-                "ssd_bwd": ssd_bwd}
+                "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
+                "adamw_sqnorm": adamw_sqnorm}
     seen = []
     inner = transformer.moe_forward
 
@@ -4538,7 +4912,7 @@ def check_moe_train_grads(dev) -> dict:
                 f"{flips['dropped_plain_route']} (plain)")
             exact_launches(f"{dtype_name} gradients", launched,
                            {"flash_attention": 2, "flash_attention_bwd": 1,
-                            "ssd": 2, "ssd_bwd": 1})
+                            "ssd": 2, "ssd_bwd": 1, **adamw_want(0, 0)})
             if not max(errs.values()) <= tol:
                 raise AssertionError(f"{MOE_TRAIN_ARCH} layers 3-4 "
                                      f"{dtype_name}: the kernel route's "
@@ -4571,10 +4945,12 @@ def moe_train_path(dev, card) -> dict:
     steps = TRAIN_STEPS + 1
     launched = {"flash_attention": flash_attention.launches,
                 "flash_attention_bwd": flash_attention_bwd.launches,
-                "ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches}
+                "ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches,
+                **adamw_launches()}
     exact_launches(f"{steps} steps of layers 3-4", launched,
                    {"flash_attention": 2 * steps, "flash_attention_bwd":
-                    steps, "ssd": 2 * steps, "ssd_bwd": steps})
+                    steps, "ssd": 2 * steps, "ssd_bwd": steps,
+                    **adamw_want(steps, res["tensors"])})
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log_model_flops(f"{MOE_TRAIN_ARCH} layers 3-4 train step", mf)
     return {**res, "cell": "train-4096-jamba-l3-4", "launches": launched,
@@ -4622,6 +4998,7 @@ def check_dots(dev, card, run: dict) -> dict:
     import math
     import statistics
     import torch
+    from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.ssd import ssd, ssd_bwd
@@ -4635,7 +5012,8 @@ def check_dots(dev, card, run: dict) -> dict:
     leaves = list(params.parameters())
     wrappers = {"flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
-                "ssd_bwd": ssd_bwd}
+                "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
+                "adamw_sqnorm": adamw_sqnorm}
 
     def loss_under(policy):
         if policy == "none":
@@ -4701,7 +5079,8 @@ def check_dots(dev, card, run: dict) -> dict:
         exact_launches(f"{DOTS_STEPS} steps under \"{policy}\"", launched,
                        {"flash_attention": 2 * DOTS_STEPS,
                         "flash_attention_bwd": DOTS_STEPS,
-                        "ssd": 2 * DOTS_STEPS, "ssd_bwd": DOTS_STEPS})
+                        "ssd": 2 * DOTS_STEPS, "ssd_bwd": DOTS_STEPS,
+                        **adamw_want(DOTS_STEPS, len(leaves))})
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"\"{policy}\" steps: losses {losses}")
         ms = statistics.median(times)
@@ -5172,6 +5551,7 @@ def serve_launcher() -> dict:
 
 
 def main() -> int:
+    import re
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5180,6 +5560,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.matmul import matmul, matmul_plain
@@ -5194,8 +5575,9 @@ def main() -> int:
     dry_run = start_dryrun()
     t0 = time.perf_counter()
     libs = _build.build_all(["matmul", "flash_attention",
-                             "flash_attention_bwd", "ssd", "ssd_bwd"])
-    log(f"    kernel build (five nvcc at once) "
+                             "flash_attention_bwd", "ssd", "ssd_bwd",
+                             "adamw"])
+    log(f"    kernel build (six nvcc at once) "
         f"{time.perf_counter() - t0:.1f} s -> " +
         ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     log("    nvcc seconds per source: " + ", ".join(
@@ -5207,7 +5589,7 @@ def main() -> int:
         text = lib.with_suffix(".log").read_text()
         (OUT / f"ptxas_{name}.log").write_text(text)
         ptxas.update(ptxas_table(text))
-        rows = [v for k, v in ptxas_table(text).items()]
+        rows = list(ptxas_entries(text).values())
         if not rows:
             raise AssertionError(f"no ptxas report for {name}")
         log(f"    ptxas {name}: {len(rows)} instantiations, registers "
@@ -5241,6 +5623,18 @@ def main() -> int:
         raise AssertionError(f"ptxas reports {len(ssd_wgmma_regs)} wgmma SSD "
                              f"forward kernels, not 6, or spills in "
                              f"{spilled}")
+    # the optimizer's kernels: each instantiation by its mangled name (the
+    # update's (g, p) dtype pairs share ptxas_table's keys), none spilling
+    adamw_regs = ptxas_entries(libs["adamw"].with_suffix(".log").read_text())
+    for name, (nreg, st, ld) in sorted(adamw_regs.items()):
+        short = re.search(r"\d+(adamw_[a-z_]+_kernel(?:I.*?E(?=Ev))?)", name)
+        log(f"    ptxas {short.group(1) if short else name}: {nreg} "
+            f"registers, spills {st} B stored / {ld} B loaded")
+    spilled = [k for k, v in adamw_regs.items() if v[1] or v[2]]
+    if len(adamw_regs) != ADAMW_INSTANTIATIONS or spilled:
+        raise AssertionError(f"ptxas reports {len(adamw_regs)} adamw "
+                             f"kernels, not {ADAMW_INSTANTIATIONS}, or "
+                             f"spills in {spilled}")
     # the matmul's SASS for phase 5, the attention libraries' for phases 6
     # and 14a, the SSD forward's for 6 and its backward's for 15a, dumped
     # meanwhile
@@ -5261,12 +5655,16 @@ def main() -> int:
         "routes)")
     mm_table = check_matmul_tables()
     mm_phase2 = phase("2", check_kernel_shapes)
+    log("    AdamW's kernels (adamw_update, adamw_sqnorm) vs their plain "
+        "versions on the card")
+    adamw_res = phase("2 adamw", check_adamw, the_card)
 
     # the main path: each of its paths runs with every kernel's count set
     # to 0 just before it and read just after
     wrappers = {"matmul": matmul, "flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
-                "ssd_bwd": ssd_bwd}
+                "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
+                "adamw_sqnorm": adamw_sqnorm}
     launches = {name: {} for name in wrappers}
     # the attention forward's and backward's launches per route and path
     routed = {"matmul": matmul.launches_by_route,
@@ -5440,11 +5838,13 @@ def main() -> int:
     exact_launches(f"{SHARDED_STEPS + 1} sharded steps",
                    {k: launches[k]["train_sharded"] for k in (
                        "flash_attention", "flash_attention_bwd", "ssd",
-                       "ssd_bwd")},
+                       "ssd_bwd", "adamw_update", "adamw_sqnorm")},
                    {"flash_attention": 2 * (SHARDED_STEPS + 1),
                     "flash_attention_bwd": SHARDED_STEPS + 1,
                     "ssd": 2 * (SHARDED_STEPS + 1),
-                    "ssd_bwd": SHARDED_STEPS + 1})
+                    "ssd_bwd": SHARDED_STEPS + 1,
+                    **adamw_want(SHARDED_STEPS + 1,
+                                 moe_training["tensors"])})
 
     regs = {}
     for name, keys in selected_ptxas_keys(
@@ -5504,10 +5904,19 @@ def main() -> int:
                        ("flash_attention", "train_sharded"),
                        ("flash_attention_bwd", "train_sharded"),
                        ("ssd", "train_sharded"),
-                       ("ssd_bwd", "train_sharded")):
+                       ("ssd_bwd", "train_sharded"),
+                       ("adamw_update", "train"), ("adamw_sqnorm", "train"),
+                       ("adamw_update", "train_moe"),
+                       ("adamw_sqnorm", "train_moe"),
+                       ("adamw_update", "train_sharded"),
+                       ("adamw_sqnorm", "train_sharded")):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
+
+    launches["adamw"] = {
+        path: launches["adamw_update"][path] + launches["adamw_sqnorm"][path]
+        for path in launches["adamw_update"]}
 
     def entry(name, source, replaces, res, registers, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -5746,6 +6155,30 @@ def main() -> int:
               **in_train_step("ssd_bwd", ssd_training),
               **in_train_step("ssd_bwd", moe_training, "train_moe_step"),
               jamba_width=jamba_ssd["backward"]),
+        entry("adamw", f"{csrc}/adamw.cu",
+              "none: the reference's update is fused by XLA under jit, "
+              "src/repro/train/optimizer.py:50-58", adamw_res,
+              {"registers": max(v[0] for v in adamw_regs.values()),
+               "spill_store_bytes": sum(v[1] for v in adamw_regs.values()),
+               "spill_load_bytes": sum(v[2] for v in adamw_regs.values())},
+              library=f"torch._fused_adamw_ on {adamw_res['library_on']}: "
+              "a time only, it rounds in another order and decays every "
+              "tensor", shape=list(ADAMW_EMBED), dtype="bfloat16",
+              route_detail="two kernels: adamw_update (one pass over g, m, "
+              "v and p a tensor, p written in place on the train step; this "
+              "row, at gemma2-27b's embedding) and adamw_sqnorm (each "
+              "gradient's float64-summed squares, a fixed-order finish; "
+              "'sqnorm'); every operation rounded as the plain version's "
+              "torch kernels, the same bits",
+              launches_by_kernel={k: launches[k] for k in (
+                  "adamw_update", "adamw_sqnorm")},
+              sqnorm=adamw_res["sqnorm"], cases=adamw_res["cases"],
+              adamw_level=adamw_res["adamw_level"],
+              u_written_ms=adamw_res["u_written_ms"],
+              registers_by_kernel=adamw_regs,
+              **in_train_step("adamw"),
+              **in_train_step("adamw", ssd_training, "train_mamba_step"),
+              **in_train_step("adamw", moe_training, "train_moe_step")),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):
@@ -5765,7 +6198,7 @@ def main() -> int:
                        "run": moe_training, "dots": dots},
          "distributed": {"sharded_step": sharded, "elastic": elastic,
                          "dryrun": dry},
-         "phase_s": phase_s,
+         "adamw": adamw_res, "phase_s": phase_s,
          **kernels},
         indent=1, default=str))
     log(f"  phase host times (s): "

@@ -13,13 +13,17 @@
   ``repro/kernels/ssd.py::_ssd_kernel``, and its gradient ``ssd_bwd``
   (four kernels: each chunk's D_c, the reverse state pass, the chunk
   backward, the fixed-order finish; the reference has no backward kernel)
+* ``adamw`` -- the optimizer step: each gradient's sum of squares for the
+  clip and one tensor's AdamW update in one pass, the plain version's
+  bits (the reference's update is fused by XLA; no Pallas body)
 
 ``ops`` holds the public wrappers, ``ref`` the plain PyTorch oracles.  The
 kernels are built from ``csrc/`` on first use (:mod:`._build`).  The
 attention and SSD forwards and backwards are also ``torch.library``
 operators (``repro_torch::flash_attention_fwd``, ``flash_attention_bwd``,
 ``ssd_fwd``, ``ssd_bwd``) with fake implementations, autograd and flop
-formulas, so that a sharded or traced step reaches them.
+formulas, and so are AdamW's (``adamw_sqnorm``, ``adamw_update``,
+``adamw_update_apply``), so that a sharded or traced step reaches them.
 """
 
 from . import ops, ref

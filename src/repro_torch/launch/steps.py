@@ -5,7 +5,8 @@ PyTorch runs eagerly, so a step is a plain function.  The train step is
 the loss through :func:`repro_torch.models.loss_fn` (per-period remat,
 chunked cross entropy; attention and the SSD through their kernels and
 backwards on the card), the gradients by ``torch.autograd.grad``, then
-AdamW; the parameters and the AdamW moments are updated in place.  The
+AdamW's ``update_apply`` (its kernels on the card); the parameters and the
+AdamW moments are updated in place.  The
 prefill and serve steps are :func:`repro_torch.models.prefill.prefill`
 and :func:`repro_torch.models.decode_step`.
 
@@ -35,7 +36,7 @@ from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed import local
 from ..models import decode_step, init_decode_state, init_params, loss_fn
 from ..models.prefill import prefill
-from ..train.optimizer import AdamW, AdamWState, apply_updates, zeros_f32
+from ..train.optimizer import AdamW, AdamWState, zeros_f32
 
 #: the dtype the launchers train full-width models in
 PARAM_DTYPE = torch.bfloat16
@@ -119,10 +120,9 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, act_spec=None,
                 grads = [g / accum_steps for g in grads]
             if not is_fake(loss) and not math.isfinite(float(loss)):
                 return params, opt_state, loss
-            updates, opt_state = optimizer.update(grads, opt_state, leaves,
-                                                  decayed(params))
+            opt_state = optimizer.update_apply(grads, opt_state, leaves,
+                                               decayed(params))
             del grads
-            apply_updates(leaves, updates)
         return params, opt_state, loss
 
     return train_step

@@ -11,10 +11,16 @@ parameter's dtype before it is added.
 
 Two departures, both for memory (a full-width model's float32 moments are
 four times its bfloat16 parameters): :meth:`AdamW.update` updates the
-moments *in place* and returns a state holding the same tensors, and it
-works through large tensors in slices of :data:`SLICE` elements, so its
-float32 temporaries stay small.  Slicing an elementwise update changes no
-value.  Everything runs under ``torch.no_grad()``.
+moments *in place* and returns a state holding the same tensors, and
+:meth:`AdamW.update_apply` also updates the parameters in place, bit for
+bit ``update`` followed by :func:`apply_updates`, without the list of
+updates.  On the card each tensor's update is one pass of a hand-written
+kernel (``kernels/adamw.py``: the moments, then the update or the
+parameter) and each gradient's squared sum one more; on the CPU the plain
+version works through large tensors in slices of :data:`SLICE` elements, so
+its float32 temporaries stay small.  The kernel rounds every operation as
+the plain version's separate kernels do, so only the norm's summation
+order differs between the two.  Everything runs under ``torch.no_grad()``.
 
 Sharded parameters (``DTensor``s, :mod:`repro_torch.distributed`): the
 moments take their parameter's placements, a gradient is first brought to
@@ -32,8 +38,10 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-#: elements an update works through at once (256 MB of float32)
-SLICE = 1 << 26
+from ..kernels import adamw
+
+#: elements the plain update works through at once (256 MB of float32)
+SLICE = adamw.SLICE
 
 
 class AdamWState(NamedTuple):
@@ -60,45 +68,55 @@ class AdamW(NamedTuple):
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
                params: Sequence[torch.Tensor],
-               decay: Optional[Sequence[bool]] = None
+               decay: Optional[Sequence[bool]] = None, *,
+               use_kernel: bool = True
                ) -> Tuple[List[torch.Tensor], AdamWState]:
         """(updates in each parameter's dtype, the new state).  The state's
         moment tensors are updated in place.  ``decay`` says which
         parameters take weight decay; by default those of more than one
         dimension (the model's train step passes the reference's leaf
-        ranks, :func:`repro_torch.launch.steps.decayed`)."""
+        ranks, :func:`repro_torch.launch.steps.decayed`).
+        ``use_kernel=False`` runs the kernels' plain versions on any
+        device."""
+        updates = [torch.empty_like(p) for p in params]
+        state = self._step(grads, state, params, decay, updates, use_kernel)
+        return updates, state
+
+    @torch.no_grad()
+    def update_apply(self, grads: Sequence[torch.Tensor], state: AdamWState,
+                     params: Sequence[torch.Tensor],
+                     decay: Optional[Sequence[bool]] = None, *,
+                     use_kernel: bool = True) -> AdamWState:
+        """:meth:`update` followed by :func:`apply_updates`, bit for bit,
+        in one pass over each tensor: the moments and the parameters are
+        updated in place and no update is kept; returns the new state."""
+        return self._step(grads, state, params, decay, None, use_kernel)
+
+    def _step(self, grads, state: AdamWState, params, decay,
+              updates: Optional[List[torch.Tensor]],
+              use_kernel: bool) -> AdamWState:
+        """The moments in place, then each update into ``updates`` or, when
+        that is None, added to its parameter in place."""
         if decay is None:
             decay = [p.dim() > 1 for p in params]
         grads = [_placed_like(g, p) for g, p in zip(grads, params)]
         step = state.step + 1
+        scale = None
         if self.grad_clip > 0:
-            gnorm = torch.sqrt(_squared_norm(grads))
+            gnorm = torch.sqrt(_squared_norm(grads, use_kernel))
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-        else:
-            scale = 1.0
         stepf = _local(step).float()
         bc1 = 1 - torch.tensor(self.b1, device=stepf.device) ** stepf
         bc2 = 1 - torch.tensor(self.b2, device=stepf.device) ** stepf
-        updates = []
-        for g, m, v, p, dec in zip(grads, state.mu, state.nu, params,
-                                   decay):
-            u = torch.empty_like(p)
-            flat = [_local(t).reshape(-1) for t in (g, m, v, p, u)]
-            for lo in range(0, flat[0].numel(), SLICE):
-                self._update_slice(*(t[lo:lo + SLICE] for t in flat),
-                                   decay=dec, scale=scale, bc1=bc1, bc2=bc2)
-            updates.append(u)
-        return updates, AdamWState(step=step, mu=state.mu, nu=state.nu)
-
-    def _update_slice(self, g, m, v, p, u, *, decay: bool, scale, bc1,
-                      bc2) -> None:
-        g = g.float() * scale
-        m.copy_(self.b1 * m + (1 - self.b1) * g)
-        v.copy_(self.b2 * v + (1 - self.b2) * g * g)
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-        if self.weight_decay and decay:
-            upd = upd + self.weight_decay * p.float()
-        u.copy_((-self.lr * upd).to(u.dtype))
+        adamw.adamw_update(
+            [_local(g).contiguous() for g in grads],
+            [_local(m) for m in state.mu], [_local(v) for v in state.nu],
+            [_local(p) for p in params],
+            None if updates is None else [_local(u) for u in updates],
+            scale=scale, bc1=bc1, bc2=bc2, lr=self.lr, b1=self.b1,
+            b2=self.b2, eps=self.eps, weight_decay=self.weight_decay,
+            decay=decay, use_kernel=use_kernel, slice_elems=SLICE)
+        return AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -127,18 +145,22 @@ def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return g
 
 
-def _squared_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The float32 sum of every gradient's squares.  Plain tensors: the
-    sum over the list in order.  ``DTensor``s: the per-shard sums, each
-    divided by the ranks that hold the same shard, added in the same
-    order, then one all-reduce over the mesh (over each of its
-    dimensions when the mesh is smaller than the world)."""
+def _squared_norm(grads: Sequence[torch.Tensor],
+                  use_kernel: bool = True) -> torch.Tensor:
+    """The float32 sum of every gradient's squares by
+    :func:`repro_torch.kernels.adamw.adamw_sqnorm` (the kernel on the card,
+    the plain version on the CPU).  Plain tensors: the sums added in list
+    order.  ``DTensor``s: the per-shard sums, each divided by the ranks
+    that hold the same shard, added in the same order, then one all-reduce
+    over the mesh (over each of its dimensions when the mesh is smaller
+    than the world)."""
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import DTensor, Partial, Replicate
     sharded = [g for g in grads if isinstance(g, DTensor)]
     if not sharded:
-        return sum(torch.sum(torch.square(g.float())) for g in grads)
+        return adamw.adamw_sqnorm([g.contiguous() for g in grads],
+                                  use_kernel=use_kernel)
     mesh = sharded[0].device_mesh
 
     def copies(g) -> int:
@@ -146,7 +168,8 @@ def _squared_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
                                             g.placements)
                          if isinstance(pl, Replicate))
 
-    local = sum(torch.sum(torch.square(_local(g).float())) / copies(g)
+    local = sum(adamw.adamw_sqnorm([_local(g).contiguous()],
+                                   use_kernel=use_kernel) / copies(g)
                 for g in grads)
     if mesh.size() == dist.get_world_size():       # one all-reduce
         out = funcol.all_reduce(local, "sum", dist.group.WORLD)

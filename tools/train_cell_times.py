@@ -16,8 +16,11 @@ process; this is its time with nothing before it.
 
 The last line of the output is one JSON object: the card's name and power
 limit as ``nvidia-smi`` prints them, the checkout, the cell, its step
-times (ms), their median and the profiled step's wall, device-busy and
-idle share and its device time by class.  To compare two checkouts, run
+times (ms), their median, its losses, its parameter tensors and peak
+device memory, and the profiled step's wall, device-busy and idle share,
+its device time by class, its longest kernels and the optimizer's host
+time (where the checkout's profile records them).  Only the kernels whose sources the checkout holds
+are built, so an older checkout runs too.  To compare two checkouts, run
 the script for each on one card in one command, alternating (A, B, B,
 A), one process each, and compare the times only within that command.
 """
@@ -28,10 +31,11 @@ import sys
 from pathlib import Path
 
 #: chip_smoke's train cells: (its function, the kernels it launches)
-CELLS = {"14c": ("train_path", ["flash_attention", "flash_attention_bwd"]),
-         "15c": ("ssd_train_path", ["ssd", "ssd_bwd"]),
+CELLS = {"14c": ("train_path", ["flash_attention", "flash_attention_bwd",
+                                "adamw"]),
+         "15c": ("ssd_train_path", ["ssd", "ssd_bwd", "adamw"]),
          "16c": ("moe_train_path", ["flash_attention", "flash_attention_bwd",
-                                    "ssd", "ssd_bwd"])}
+                                    "ssd", "ssd_bwd", "adamw"])}
 
 
 def main() -> None:
@@ -50,7 +54,8 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.perf.roofline import card_of
     fn_name, kernels = CELLS[args.cell]
-    _build.build_all(kernels)
+    _build.build_all([k for k in kernels if (_build.CSRC / f"{k}.cu")
+                      .exists()])
     dev = resolve_device("cuda")
     res = getattr(chip_smoke, fn_name)(dev, card_of(dev))
     prof = res["profile"]
@@ -61,8 +66,11 @@ def main() -> None:
     print(json.dumps({
         "card": card, "checkout": str(root), "cell": args.cell,
         "steps_ms": res["steps_ms"], "step_ms_median": res["step_ms_median"],
-        "profiled": {k: prof.get(k) for k in ("wall_ms", "busy_ms",
-                                              "idle_share", "by_class_ms")}}))
+        "losses": res["losses"], "tensors": res.get("tensors"),
+        "peak_bytes": res["peak_bytes"],
+        "profiled": {k: prof.get(k) for k in (
+            "wall_ms", "busy_ms", "idle_share", "by_class_ms",
+            "top_kernels_ms", "adamw_host_ms")}}))
 
 
 if __name__ == "__main__":

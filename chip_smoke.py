@@ -391,6 +391,35 @@ def event_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+#: cycles the card spins (``torch.cuda._sleep``) before each launch that
+#: :func:`queued_ms` times: about 2 ms at the H100's clock, longer than
+#: any timed call's host work, so the call's kernels are queued when the
+#: start event runs
+QUEUE_CYCLES = 4_000_000
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` in ms with its host work hidden: the
+    card spins QUEUE_CYCLES before each start event, while the host
+    enqueues the call, so the events bracket the kernels alone (a short
+    kernel behind a Python wrapper would otherwise be timed with its
+    launch)."""
+    import torch
+    fn()                                   # warm up
+    pairs = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in pairs)
+    return times[len(times) // 2]
+
+
 def pass_ms(calls, reps: int) -> list:
     """Median device time in ms of each of ``calls``, run in sequence with
     an event between each two."""
@@ -1081,6 +1110,242 @@ def check_adamw(card) -> dict:
 
 
 # ------------------------------------------------------------ phase 3 --
+# ------------------------------------------------------- phase 2, mamba --
+#: phase "2 mamba": the Mamba-2 mixer's glue kernels (csrc/mamba_mixer.cu)
+#: at each model's width, (batch, length, heads, P, groups, N):
+#: mamba2-2.7b (d_inner 5120, W 10576) and jamba-v0.1-52b (8192, 16544),
+#: and one unaligned row (W 109: the kernels' scalar path)
+MAMBA_WIDTHS = (("mamba2-2.7b", (1, 4096, 80, 64, 1, 128)),
+                ("jamba-v0.1-52b", (1, 4096, 128, 64, 1, 16)),
+                ("unaligned", (2, 48, 5, 8, 1, 12)))
+#: normwise, kernel against plain: float32 the same operations in another
+#: order; bfloat16 one rounding of the model's dtype apart
+MAMBA_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+#: normwise, the parameter gradients (sums over the tokens) against the
+#: plain version in float64 (with the model dtype's roundings)
+MAMBA_PARAM_TOL = 1e-5
+MAMBA_KERNELS = ("mamba_in", "mamba_out", "mamba_out_bwd", "mamba_in_bwd")
+#: entry functions of csrc/mamba_mixer.cu: mamba_in's vector and scalar
+#: kernels, mamba_out, mamba_out_bwd and mamba_in_bwd on both paths, each
+#: for float32 and bfloat16, and the two finishes
+MAMBA_INSTANTIATIONS = 18
+#: each wrapper's entry functions, as their mangled names hold them
+MAMBA_ENTRIES = {"mamba_in": ("mamba_in_kernel", "mamba_in_vec_kernel"),
+                 "mamba_out": ("mamba_out_kernel",),
+                 "mamba_out_bwd": ("mamba_out_bwd_kernel",
+                                   "mamba_out_bwd_finish_kernel"),
+                 "mamba_in_bwd": ("mamba_in_bwd_kernel",
+                                  "mamba_in_bwd_finish_kernel")}
+MAMBA_DETAIL = {
+    "mamba_in": "zxbcdt's x, b, c and dt columns read in place through its "
+    "strides, x, b, c as float32 and dt = softplus(dt + dt_bias) written "
+    "(the SSD's operands); the (row, 8-column chunk) pairs laid out flat, "
+    "four 16-byte loads a thread before its stores",
+    "mamba_out": "the D skip, the round to the model's dtype and the gated "
+    "RMSNorm: a block a token row, a chunk of 8 columns a thread held in "
+    "registers across the row's fixed-order sum; r saved",
+    "mamba_out_bwd": "y's gradient (float32, for the SSD backward) and z's "
+    "(into the z columns of zxbcdt's gradient buffer); norm_g's and "
+    "d_skip's column sums in shared memory over a block's rows, a "
+    "fixed-order finish (no atomics)",
+    "mamba_in_bwd": "the x (with the D skip's term), b, c and dt columns of "
+    "the gradient buffer from the SSD backward's dx, db, dc, ddt; dt_bias's "
+    "partials over row groups, a fixed-order finish"}
+#: flops an element of the mixer's width (exp, divisions and the norm's
+#: products counted as one each): bytes bind every one of them
+MAMBA_FLOPS = {"mamba_in": 1, "mamba_out": 14, "mamba_out_bwd": 34,
+               "mamba_in_bwd": 3}
+
+
+def mamba_inputs(gen, shape, dtype) -> dict:
+    """One case's operands on the card, from ``gen``: zxbcdt and the
+    per-head / per-channel vectors near the model's initial values, the
+    SSD's y and each gradient the kernels take."""
+    import torch
+    b, s, h, p, g, n = shape
+    di, dev = h * p, gen.device
+
+    def rand(*sh, scale=1.0):
+        return torch.randn(sh, generator=gen, device=dev) * scale
+
+    return dict(zx=rand(b, s, 2 * di + 2 * g * n + h).to(dtype),
+                dt_bias=rand(h, scale=0.5) - 1.0, d_skip=1.0 + rand(
+                    h, scale=0.3), norm_g=rand(di, scale=0.2).to(dtype),
+                y=rand(b, s, h, p), d_out=rand(b, s, di).to(dtype),
+                dx=rand(b, s, h, p), db=rand(b, s, g, n),
+                dc=rand(b, s, g, n), ddt=rand(b, s, h),
+                dims=dict(heads=h, groups=g, state=n))
+
+
+def mamba_case(t: dict, dtype_name: str) -> dict:
+    """Each of the four kernels against its plain version on ``t``'s
+    operands (the same inputs: the backwards take the kernel's r and dy),
+    twice for the same bits; the parameter gradients against the plain
+    version in float64.  Returns each kernel's normwise error, its share
+    of elements that differ from the plain version, and whether two calls
+    gave the same bits."""
+    import torch
+    from repro_torch.kernels import mamba_mixer as mm
+    zx, dims = t["zx"], t["dims"]
+    di = dims["heads"] * t["y"].shape[-1]
+    f64 = torch.float64
+    res = {}
+
+    def compare(name, got, again, want, tol):
+        # the share of elements that differ: of the first output, the one
+        # in the model's dtype (or, for mamba_in, x)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        share = float((got[0] != want[0]).float().mean())
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        res[name] = {"err": max(errs), "errs": errs, "diff_share": share,
+                     "same_bits": same, "tol": tol}
+
+    tol = MAMBA_TOL[dtype_name]
+    args = (zx, t["dt_bias"])
+    compare("mamba_in", mm.mamba_in(*args, **dims), mm.mamba_in(*args, **dims),
+            mm.mamba_in(*args, use_kernel=False, **dims), tol)
+    args = (t["y"], zx, t["d_skip"], t["norm_g"])
+    out, r = mm.mamba_out(*args)
+    compare("mamba_out", (out, r), mm.mamba_out(*args),
+            mm.mamba_out(*args, use_kernel=False), tol)
+
+    def out_bwd(use_kernel):
+        grad = torch.full_like(zx, float("nan"))
+        got = mm.mamba_out_bwd(t["d_out"], t["y"], zx, r, t["d_skip"],
+                               t["norm_g"], grad, use_kernel=use_kernel)
+        return (grad[..., :di], *got)
+
+    k1, k2, plain = out_bwd(True), out_bwd(True), out_bwd(False)
+    compare("mamba_out_bwd", k1[:2], k2[:2], plain[:2], tol)
+    dy = k1[1]
+
+    def in_bwd(use_kernel, acc=None):
+        grad = torch.full_like(zx, float("nan"))
+        if acc is None:
+            d_b = mm.mamba_in_bwd(t["dx"], t["db"], t["dc"], t["ddt"], dy,
+                                  zx, t["dt_bias"], t["d_skip"], grad,
+                                  use_kernel=use_kernel)
+        else:
+            d_b = mm.mamba_in_bwd_plain(t["dx"], t["db"], t["dc"], t["ddt"],
+                                        dy, zx, t["dt_bias"], t["d_skip"],
+                                        grad, acc=acc)
+        return grad[..., di:], d_b
+
+    j1, j2, jp = in_bwd(True), in_bwd(True), in_bwd(False)
+    compare("mamba_in_bwd", j1[:1], j2[:1], jp[:1], tol)
+    if torch.isnan(k1[0]).any() or torch.isnan(j1[0]).any():
+        raise AssertionError("the mixer's backwards left gradient columns "
+                             "unwritten")
+    # the parameter gradients against float64 (the model dtype's roundings
+    # kept) and the same bits twice
+    _, r64 = mm.mamba_out_plain(t["y"], zx, t["d_skip"], t["norm_g"], acc=f64)
+    grad = torch.empty_like(zx)
+    _, g64, _ = mm.mamba_out_bwd_plain(t["d_out"], t["y"], zx, r64,
+                                       t["d_skip"], t["norm_g"], grad,
+                                       acc=f64)
+    # d_skip's: the float64 sum of the kernel's own dy (already rounded to
+    # the model's dtype, where a float64 oracle could round an element the
+    # other way) times x
+    x = zx[..., di:2 * di].reshape(dy.shape)
+    s64 = (dy.to(f64) * x.to(f64)).sum((0, 1, 3))
+    _, b64 = in_bwd(None, acc=f64)
+    params = {"d_norm_g": (k1[2], k2[2], g64), "d_skip": (k1[3], k2[3], s64),
+              "d_dt_bias": (j1[1], j2[1], b64)}
+    res["params"] = {k: {"err": rel_err(a.double(), w), "same_bits":
+                         torch.equal(a, b)} for k, (a, b, w) in params.items()}
+    res["mamba_out_bwd"]["same_bits"] &= all(
+        res["params"][k]["same_bits"] for k in ("d_norm_g", "d_skip"))
+    res["mamba_in_bwd"]["same_bits"] &= res["params"]["d_dt_bias"]["same_bits"]
+    return res
+
+
+def mamba_times(t: dict, shape, dtype, card) -> dict:
+    """Each kernel's device time (:func:`queued_ms`) beside its plain
+    version's and its byte bound, on ``t``'s operands."""
+    import torch
+    from repro_torch.kernels import mamba_mixer as mm
+    b, s, h, p, g, n = shape
+    zx, dims = t["zx"], t["dims"]
+    out, r = mm.mamba_out(t["y"], zx, t["d_skip"], t["norm_g"])
+    grad = torch.empty_like(zx)
+    dy = mm.mamba_out_bwd(t["d_out"], t["y"], zx, r, t["d_skip"],
+                          t["norm_g"], grad)[0]
+    calls = {
+        "mamba_in": lambda k: mm.mamba_in(zx, t["dt_bias"], use_kernel=k,
+                                          **dims),
+        "mamba_out": lambda k: mm.mamba_out(t["y"], zx, t["d_skip"],
+                                            t["norm_g"], use_kernel=k),
+        "mamba_out_bwd": lambda k: mm.mamba_out_bwd(
+            t["d_out"], t["y"], zx, r, t["d_skip"], t["norm_g"], grad,
+            use_kernel=k),
+        "mamba_in_bwd": lambda k: mm.mamba_in_bwd(
+            t["dx"], t["db"], t["dc"], t["ddt"], dy, zx, t["dt_bias"],
+            t["d_skip"], grad, use_kernel=k)}
+    rows = {}
+    for name, call in calls.items():
+        nbytes = mm.mixer_bytes(name, b * s, h, p, g * n, dtype.itemsize)
+        flops = MAMBA_FLOPS[name] * b * s * h * p
+        rows[name] = {"kernel_ms": queued_ms(lambda: call(True), TIME_REPS),
+                      "plain_ms": queued_ms(lambda: call(False), 3),
+                      "bytes": nbytes, "library_ms": None,
+                      **bound(flops, nbytes, card.fp32_flops, card)}
+    return rows
+
+
+def check_mamba(card) -> dict:
+    """Phase "2 mamba": the four mixer kernels against their plain
+    versions at mamba2-2.7b's and jamba-v0.1-52b's widths and an unaligned
+    row, in bfloat16 and float32 (MAMBA_TOL normwise, the parameter
+    gradients MAMBA_PARAM_TOL of float64, two calls the same bits), then
+    each timed at the models' widths beside its plain version and its
+    byte bound.  Returns the rows; the kernels line reads mamba2-2.7b's
+    bfloat16 row (the train cell's)."""
+    import gc
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    cases, failed, timed = {}, [], {}
+    worst = {k: 0.0 for k in MAMBA_KERNELS}
+    for width, shape in MAMBA_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            t = mamba_inputs(gen, shape, dtype)
+            res = mamba_case(t, dn)
+            key = f"{width} {dn}"
+            cases[key] = res
+            for k in MAMBA_KERNELS:
+                row = res[k]
+                worst[k] = max(worst[k], row["err"])
+                if row["err"] > row["tol"] or not row["same_bits"]:
+                    failed.append((key, k, row))
+            for k, row in res["params"].items():
+                if row["err"] > MAMBA_PARAM_TOL or not row["same_bits"]:
+                    failed.append((key, k, row))
+            log(f"  {key} {shape}: " + "; ".join(
+                f"{k} err {res[k]['err']:.2e} (differ "
+                f"{100 * res[k]['diff_share']:.3f} %)" for k in MAMBA_KERNELS)
+                + "; params " + ", ".join(
+                    f"{k} {v['err']:.2e}" for k, v in res["params"].items())
+                + "; same bits twice: " + str(all(
+                    res[k]["same_bits"] for k in MAMBA_KERNELS)))
+            if width != "unaligned":
+                timed[key] = mamba_times(t, shape, dtype, card)
+                log(f"    times: " + "; ".join(
+                    f"{k} {v['kernel_ms']:.3f} ms (plain {v['plain_ms']:.3f},"
+                    f" bound {v['bound_ms']:.3f}, {v['bytes'] / 1e9:.3f} GB, "
+                    f"{100 * v['bound_ms'] / v['kernel_ms']:.1f} %)"
+                    for k, v in timed[key].items()))
+            del t
+            gc.collect()
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the mixer's kernels disagree with their plain "
+                             f"versions: {failed}")
+    main = timed["mamba2-2.7b bfloat16"]
+    return {"cases": cases, "timed": timed,
+            "kernels": {k: {**main[k], "err": worst[k]}
+                        for k in MAMBA_KERNELS}}
+
+
 def paper_path(dev) -> dict:
     import numpy as np
     import torch
@@ -2777,6 +3042,8 @@ def kernel_class(name: str) -> str:
         return "flash_attention_bwd"
     if "attn_sync_kernel" in low or "attn_wgmma_kernel" in low:
         return "flash_attention"
+    if "mamba_" in low:
+        return "mamba_mixer"
     if "ssd_bwd" in low:
         return "ssd_bwd"
     if "ssd_" in low:
@@ -4706,6 +4973,19 @@ def adamw_want(steps: int, tensors: int) -> dict:
             "adamw_sqnorm": steps * tensors}
 
 
+def mixer_launches() -> dict:
+    """The Mamba mixer's four kernel wrappers' launch counts, by name."""
+    from repro_torch.kernels import mamba_mixer as mm
+    return {k: getattr(mm, k).launches for k in MAMBA_KERNELS}
+
+
+def mixer_want(forward: int, backward: int) -> dict:
+    """What ``forward`` mixer forwards (mamba_in and mamba_out once each)
+    and ``backward`` mixer backwards launch."""
+    return {"mamba_in": forward, "mamba_out": forward,
+            "mamba_out_bwd": backward, "mamba_in_bwd": backward}
+
+
 def exact_launches(what: str, got: dict, want: dict) -> None:
     """Each kernel wrapper's launches ``got`` (by name) must equal
     ``want``'s."""
@@ -4735,9 +5015,11 @@ def ssd_train_path(dev, card) -> dict:
     steps = TRAIN_STEPS + 1
     exact_launches(f"{steps} steps of {cfg.n_layers} Mamba layers",
                    {"ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches,
-                    **adamw_launches()},
+                    **mixer_launches(), **adamw_launches()},
                    {"ssd": 2 * steps * cfg.n_layers,
                     "ssd_bwd": steps * cfg.n_layers,
+                    **mixer_want(2 * steps * cfg.n_layers,
+                                 steps * cfg.n_layers),
                     **adamw_want(steps, res["tensors"])})
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log_model_flops(f"{SSD_TRAIN_ARCH} train step", mf)
@@ -4852,6 +5134,7 @@ def check_moe_train_grads(dev) -> dict:
     from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
+    from repro_torch.kernels import mamba_mixer as mm
     from repro_torch.kernels.ssd import ssd, ssd_bwd
     from repro_torch.models import init_params, loss_fn, transformer
     from repro_torch.train.data import DataConfig, batch_at, to_device
@@ -4859,7 +5142,8 @@ def check_moe_train_grads(dev) -> dict:
     wrappers = {"flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
-                "adamw_sqnorm": adamw_sqnorm}
+                "adamw_sqnorm": adamw_sqnorm,
+                **{k: getattr(mm, k) for k in MAMBA_KERNELS}}
     seen = []
     inner = transformer.moe_forward
 
@@ -4912,7 +5196,8 @@ def check_moe_train_grads(dev) -> dict:
                 f"{flips['dropped_plain_route']} (plain)")
             exact_launches(f"{dtype_name} gradients", launched,
                            {"flash_attention": 2, "flash_attention_bwd": 1,
-                            "ssd": 2, "ssd_bwd": 1, **adamw_want(0, 0)})
+                            "ssd": 2, "ssd_bwd": 1, **mixer_want(2, 1),
+                            **adamw_want(0, 0)})
             if not max(errs.values()) <= tol:
                 raise AssertionError(f"{MOE_TRAIN_ARCH} layers 3-4 "
                                      f"{dtype_name}: the kernel route's "
@@ -4946,10 +5231,11 @@ def moe_train_path(dev, card) -> dict:
     launched = {"flash_attention": flash_attention.launches,
                 "flash_attention_bwd": flash_attention_bwd.launches,
                 "ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches,
-                **adamw_launches()}
+                **mixer_launches(), **adamw_launches()}
     exact_launches(f"{steps} steps of layers 3-4", launched,
                    {"flash_attention": 2 * steps, "flash_attention_bwd":
                     steps, "ssd": 2 * steps, "ssd_bwd": steps,
+                    **mixer_want(2 * steps, steps),
                     **adamw_want(steps, res["tensors"])})
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log_model_flops(f"{MOE_TRAIN_ARCH} layers 3-4 train step", mf)
@@ -5001,6 +5287,7 @@ def check_dots(dev, card, run: dict) -> dict:
     from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
+    from repro_torch.kernels import mamba_mixer as mm
     from repro_torch.kernels.ssd import ssd, ssd_bwd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import (chunked_cross_entropy, forward_hidden,
@@ -5013,7 +5300,8 @@ def check_dots(dev, card, run: dict) -> dict:
     wrappers = {"flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
-                "adamw_sqnorm": adamw_sqnorm}
+                "adamw_sqnorm": adamw_sqnorm,
+                **{k: getattr(mm, k) for k in MAMBA_KERNELS}}
 
     def loss_under(policy):
         if policy == "none":
@@ -5080,6 +5368,7 @@ def check_dots(dev, card, run: dict) -> dict:
                        {"flash_attention": 2 * DOTS_STEPS,
                         "flash_attention_bwd": DOTS_STEPS,
                         "ssd": 2 * DOTS_STEPS, "ssd_bwd": DOTS_STEPS,
+                        **mixer_want(2 * DOTS_STEPS, DOTS_STEPS),
                         **adamw_want(DOTS_STEPS, len(leaves))})
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"\"{policy}\" steps: losses {losses}")
@@ -5560,11 +5849,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba_mixer as mm
     from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.matmul import matmul, matmul_plain
     from repro_torch.kernels.ssd import ssd, ssd_bwd
+    from repro_torch.models.mamba import mamba_forward
     from repro_torch.perf.roofline import card_of
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -5576,8 +5867,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all(["matmul", "flash_attention",
                              "flash_attention_bwd", "ssd", "ssd_bwd",
-                             "adamw"])
-    log(f"    kernel build (six nvcc at once) "
+                             "adamw", "mamba_mixer"])
+    log(f"    kernel build (seven nvcc at once) "
         f"{time.perf_counter() - t0:.1f} s -> " +
         ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     log("    nvcc seconds per source: " + ", ".join(
@@ -5635,6 +5926,19 @@ def main() -> int:
         raise AssertionError(f"ptxas reports {len(adamw_regs)} adamw "
                              f"kernels, not {ADAMW_INSTANTIATIONS}, or "
                              f"spills in {spilled}")
+    # the Mamba mixer's glue kernels, each instantiation by its mangled
+    # name, none spilling
+    mamba_regs = ptxas_entries(
+        libs["mamba_mixer"].with_suffix(".log").read_text())
+    for name, (nreg, st, ld) in sorted(mamba_regs.items()):
+        short = re.search(r"\d+(mamba_[a-z_]+_kernel(?:I.*?E(?=Ev))?)", name)
+        log(f"    ptxas {short.group(1) if short else name}: {nreg} "
+            f"registers, spills {st} B stored / {ld} B loaded")
+    spilled = [k for k, v in mamba_regs.items() if v[1] or v[2]]
+    if len(mamba_regs) != MAMBA_INSTANTIATIONS or spilled:
+        raise AssertionError(f"ptxas reports {len(mamba_regs)} mamba_mixer "
+                             f"kernels, not {MAMBA_INSTANTIATIONS}, or spills "
+                             f"in {spilled}")
     # the matmul's SASS for phase 5, the attention libraries' for phases 6
     # and 14a, the SSD forward's for 6 and its backward's for 15a, dumped
     # meanwhile
@@ -5658,20 +5962,25 @@ def main() -> int:
     log("    AdamW's kernels (adamw_update, adamw_sqnorm) vs their plain "
         "versions on the card")
     adamw_res = phase("2 adamw", check_adamw, the_card)
+    log("    the Mamba mixer's kernels (mamba_in, mamba_out, mamba_out_bwd, "
+        "mamba_in_bwd) vs their plain versions on the card")
+    mamba_res = phase("2 mamba", check_mamba, the_card)
 
     # the main path: each of its paths runs with every kernel's count set
     # to 0 just before it and read just after
     wrappers = {"matmul": matmul, "flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
-                "adamw_sqnorm": adamw_sqnorm}
+                "adamw_sqnorm": adamw_sqnorm,
+                **{k: getattr(mm, k) for k in MAMBA_KERNELS}}
     launches = {name: {} for name in wrappers}
     # the attention forward's and backward's launches per route and path
     routed = {"matmul": matmul.launches_by_route,
               "flash_attention": flash_attention.route_launches,
               "flash_attention_bwd": flash_attention_bwd.route_launches,
               "ssd": ssd.route_launches,
-              "ssd_bwd": ssd_bwd.route_launches}
+              "ssd_bwd": ssd_bwd.route_launches,
+              "mamba_mixer": mamba_forward.route_calls}
     by_route = {name: {} for name in routed}
     route_launches = by_route["flash_attention"]
 
@@ -5838,11 +6147,13 @@ def main() -> int:
     exact_launches(f"{SHARDED_STEPS + 1} sharded steps",
                    {k: launches[k]["train_sharded"] for k in (
                        "flash_attention", "flash_attention_bwd", "ssd",
-                       "ssd_bwd", "adamw_update", "adamw_sqnorm")},
+                       "ssd_bwd", "adamw_update", "adamw_sqnorm",
+                       *MAMBA_KERNELS)},
                    {"flash_attention": 2 * (SHARDED_STEPS + 1),
                     "flash_attention_bwd": SHARDED_STEPS + 1,
                     "ssd": 2 * (SHARDED_STEPS + 1),
                     "ssd_bwd": SHARDED_STEPS + 1,
+                    **mixer_want(2 * (SHARDED_STEPS + 1), SHARDED_STEPS + 1),
                     **adamw_want(SHARDED_STEPS + 1,
                                  moe_training["tensors"])})
 
@@ -5864,8 +6175,22 @@ def main() -> int:
                 f"{r['spill_load_bytes']} B loaded (ptxas)")
     log(f"  launches on the main path, per kernel and path: {launches}")
     log(f"  the matmul's, the attention forward's and backward's and the "
-        f"SSD forward's and backward's launches per route and path: "
-        f"{by_route}")
+        f"SSD forward's and backward's launches per route and path, and the "
+        f"Mamba mixer's calls per route and path: {by_route}")
+    # every Mamba layer of the models, serve and train paths goes through
+    # the mixer's kernels: its composite route (torch ops around the SSD
+    # kernel, for meshes that split the heads) and the plain one never run,
+    # the sharded step's layers on local shards, prefill and train on the
+    # kernel span, decode steps on the decode route
+    for path, want in (("models", ("mixer", "decode")),
+                       ("serve", ("mixer", "decode")),
+                       ("train", ("mixer",)), ("train_moe", ("mixer",)),
+                       ("train_sharded", ("mixer_local",))):
+        got = by_route["mamba_mixer"][path]
+        if got["composite"] or got["reference"] or \
+                any(got[r] <= 0 for r in want):
+            raise AssertionError(f"the Mamba mixer on path {path} did not "
+                                 f"take its kernel routes {want}: {got}")
     # the tile path and the store launch the matmul on the selected tile's
     # route; the tile path's sweep launches both routes
     for path in ("tiles", "store"):
@@ -5909,7 +6234,12 @@ def main() -> int:
                        ("adamw_update", "train_moe"),
                        ("adamw_sqnorm", "train_moe"),
                        ("adamw_update", "train_sharded"),
-                       ("adamw_sqnorm", "train_sharded")):
+                       ("adamw_sqnorm", "train_sharded"),
+                       *((k, path) for path in ("models", "serve")
+                         for k in ("mamba_in", "mamba_out")),
+                       *((k, path) for path in ("train", "train_moe",
+                                                "train_sharded")
+                         for k in MAMBA_KERNELS)):
         if launches[name][path] <= 0:
             raise AssertionError(f"the main path never launched {name} on "
                                  f"its path {path}: {launches[name]}")
@@ -6179,6 +6509,28 @@ def main() -> int:
               **in_train_step("adamw"),
               **in_train_step("adamw", ssd_training, "train_mamba_step"),
               **in_train_step("adamw", moe_training, "train_moe_step")),
+        *(entry(k, f"{csrc}/mamba_mixer.cu",
+                "none: the Mamba-2 mixer's glue, XLA-fused in the "
+                "reference (src/repro/models/mamba.py:110,126-131)",
+                mamba_res["kernels"][k],
+                {"registers": max(v[0] for n, v in mamba_regs.items()
+                                  if any(e in n for e in MAMBA_ENTRIES[k])),
+                 "spill_store_bytes": 0, "spill_load_bytes": 0},
+                library="none: no single PyTorch call computes the glue",
+                shape=list(MAMBA_WIDTHS[0][1]), dtype="bfloat16",
+                route_detail=MAMBA_DETAIL[k],
+                rows={key: rows[k] for key, rows in
+                      mamba_res["timed"].items()},
+                checks={key: res[k] for key, res in
+                        mamba_res["cases"].items()},
+                params={key: res["params"] for key, res in
+                        mamba_res["cases"].items()},
+                launches_by_route=by_route["mamba_mixer"],
+                **in_train_step("mamba_mixer", ssd_training,
+                                "train_mamba_step"),
+                **in_train_step("mamba_mixer", moe_training,
+                                "train_moe_step"))
+          for k in MAMBA_KERNELS),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):
@@ -6198,7 +6550,7 @@ def main() -> int:
                        "run": moe_training, "dots": dots},
          "distributed": {"sharded_step": sharded, "elastic": elastic,
                          "dryrun": dry},
-         "adamw": adamw_res, "phase_s": phase_s,
+         "adamw": adamw_res, "mamba_mixer": mamba_res, "phase_s": phase_s,
          **kernels},
         indent=1, default=str))
     log(f"  phase host times (s): "

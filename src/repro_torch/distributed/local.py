@@ -125,6 +125,41 @@ def ssd(fn: Callable, x, dt, a_log, b, c, h0=None):
     return run(*args)
 
 
+def splits_heads(t, heads: int) -> bool:
+    """Whether a shard-local call on ``t`` (a ``DTensor`` whose dim 0 is
+    the batch) would split ``heads`` heads over some mesh dimension
+    (:func:`_work_split`): a Mamba mixer's gated norm then needs a sum
+    across the head shards."""
+    return _work_split(t, t.device_mesh, t.shape[0], heads)[1] > 1
+
+
+def mixer(fn: Callable, heads: int, zxbcdt, dt_bias, a_log, d_skip, norm_g,
+          h0=None):
+    """``fn(zxbcdt, dt_bias, a_log, d_skip, norm_g, h0) -> (out,
+    h_final)`` (the Mamba mixer's kernels) on local shards of
+    ``DTensor``s whose mesh splits none of the ``heads`` heads
+    (:func:`splits_heads` false): zxbcdt (B, S, W), out (B, S, d_inner)
+    and h0, h_final (B, H, P, N) keep the batch where a mesh dimension
+    shards it and are replicated elsewhere; the per-head and per-channel
+    vectors are replicated, their gradients partial sums over the batch's
+    dimensions."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = zxbcdt.device_mesh
+    split, h_prod = _work_split(zxbcdt, mesh, zxbcdt.shape[0], heads)
+    if h_prod > 1:
+        raise ValueError("local.mixer takes a mesh that splits no heads")
+    pb, gb = _placements(split, 0, None)
+    pv, gv = _placements(split, None, None)
+    args = (zxbcdt, dt_bias, a_log, d_skip, norm_g) + \
+        (() if h0 is None else (h0,))
+    pls = (pb, pv, pv, pv, pv) + (() if h0 is None else (pb,))
+    grads = (gb, gv, gv, gv, gv) + (() if h0 is None else (gb,))
+    run = local_map(fn, out_placements=(pb, pb), in_placements=pls,
+                    in_grad_placements=grads, device_mesh=mesh,
+                    redistribute_inputs=True)
+    return run(*args)
+
+
 #: the MoE expert weights, whose dim 0 (the experts) is expert-parallel
 _EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
 

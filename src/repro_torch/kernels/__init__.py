@@ -16,6 +16,10 @@
 * ``adamw`` -- the optimizer step: each gradient's sum of squares for the
   clip and one tensor's AdamW update in one pass, the plain version's
   bits (the reference's update is fused by XLA; no Pallas body)
+* ``mamba_mixer`` -- the Mamba-2 mixer's elementwise glue around the SSD:
+  the SSD's operands from the in-projection's output, the D skip with the
+  gated RMSNorm, and both backwards into one gradient buffer, spanned by
+  ``MambaMixerFn`` (XLA fuses the reference's glue; no Pallas body)
 
 ``ops`` holds the public wrappers, ``ref`` the plain PyTorch oracles.  The
 kernels are built from ``csrc/`` on first use (:mod:`._build`).  The
@@ -23,7 +27,9 @@ attention and SSD forwards and backwards are also ``torch.library``
 operators (``repro_torch::flash_attention_fwd``, ``flash_attention_bwd``,
 ``ssd_fwd``, ``ssd_bwd``) with fake implementations, autograd and flop
 formulas, and so are AdamW's (``adamw_sqnorm``, ``adamw_update``,
-``adamw_update_apply``), so that a sharded or traced step reaches them.
+``adamw_update_apply``) and the mixer's (``mamba_in``, ``mamba_out``,
+``mamba_out_bwd``, ``mamba_in_bwd``), so that a sharded or traced step
+reaches them.
 """
 
 from . import ops, ref

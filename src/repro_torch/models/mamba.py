@@ -1,26 +1,37 @@
 """Mamba-2 (SSD) block, the counterpart of ``repro/models/mamba.py``.
 
 The reference's docstring says that the Pallas SSD kernel replaces its
-chunked scan on real hardware; here it does.  Every call with more than one
-step goes to the hand-written kernel, :func:`repro_torch.kernels.ssd`, at
-``cfg.ssm_chunk`` (clamped to the length), with the incoming state as its
-``h0`` and its final state taken back.  The kernel takes float32 operands,
-so the operands are cast to float32 first: the reference carries the state
-and the decay in float32 too, and a bfloat16 model runs the float32 kernel.
-The one-step decode recurrence, the D skip, the gated RMSNorm and the
-projections stay in PyTorch, as they stay in XLA in the reference.
+chunked scan on real hardware; here it does, and the elementwise glue
+around the scan, which XLA fuses in the reference, runs as hand-written
+kernels too (:mod:`repro_torch.kernels.mamba_mixer`).  Between the two
+projections a call takes one of the routes :func:`mixer_route` gives:
 
-Training: the kernel scan is differentiable.  Under grad it runs
-:class:`repro_torch.kernels.ssd.SsdFn`, whose backward is the hand-written
-SSD backward (``csrc/ssd_bwd.cu``), so ``models.loss_fn`` trains an
-``ssm``-family config such as mamba2-2.7b on the card, per-period remat
-re-running the forward kernels inside ``torch.utils.checkpoint``; the
-softplus, the D skip, the norm and the projections differentiate in
-PyTorch.  The reference differentiates ``_ssd_chunked`` in XLA.
+* "mixer": :func:`repro_torch.kernels.mamba_mixer.mamba_mixer` from the
+  in-projection's output to the normed output -- ``mamba_in`` (the split,
+  the float32 operands, ``softplus(dt + dt_bias)``), the SSD kernel at
+  ``cfg.ssm_chunk`` (clamped to the length) from the incoming state, and
+  ``mamba_out`` (the D skip, the round to the model's dtype, the gated
+  RMSNorm).  Under grad its backward is ``mamba_out_bwd``, the SSD
+  backward (``csrc/ssd_bwd.cu``) and ``mamba_in_bwd``, which write the
+  in-projection's gradient into one buffer; ``models.loss_fn`` trains an
+  ``ssm``-family config such as mamba2-2.7b through it on the card,
+  per-period remat re-running the forward kernels inside
+  ``torch.utils.checkpoint``;
+* "mixer_local": the same on the local shards of ``DTensor``s whose mesh
+  splits no heads (``distributed.local.mixer``);
+* "decode": a one-step decode (S = 1 with a state) on plain tensors:
+  ``mamba_in`` and ``mamba_out`` around the torch recurrence;
+* "composite": ``DTensor``s whose mesh splits the heads (the gated norm's
+  row mean then needs a sum across head shards) and sharded decode: the
+  glue in torch ops around the SSD kernel on local shards;
+* "reference": ``use_kernel=False``, the composite around the kernel's
+  plain scan (:func:`repro_torch.kernels.ssd.ssd_plain`) on any device:
+  the port's one plain mixer, in place of the reference's
+  ``_ssd_chunked``, which autograd differentiates.
 
-``use_kernel=False`` sends the scan to the kernel's plain version
-(:func:`repro_torch.kernels.ssd.ssd_plain`) on any device: the port's one
-plain scan, in place of the reference's ``_ssd_chunked``.
+On CPU tensors every kernel wrapper runs its plain version.  The kernels
+take float32 SSD operands, as the reference carries the state and the
+decay in float32; a bfloat16 model runs the float32 scan.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from torch import nn
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..distributed import local
+from ..kernels.mamba_mixer import mamba_in, mamba_mixer, mamba_out
 from ..kernels.ssd import ssd, ssd_plain
 from .layers import normal
 
@@ -96,6 +108,32 @@ def _recurrence(x, dt, a_log, b, c, state):
     return y, new_state
 
 
+#: the mixer's routes, by :func:`mixer_route`: "mixer" (plain tensors:
+#: :class:`repro_torch.kernels.mamba_mixer.MambaMixerFn`, the glue's kernels
+#: around the SSD's), "mixer_local" (``DTensor``s whose mesh splits no
+#: heads: the same on local shards), "decode" (a one-step decode on plain
+#: tensors: the glue's forward kernels around the recurrence), "composite"
+#: (``DTensor``s whose mesh splits the heads, and sharded decode: the glue
+#: in torch ops around the SSD kernel on local shards, the norm's row sum
+#: reduced across head shards) and "reference" (``use_kernel=False``: the
+#: same composite around the plain scan)
+MIXER_ROUTES = ("mixer", "mixer_local", "decode", "composite", "reference")
+
+
+def mixer_route(cfg: ArchConfig, zxbcdt: torch.Tensor, decode: bool,
+                use_kernel: bool) -> str:
+    """The route of one :func:`mamba_forward` call (:data:`MIXER_ROUTES`)
+    for the in-projection's output ``zxbcdt``: ``decode`` is a one-step
+    call with a state."""
+    if not use_kernel:
+        return "reference"
+    if local.is_sharded(zxbcdt):
+        if decode or local.splits_heads(zxbcdt, cfg.ssm_heads):
+            return "composite"
+        return "mixer_local"
+    return "decode" if decode else "mixer"
+
+
 def mamba_forward(cfg: ArchConfig, p: MambaParams, x_in: torch.Tensor, *,
                   state: Optional[torch.Tensor] = None,
                   return_state: bool = False, use_kernel: bool = True):
@@ -103,12 +141,70 @@ def mamba_forward(cfg: ArchConfig, p: MambaParams, x_in: torch.Tensor, *,
 
     Decode: S==1 and ``state`` (B, H, P, N) -> O(1) recurrence step.
     Otherwise the SSD kernel scans the S steps from ``state`` (zero when
-    None).  With ``return_state`` returns ``(out, new_state)``.
+    None).  With ``return_state`` returns ``(out, new_state)``.  The route
+    is :func:`mixer_route`'s, each call counted in
+    ``mamba_forward.route_calls``.
     """
+    S = x_in.shape[1]
+    decode = S == 1 and state is not None
+    zxbcdt = x_in @ p.in_proj
+    route = mixer_route(cfg, zxbcdt, decode, use_kernel)
+    mamba_forward.route_calls[route] += 1
+    if route in ("mixer", "mixer_local"):
+        y, new_state = _mixer(cfg, p, zxbcdt, state, route == "mixer_local")
+    elif route == "decode":
+        y, new_state = _decode(cfg, p, zxbcdt, state)
+    else:
+        y, new_state = _composite(cfg, p, x_in, zxbcdt, state, use_kernel)
+    out = y @ p.out_proj
+    if return_state:
+        return out, new_state
+    return out
+
+
+mamba_forward.route_calls = dict.fromkeys(MIXER_ROUTES, 0)
+
+
+def _mixer(cfg: ArchConfig, p: MambaParams, zxbcdt: torch.Tensor,
+           state: Optional[torch.Tensor], on_shards: bool):
+    """The mixer's kernels from zxbcdt to the normed output (B, S, d_inner)
+    in zxbcdt's dtype, and the final state: :func:`mamba_mixer` at
+    ``cfg.ssm_chunk`` (clamped to S), on local shards when ``on_shards``."""
+    h0 = None if state is None else state.float().contiguous()
+    kw = dict(heads=cfg.ssm_heads, groups=cfg.ssm_groups,
+              state=cfg.ssm_state, chunk=cfg.ssm_chunk, want_state=True)
+
+    def run(zxbcdt, dt_bias, a_log, d_skip, norm_g, h0=None):
+        return mamba_mixer(zxbcdt, dt_bias, a_log, d_skip, norm_g, h0=h0,
+                           **kw)
+
+    args = (zxbcdt, p.dt_bias, p.a_log, p.d_skip, p.norm_g, h0)
+    if on_shards:
+        return local.mixer(run, cfg.ssm_heads, *args)
+    return run(*args)
+
+
+def _decode(cfg: ArchConfig, p: MambaParams, zxbcdt: torch.Tensor,
+            state: torch.Tensor):
+    """One decode step on plain tensors: :func:`mamba_in`, the recurrence
+    on its float32 operands (the promotions it computed on the model's
+    dtype), :func:`mamba_out`."""
+    xh, dt, bg, cg = mamba_in(zxbcdt, p.dt_bias, heads=cfg.ssm_heads,
+                              groups=cfg.ssm_groups, state=cfg.ssm_state)
+    y, new_state = _recurrence(xh, dt, p.a_log, bg, cg, state)
+    out, _ = mamba_out(y, zxbcdt, p.d_skip, p.norm_g)
+    return out, new_state
+
+
+def _composite(cfg: ArchConfig, p: MambaParams, x_in: torch.Tensor,
+               zxbcdt: torch.Tensor, state: Optional[torch.Tensor],
+               use_kernel: bool):
+    """The glue in torch ops around the SSD kernel (its plain version
+    without ``use_kernel``), on local shards for ``DTensor``s."""
     bsz, S, _ = x_in.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
-    z, xi, bb, cc, dt = _split_proj(cfg, x_in @ p.in_proj)
+    z, xi, bb, cc, dt = _split_proj(cfg, zxbcdt)
     xh = local.split_last(xi, h, pdim)
     bg = local.split_last(bb, g, n)
     cg = local.split_last(cc, g, n)
@@ -146,10 +242,7 @@ def mamba_forward(cfg: ArchConfig, p: MambaParams, x_in: torch.Tensor, *,
     else:
         var = torch.mean(yf * yf, dim=-1, keepdim=True)
     yf = yf * torch.rsqrt(var + 1e-6) * (1.0 + p.norm_g.float())
-    out = yf.to(x_in.dtype) @ p.out_proj
-    if return_state:
-        return out, new_state
-    return out
+    return yf.to(x_in.dtype), new_state
 
 
 def init_ssm_state(cfg: ArchConfig, batch: int,

@@ -272,8 +272,8 @@ def _spy(monkeypatch, module, name):
 
 @pytest.mark.parametrize("arch,kernel,plain,module", [
     ("gemma2-27b", "flash_attention", "flash_attention_plain", attention),
-    ("mamba2-2.7b", "ssd", "ssd_plain", mamba),
-    ("jamba-v0.1-52b", "ssd", "ssd_plain", mamba),
+    ("mamba2-2.7b", "mamba_mixer", "ssd_plain", mamba),
+    ("jamba-v0.1-52b", "mamba_mixer", "ssd_plain", mamba),
 ])
 def test_models_reach_the_kernel_wrappers_unless_told_not_to(
         monkeypatch, arch, kernel, plain, module):

@@ -354,7 +354,7 @@ def test_admissions_reach_the_kernel_wrappers(monkeypatch, arch):
     n_ssm = len(specs) - n_attn
     calls = {name: _spy(monkeypatch, module, name) for module, name in (
         (attention, "flash_attention"), (attention, "flash_attention_plain"),
-        (mamba, "ssd"), (mamba, "ssd_plain"))}
+        (mamba, "mamba_mixer"), (mamba, "ssd_plain"))}
 
     def admitted(use_kernel, length):
         for c in calls.values():
@@ -366,10 +366,10 @@ def test_admissions_reach_the_kernel_wrappers(monkeypatch, arch):
 
     assert admitted(True, 40) == {"flash_attention": n_attn,
                                   "flash_attention_plain": 0,
-                                  "ssd": n_ssm, "ssd_plain": 0}
+                                  "mamba_mixer": n_ssm, "ssd_plain": 0}
     assert admitted(False, 40) == {"flash_attention": 0,
                                    "flash_attention_plain": n_attn,
-                                   "ssd": 0, "ssd_plain": n_ssm}
+                                   "mamba_mixer": 0, "ssd_plain": n_ssm}
     assert admitted(True, 12) == dict.fromkeys(calls, 0)
     eng = _engine(arch)
     eng.add_request(Request(uid=0, prompt=np.arange(1, 17, dtype=np.int32),

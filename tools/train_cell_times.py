@@ -33,9 +33,11 @@ from pathlib import Path
 #: chip_smoke's train cells: (its function, the kernels it launches)
 CELLS = {"14c": ("train_path", ["flash_attention", "flash_attention_bwd",
                                 "adamw"]),
-         "15c": ("ssd_train_path", ["ssd", "ssd_bwd", "adamw"]),
+         "15c": ("ssd_train_path", ["ssd", "ssd_bwd", "adamw",
+                                    "mamba_mixer"]),
          "16c": ("moe_train_path", ["flash_attention", "flash_attention_bwd",
-                                    "ssd", "ssd_bwd", "adamw"])}
+                                    "ssd", "ssd_bwd", "adamw",
+                                    "mamba_mixer"])}
 
 
 def main() -> None:

@@ -1113,11 +1113,16 @@ def check_adamw(card) -> dict:
 # ------------------------------------------------------- phase 2, mamba --
 #: phase "2 mamba": the Mamba-2 mixer's glue kernels (csrc/mamba_mixer.cu)
 #: at each model's width, (batch, length, heads, P, groups, N):
-#: mamba2-2.7b (d_inner 5120, W 10576) and jamba-v0.1-52b (8192, 16544),
-#: and one unaligned row (W 109: the kernels' scalar path)
+#: mamba2-2.7b (d_inner 5120, W 10576) and jamba-v0.1-52b (8192, 16544);
+#: mamba2's width at 3 x 1365 = 4095 rows, which leaves the backwards'
+#: last row group short; and one unaligned row (W 109: the kernels'
+#: scalar path)
 MAMBA_WIDTHS = (("mamba2-2.7b", (1, 4096, 80, 64, 1, 128)),
                 ("jamba-v0.1-52b", (1, 4096, 128, 64, 1, 16)),
+                ("ragged", (3, 1365, 80, 64, 1, 128)),
                 ("unaligned", (2, 48, 5, 8, 1, 12)))
+#: the widths phase "2 mamba" times (the others it checks)
+MAMBA_TIMED = ("mamba2-2.7b", "jamba-v0.1-52b")
 #: normwise, kernel against plain: float32 the same operations in another
 #: order; bfloat16 one rounding of the model's dtype apart
 MAMBA_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
@@ -1126,15 +1131,20 @@ MAMBA_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 MAMBA_PARAM_TOL = 1e-5
 MAMBA_KERNELS = ("mamba_in", "mamba_out", "mamba_out_bwd", "mamba_in_bwd")
 #: entry functions of csrc/mamba_mixer.cu: mamba_in's vector and scalar
-#: kernels, mamba_out, mamba_out_bwd and mamba_in_bwd on both paths, each
-#: for float32 and bfloat16, and the two finishes
-MAMBA_INSTANTIATIONS = 18
+#: kernels and mamba_out on both paths, each for float32 and bfloat16
+#: (8); the backwards' scalar kernels and mamba_in_bwd's vector kernel,
+#: each for both (6); mamba_out_bwd's vector kernel at launch bounds of
+#: 640 and 1024 threads for both, and without y in its ring for float32
+#: at 1024 (5); the two finishes
+MAMBA_INSTANTIATIONS = 21
 #: each wrapper's entry functions, as their mangled names hold them
 MAMBA_ENTRIES = {"mamba_in": ("mamba_in_kernel", "mamba_in_vec_kernel"),
                  "mamba_out": ("mamba_out_kernel",),
                  "mamba_out_bwd": ("mamba_out_bwd_kernel",
+                                   "mamba_out_bwd_vec_kernel",
                                    "mamba_out_bwd_finish_kernel"),
                  "mamba_in_bwd": ("mamba_in_bwd_kernel",
+                                  "mamba_in_bwd_vec_kernel",
                                   "mamba_in_bwd_finish_kernel")}
 MAMBA_DETAIL = {
     "mamba_in": "zxbcdt's x, b, c and dt columns read in place through its "
@@ -1145,12 +1155,18 @@ MAMBA_DETAIL = {
     "RMSNorm: a block a token row, a chunk of 8 columns a thread held in "
     "registers across the row's fixed-order sum; r saved",
     "mamba_out_bwd": "y's gradient (float32, for the SSD backward) and z's "
-    "(into the z columns of zxbcdt's gradient buffer); norm_g's and "
-    "d_skip's column sums in shared memory over a block's rows, a "
-    "fixed-order finish (no atomics)",
+    "(into the z columns of zxbcdt's gradient buffer): a block a fixed row "
+    "group, a chunk of 8 columns a thread, each thread's chunks of the rows "
+    "ahead copied by cp.async into its own slots of a 2-4 stage ring in "
+    "shared memory, so the next rows' bytes are in flight across the row's "
+    "fixed-order sum (one barrier a row); norm_g's column sums and d_skip's "
+    "chunk sums in registers, a fixed-order finish (no atomics)",
     "mamba_in_bwd": "the x (with the D skip's term), b, c and dt columns of "
-    "the gradient buffer from the SSD backward's dx, db, dc, ddt; dt_bias's "
-    "partials over row groups, a fixed-order finish"}
+    "the gradient buffer from the SSD backward's dx, db, dc, ddt: the x, b "
+    "and c (row, 8-column chunk) pairs flat, four a thread with their loads "
+    "before their stores, a chunk's head by a multiply; the dt columns the "
+    "launch's first blocks, a fixed row group each (dt_bias's partials), a "
+    "fixed-order finish"}
 #: flops an element of the mixer's width (exp, divisions and the norm's
 #: products counted as one each): bytes bind every one of them
 MAMBA_FLOPS = {"mamba_in": 1, "mamba_out": 14, "mamba_out_bwd": 34,
@@ -1289,17 +1305,20 @@ def mamba_times(t: dict, shape, dtype, card) -> dict:
                       "plain_ms": queued_ms(lambda: call(False), 3),
                       "bytes": nbytes, "library_ms": None,
                       **bound(flops, nbytes, card.fp32_flops, card)}
+        if name in ("mamba_out_bwd", "mamba_in_bwd"):
+            rows[name]["launch"] = mm.bwd_occupancy(name, dtype, h * p)
     return rows
 
 
 def check_mamba(card) -> dict:
     """Phase "2 mamba": the four mixer kernels against their plain
-    versions at mamba2-2.7b's and jamba-v0.1-52b's widths and an unaligned
-    row, in bfloat16 and float32 (MAMBA_TOL normwise, the parameter
-    gradients MAMBA_PARAM_TOL of float64, two calls the same bits), then
-    each timed at the models' widths beside its plain version and its
-    byte bound.  Returns the rows; the kernels line reads mamba2-2.7b's
-    bfloat16 row (the train cell's)."""
+    versions at mamba2-2.7b's and jamba-v0.1-52b's widths, mamba2's at a
+    ragged row count and an unaligned row, in bfloat16 and float32
+    (MAMBA_TOL normwise, the parameter gradients MAMBA_PARAM_TOL of
+    float64, two calls the same bits), then each timed at the models'
+    widths beside its plain version and its byte bound (the backwards
+    with their blocks per SM).  Returns the rows; the kernels line reads
+    mamba2-2.7b's bfloat16 row (the train cell's)."""
     import gc
     import torch
     gen = torch.Generator(device="cuda").manual_seed(32)
@@ -1327,12 +1346,15 @@ def check_mamba(card) -> dict:
                     f"{k} {v['err']:.2e}" for k, v in res["params"].items())
                 + "; same bits twice: " + str(all(
                     res[k]["same_bits"] for k in MAMBA_KERNELS)))
-            if width != "unaligned":
+            if width in MAMBA_TIMED:
                 timed[key] = mamba_times(t, shape, dtype, card)
                 log(f"    times: " + "; ".join(
                     f"{k} {v['kernel_ms']:.3f} ms (plain {v['plain_ms']:.3f},"
                     f" bound {v['bound_ms']:.3f}, {v['bytes'] / 1e9:.3f} GB, "
-                    f"{100 * v['bound_ms'] / v['kernel_ms']:.1f} %)"
+                    f"{100 * v['bound_ms'] / v['kernel_ms']:.1f} % of the "
+                    f"bound" + (f", {v['launch']['blocks_per_sm']} blocks of "
+                                f"{v['launch']['threads']} an SM"
+                                if "launch" in v else "") + ")"
                     for k, v in timed[key].items()))
             del t
             gc.collect()

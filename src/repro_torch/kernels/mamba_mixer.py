@@ -224,6 +224,7 @@ _ARGS = {
                             _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "repro_mamba_in_bwd": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _I,
                            _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P],
+    "repro_mamba_bwd_occupancy": [_I, _I, _I, _P],
 }
 
 
@@ -246,10 +247,12 @@ def _rows(zxbcdt: torch.Tensor):
     return bsz * s, s, zxbcdt.stride(0), zxbcdt.stride(1)
 
 
-#: row groups of the backwards' partial sums, at most: mamba_out_bwd's
-#: (d_inner wide, summed in shared memory) and mamba_in_bwd's (H wide)
-OUT_BWD_BLOCKS = 256
-IN_BWD_BLOCKS = 2048
+#: row groups of the backwards' partial sums, at most (the library's
+#: kOutBwdBlocks and kInBwdBlocks): mamba_out_bwd's (d_inner wide, a
+#: block a group, one wave of one block an SM on the H100's 132) and
+#: mamba_in_bwd's dt columns' (H wide, the launch's first blocks)
+OUT_BWD_BLOCKS = 128
+IN_BWD_BLOCKS = 128
 
 
 def partial_blocks(rows: int, most: int = OUT_BWD_BLOCKS) -> int:
@@ -259,6 +262,23 @@ def partial_blocks(rows: int, most: int = OUT_BWD_BLOCKS) -> int:
     blocks = min(rows, most)
     per = -(-rows // blocks)
     return -(-rows // per)
+
+
+def bwd_occupancy(kernel: str, dtype: torch.dtype, d_inner: int) -> dict:
+    """The launch a backward's vector path makes at ``d_inner`` on the
+    current card: ``{"blocks_per_sm", "threads", "smem_bytes", "stages"}``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; ``stages``
+    mamba_out_bwd's ring, 0 for mamba_in_bwd)."""
+    which = ("mamba_out_bwd", "mamba_in_bwd").index(kernel)
+    lib, fn = _fn("repro_mamba_bwd_occupancy",
+                  _ARGS["repro_mamba_bwd_occupancy"])
+    out = (ctypes.c_int * 4)()
+    err = fn(which, _DTYPE_CODES[dtype], d_inner, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{kernel} occupancy: "
+                           f"{lib.repro_cuda_error_string(err).decode()}")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "stages"),
+                    out))
 
 
 def _launch_in(zxbcdt, dt_bias, heads, groups, state):
@@ -293,15 +313,16 @@ def _launch_out_bwd(d_out, y, zxbcdt, r, d_skip, norm_g, grad):
     bsz, s, heads, p = y.shape
     di = heads * p
     f32 = dict(dtype=torch.float32, device=y.device)
-    nb = partial_blocks(bsz * s)
     dy = torch.empty_like(y)
-    part = torch.empty((2, nb, di), **f32)
+    # norm_g's and d_skip's partials, a row a row group
+    part_g = torch.empty((partial_blocks(bsz * s), di), **f32)
+    part_s = torch.empty_like(part_g)
     d_norm_g = torch.empty((di,), **f32)
     d_skip_grad = torch.empty((heads,), **f32)
     _launch("repro_mamba_out_bwd", "mamba_out_bwd", d_out, y, zxbcdt,
             _DTYPE_CODES[zxbcdt.dtype], *_rows(zxbcdt), r, di, p,
             grad.shape[-1], d_skip, _DTYPE_CODES[d_skip.dtype], norm_g,
-            _DTYPE_CODES[norm_g.dtype], dy, grad, part[0], part[1], d_norm_g,
+            _DTYPE_CODES[norm_g.dtype], dy, grad, part_g, part_s, d_norm_g,
             d_skip_grad)
     mamba_out_bwd.launches += 1
     return dy, d_norm_g, d_skip_grad

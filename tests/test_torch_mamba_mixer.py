@@ -19,6 +19,8 @@ backward against float64 autograd of the plain forward at 1e-10, and
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -343,12 +345,87 @@ def test_fake_cuda_tensors_are_checked():
                            groups=1, state=16, chunk=2)
 
 
+#: the library's row-group limits, read from its source
+CU = (Path(mm.__file__).parent / "csrc" / "mamba_mixer.cu").read_text()
+CU_BLOCKS = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                 CU).group(1))
+             for name in ("kOutBwdBlocks", "kInBwdBlocks")}
+#: row counts the scratch is checked at: the models' 4096, ragged counts
+#: about it, two sequences of 4096, and small ones
+SCRATCH_ROWS = [(1, 1), (1, 7), (1, 4095), (1, 4096), (1, 4097), (2, 4096),
+                (3, 1365)]
+
+
+def _row_groups(rows: int, most: int):
+    """(rows a group, groups): the library's ``row_groups``, written out
+    again here."""
+    blocks = min(rows, most)
+    per = -(-rows // blocks)
+    return per, -(-rows // per)
+
+
 def test_partial_blocks_depend_on_the_rows_alone():
+    """Both backwards' row groups: mamba_out_bwd's (a block a group, one
+    wave on the H100's 132 SMs) and mamba_in_bwd's dt columns' (the
+    launch's first blocks) follow the library's rule from the row count
+    alone: every group holds a row, none is past the rows, at most the
+    limit the source sets."""
+    assert (mm.OUT_BWD_BLOCKS, mm.IN_BWD_BLOCKS) == (
+        CU_BLOCKS["kOutBwdBlocks"], CU_BLOCKS["kInBwdBlocks"])
+    assert mm.OUT_BWD_BLOCKS <= 132
     for most in (mm.OUT_BWD_BLOCKS, mm.IN_BWD_BLOCKS):
-        for rows in (1, 5, 255, 256, 257, 2049, 4096, 8192, 10 ** 6 + 1):
+        for rows in (1, 5, 127, 128, 129, 255, 256, 257, 2049, 4095, 4096,
+                     4097, 8192, 10 ** 6 + 1):
             nb = mm.partial_blocks(rows, most)
-            per = -(-rows // min(rows, most))
+            per, want = _row_groups(rows, most)
+            assert nb == want
             assert nb <= most and (nb - 1) * per < rows <= nb * per
+
+
+@pytest.mark.parametrize("bs", SCRATCH_ROWS,
+                         ids=[f"{b}x{s}" for b, s in SCRATCH_ROWS])
+@pytest.mark.parametrize("width", [(80, 64, 1, 128), (128, 64, 1, 16)],
+                         ids=["mamba2", "jamba"])
+def test_wrappers_allocate_the_scratch_their_kernels_need(monkeypatch, bs,
+                                                          width):
+    """Through fake CUDA tensors at the models' widths, each backward's
+    wrapper hands its kernel the row count and a partials' scratch of as
+    many rows as the library's rule gives its groups: (2, groups, d_inner)
+    for mamba_out_bwd, (groups, H) for mamba_in_bwd's dt columns."""
+    b, s = bs
+    h, p, g, n = width
+    di, rows = h * p, b * s
+    calls = {}
+
+    def record(name, what, *args):
+        calls[name] = args
+
+    monkeypatch.setattr(mm, "_launch", record)
+    with FakeTensorMode():
+        kw = dict(device="cuda")
+        zx = torch.empty(b, s, 2 * di + 2 * g * n + h, dtype=torch.bfloat16,
+                         **kw)
+        y = torch.empty(b, s, h, p, **kw)
+        r = torch.empty(b, s, **kw)
+        vec = torch.empty(h, **kw)
+        norm_g = torch.empty(di, dtype=torch.bfloat16, **kw)
+        d_out = torch.empty(b, s, di, dtype=torch.bfloat16, **kw)
+        grad = torch.empty_like(zx)
+        dy, d_g, d_s = mm._launch_out_bwd(d_out, y, zx, r, vec, norm_g, grad)
+        db = torch.empty(b, s, g, n, **kw)
+        d_b = mm._launch_in_bwd(y, db, db, torch.empty(b, s, h, **kw), dy,
+                                zx, vec, vec, grad)
+    out_args, in_args = calls["repro_mamba_out_bwd"], calls[
+        "repro_mamba_in_bwd"]
+    _, nb = _row_groups(rows, CU_BLOCKS["kOutBwdBlocks"])
+    assert out_args[4] == rows
+    assert tuple(out_args[18].shape) == tuple(out_args[19].shape) == (nb, di)
+    assert out_args[18] is not out_args[19]
+    _, nb = _row_groups(rows, CU_BLOCKS["kInBwdBlocks"])
+    assert in_args[7] == rows
+    assert tuple(in_args[21].shape) == (nb, h)
+    assert tuple(d_g.shape) == (di,) and tuple(d_s.shape) == (h,)
+    assert tuple(d_b.shape) == (h,)
 
 
 # ----------------------------------------------------------------- routes --

@@ -19,8 +19,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import mamba_mixer as mm  # noqa: E402
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
-#: (batch, length, heads, P, groups, N): aligned, then unaligned rows
-SHAPES = [(2, 64, 4, 16, 1, 16), (1, 48, 5, 8, 1, 12)]
+#: (batch, length, heads, P, groups, N): aligned, unaligned and ragged
+#: rows
+SHAPES = [(2, 64, 4, 16, 1, 16), (1, 48, 5, 8, 1, 12),
+          (3, 1365, 80, 64, 1, 128)]
 
 
 @pytest.fixture
@@ -54,7 +56,8 @@ def _inputs(card, shape, dtype, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES, ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=["aligned", "unaligned", "ragged"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_and_repeat(card, shape, dtype):
     t = _inputs(card, shape, dtype)

@@ -12,8 +12,9 @@ version, and drives every path of the port on the card:
 
 1. card and kernel build (each source's nvcc seconds; registers and
    spills of every instantiation, the matmul's ten wgmma kernels each,
-   the SSD forward's six wgmma kernels each and AdamW's eleven entry
-   functions each, none of them spilling);
+   the SSD forward's six wgmma kernels each, AdamW's eleven entry
+   functions each, the mixer's 21 and the norm's 17, none of them
+   spilling);
 2. kernel check: the CUDA matmul's route table (the library's against
    ``matmul_route``, with its staging and split scratch), then the matmul
    against its plain version on the test shapes and on a shape for each
@@ -28,7 +29,18 @@ version, and drives every path of the port on the card:
    against ``update`` and ``apply_updates`` (and the plain route), the
    norm kernel within 1e-6 of a float64 sum and the same bits twice, and
    both timed at the embedding beside their byte bounds, their plain
-   versions and one PyTorch call each;
+   versions and one PyTorch call each; then the Mamba mixer's four kernels
+   (phase "2 mamba"); then the block RMSNorm's forward and backward
+   kernels (phase "2 rmsnorm") against their plain versions at d_model
+   2560, 4096, 4608 and 8192 and an unaligned 2550, at 4096, 1 and 4095
+   rows, in bfloat16 and float32 (y and dx within 4e-3 / 1e-5 normwise,
+   rstd and scale's gradient within 1e-5, the latter also of a float64
+   sum, the same bits twice), timed at 4096 rows (and bfloat16 at one
+   row) beside their plain versions, ``torch.nn.functional.rms_norm``
+   and their byte bounds; every norm of the models, serve and train paths takes the
+   kernel route (on 17a the local one), and every train path's launches
+   of the two are exact (a block norm twice forward a step under remat,
+   the final norm once, each backward once);
 3. the paper's path at n = 4096, b from 64 to 1024: generate
    potf2/trsm/syrk/gemm models on the card over the domains the Cholesky
    tracers call, rank the three potrf variants and the block size without
@@ -1366,6 +1378,213 @@ def check_mamba(card) -> dict:
     return {"cases": cases, "timed": timed,
             "kernels": {k: {**main[k], "err": worst[k]}
                         for k in MAMBA_KERNELS}}
+
+
+# ----------------------------------------------------- phase "2 rmsnorm" --
+#: the widths phase "2 rmsnorm" checks: mamba2-2.7b's d_model, jamba's and
+#: deepseek's, gemma2-27b's, chameleon's (the widest), and one that is not
+#: a multiple of 8 (the kernels' scalar path)
+RMSNORM_WIDTHS = (2560, 4096, 4608, 8192, 2550)
+#: its row counts: train_4k's tokens, a decode step's one, and a ragged
+#: count (the backward's last row group short)
+RMSNORM_ROWS = (4096, 1, 4095)
+#: the cases it times: every width at 4096 rows, and a decode step's row
+#: in bfloat16
+RMSNORM_TIMED = {(4096, "bfloat16"), (4096, "float32"), (1, "bfloat16")}
+#: the row the kernels line reads: mamba2-2.7b's width (the train cell
+#: 15c's), 4096 rows, bfloat16
+RMSNORM_MAIN = "2560 x 4096 bfloat16"
+#: normwise, y and dx against the plain version (MAMBA_TOL's reasons);
+#: rstd and scale's gradient (float32 in both) within RMSNORM_F32_TOL,
+#: scale's also of a float64 sum of the kernel's own products
+RMSNORM_TOL = MAMBA_TOL
+RMSNORM_F32_TOL = 1e-5
+RMSNORM_KERNELS = ("rmsnorm_fwd", "rmsnorm_bwd")
+#: entry functions of csrc/rmsnorm.cu: the forward and the backward each at
+#: 1-4 chunks a thread in bfloat16, 1-2 in float32 and on the scalar path
+#: in both (8 each), and the backward's finish
+RMSNORM_INSTANTIATIONS = 17
+#: each wrapper's entry functions, as their mangled names hold them
+RMSNORM_ENTRIES = {"rmsnorm_fwd": ("rmsnorm_fwd_kernel",),
+                   "rmsnorm_bwd": ("rmsnorm_bwd_kernel",
+                                   "rmsnorm_bwd_finish_kernel")}
+RMSNORM_DETAIL = {
+    "rmsnorm_fwd": "a row a team of warps (each thread up to 4 chunks of 8 "
+    "elements in bfloat16, 2 in float32, in registers across the row's "
+    "sum: a warp butterfly, one barrier, the warps' sums added in order), "
+    "8 / warps teams a block taking rows in turn over a grid the card holds "
+    "at once, each thread's next row loaded before the current row's sum; "
+    "rstd saved",
+    "rmsnorm_bwd": "a block a fixed group of rows (at most 264: two blocks "
+    "an SM), 8 / warps teams taking the rows in turn, each thread's next "
+    "row (x, dy, rstd) in registers before the current row's sum; scale's "
+    "column sums in registers, the teams' added in order in shared memory "
+    "into the block's partial row; a finish adding the partials in block "
+    "order over 32 slices (no atomics)"}
+#: flops an element (the products, sums and 1 + scale; rsqrt and the
+#: division once a row): bytes bind both
+RMSNORM_FLOPS = {"rmsnorm_fwd": 5, "rmsnorm_bwd": 11}
+
+
+def rmsnorm_registers(ptxas: dict, kernel: str, dtype: str,
+                      launch: dict, vector: bool) -> int:
+    """The registers ptxas gave the instantiation ``launch`` (``launch_of``)
+    runs: (chunks, 8) on the vector path, (16, 1) on the scalar one."""
+    key = (f"{kernel}_kernel", dtype,
+           (launch["chunks"], 8) if vector else (launch["chunks"], 1))
+    return ptxas[key][0]
+
+
+def rmsnorm_case(gen, rows: int, d: int, dtype) -> tuple:
+    """One case of phase "2 rmsnorm": both kernels against their plain
+    versions on the same inputs (the backward on the kernel forward's
+    rstd), twice for the same bits, and scale's gradient against a float64
+    sum of the kernel's own float32 products (x_hat = x rstd, dy x_hat, as
+    the kernel rounds them).  Returns (the errors and bits, the
+    operands)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    dev = gen.device
+    x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    scale = (0.1 * torch.randn((d,), generator=gen, device=dev)).to(dtype)
+    dy = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    y, r = rn.rmsnorm_fwd(x, scale)
+    y2, r2 = rn.rmsnorm_fwd(x, scale)
+    yp, rp = rn.rmsnorm_fwd(x, scale, use_kernel=False)
+    dx, ds = rn.rmsnorm_bwd(dy, x, scale, r)
+    dx2, ds2 = rn.rmsnorm_bwd(dy, x, scale, r)
+    dxp, dsp = rn.rmsnorm_bwd(dy, x, scale, r, use_kernel=False)
+    ds64 = (dy.float() * (x.float() * r[:, None])).double().sum(0)
+    tol = RMSNORM_TOL[str(dtype).split(".")[-1]]
+    res = {"errs": {"y": rel_err(y, yp), "rstd": rel_err(r, rp),
+                    "dx": rel_err(dx, dxp), "dscale": rel_err(ds, dsp),
+                    "dscale_f64": rel_err(ds.double(), ds64)},
+           "y_diff_share": float((y != yp).float().mean()),
+           "dx_diff_share": float((dx != dxp).float().mean()),
+           "same_bits": {"rmsnorm_fwd": torch.equal(y, y2) and
+                         torch.equal(r, r2),
+                         "rmsnorm_bwd": torch.equal(dx, dx2) and
+                         torch.equal(ds, ds2)},
+           "tol": tol}
+    res["ok"] = (res["errs"]["y"] <= tol and res["errs"]["dx"] <= tol and
+                 all(res["errs"][k] <= RMSNORM_F32_TOL
+                     for k in ("rstd", "dscale", "dscale_f64")) and
+                 all(res["same_bits"].values()))
+    return res, (x, scale, dy, r)
+
+
+def rmsnorm_times(ops, card) -> dict:
+    """Each kernel's device time (:func:`queued_ms`) beside its plain
+    version's, ``torch.nn.functional.rms_norm``'s (weight ``1 + scale``
+    in the model's dtype; its backward through autograd, x's and the
+    weight's gradients) and its byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    x, scale, dy, r = ops
+    rows, d = x.shape
+    w = (1.0 + scale.float()).to(x.dtype)
+    xg, wg = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    yl = F.rms_norm(xg, (d,), wg, rn.EPS)
+    calls = {
+        "rmsnorm_fwd": (lambda k: rn.rmsnorm_fwd(x, scale, use_kernel=k),
+                        lambda: F.rms_norm(x, (d,), w, rn.EPS)),
+        "rmsnorm_bwd": (lambda k: rn.rmsnorm_bwd(dy, x, scale, r,
+                                                 use_kernel=k),
+                        lambda: torch.autograd.grad(yl, (xg, wg), dy,
+                                                    retain_graph=True))}
+    rows_out = {}
+    for name, (call, lib) in calls.items():
+        nbytes = rn.rmsnorm_bytes(rows, d, x.dtype, name)
+        flops = RMSNORM_FLOPS[name] * rows * d
+        vector = d % 8 == 0
+        launch = rn.launch_of(name, x.dtype, d, rows, vector)
+        launch["waves"] = launch["blocks"] / (launch["blocks_per_sm"] *
+                                              card.sms)
+        rows_out[name] = {"kernel_ms": queued_ms(lambda: call(True),
+                                                 TIME_REPS),
+                          "plain_ms": queued_ms(lambda: call(False), 3),
+                          "library_ms": queued_ms(lib, TIME_REPS),
+                          "bytes": nbytes, "launch": launch,
+                          "vector": vector,
+                          **bound(flops, nbytes, card.fp32_flops, card)}
+    return rows_out
+
+
+def check_rmsnorm(card, ptxas: dict) -> dict:
+    """Phase "2 rmsnorm": the block norm's two kernels against their plain
+    versions at RMSNORM_WIDTHS x RMSNORM_ROWS in bfloat16 and float32 (y
+    and dx within RMSNORM_TOL normwise; rstd, scale's gradient and its
+    float64 sum within RMSNORM_F32_TOL; two calls the same bits), each
+    case of RMSNORM_TIMED timed beside its plain version,
+    ``F.rms_norm`` and its byte bound, with its launch (threads, blocks,
+    blocks an SM, waves) and registers.  Returns the rows; the kernels
+    line reads RMSNORM_MAIN."""
+    import gc
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    cases, failed, timed = {}, [], {}
+    worst = {"rmsnorm_fwd": 0.0, "rmsnorm_bwd": 0.0}
+    for d in RMSNORM_WIDTHS:
+        for rows in RMSNORM_ROWS:
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                key = f"{d} x {rows} {dn}"
+                res, ops = rmsnorm_case(gen, rows, d, dtype)
+                cases[key] = res
+                e = res["errs"]
+                worst["rmsnorm_fwd"] = max(worst["rmsnorm_fwd"], e["y"])
+                worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], e["dx"])
+                if not res["ok"]:
+                    failed.append((key, res))
+                log(f"  {key}: y {e['y']:.2e} (differ "
+                    f"{100 * res['y_diff_share']:.3f} %), rstd "
+                    f"{e['rstd']:.2e}, dx {e['dx']:.2e} (differ "
+                    f"{100 * res['dx_diff_share']:.3f} %), dscale "
+                    f"{e['dscale']:.2e}, of float64 {e['dscale_f64']:.2e}; "
+                    f"same bits twice: {all(res['same_bits'].values())}")
+                if (rows, dn) in RMSNORM_TIMED:
+                    t = timed[key] = rmsnorm_times(ops, card)
+                    for k, v in t.items():
+                        v["registers"] = rmsnorm_registers(
+                            ptxas, k, dn, v["launch"], v["vector"])
+                    log("    times: " + "; ".join(
+                        f"{k} {v['kernel_ms']:.4f} ms (plain "
+                        f"{v['plain_ms']:.4f}, F.rms_norm "
+                        f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f}, "
+                        f"{100 * v['bound_ms'] / v['kernel_ms']:.1f} % of the"
+                        f" bound; {v['launch']['threads']} threads x "
+                        f"{v['launch']['blocks']} blocks, "
+                        f"{v['launch']['blocks_per_sm']} an SM, "
+                        f"{v['launch']['waves']:.2f} waves, "
+                        f"{v['registers']} registers)"
+                        for k, v in t.items()))
+                del ops
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the norm's kernels disagree with their plain "
+                             f"versions: {failed}")
+    main = timed[RMSNORM_MAIN]
+    return {"cases": cases, "timed": timed,
+            "kernels": {k: {**main[k], "err": worst[k]}
+                        for k in RMSNORM_KERNELS}}
+
+
+def norm_launches() -> dict:
+    """The block norm's two kernel wrappers' launch counts, by name."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+    return {"rmsnorm_fwd": rmsnorm_fwd.launches,
+            "rmsnorm_bwd": rmsnorm_bwd.launches}
+
+
+def norm_want(cfg, steps: int) -> dict:
+    """What ``steps`` train steps of ``cfg`` launch: under per-period remat
+    each block norm (every block's ln1, and its ln2 before an FFN) runs
+    twice forward and once backward a step, the final norm once each."""
+    n = sum(1 + (spec.ffn != "none") for spec in cfg.layer_specs())
+    return {"rmsnorm_fwd": steps * (2 * n + 1),
+            "rmsnorm_bwd": steps * (n + 1)}
 
 
 def paper_path(dev) -> dict:
@@ -3060,6 +3279,8 @@ def model_inputs(cfg, batch: int, s: int, gen):
 def kernel_class(name: str) -> str:
     """The class of a device kernel by its name, for phase 12's breakdown."""
     low = name.lower()
+    if "rmsnorm" in low:
+        return "rmsnorm"
     if "attn_bwd" in low:
         return "flash_attention_bwd"
     if "attn_sync_kernel" in low or "attn_wgmma_kernel" in low:
@@ -4404,8 +4625,10 @@ def train_path(dev, card) -> dict:
     torch.cuda.empty_cache()
     steps = TRAIN_STEPS + 1
     exact_launches(f"{steps} steps of {cfg.n_layers} layers' "
-                   f"{res['tensors']} tensors", adamw_launches(),
-                   adamw_want(steps, res["tensors"]))
+                   f"{res['tensors']} tensors",
+                   {**adamw_launches(), **norm_launches()},
+                   {**adamw_want(steps, res["tensors"]),
+                    **norm_want(cfg, steps)})
     flops = train_flops(cfg, TRAIN_SEQ)
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log(f"  products {flops / 1e12:.1f} TFLOP a step (train_flops)")
@@ -5037,11 +5260,13 @@ def ssd_train_path(dev, card) -> dict:
     steps = TRAIN_STEPS + 1
     exact_launches(f"{steps} steps of {cfg.n_layers} Mamba layers",
                    {"ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches,
-                    **mixer_launches(), **adamw_launches()},
+                    **mixer_launches(), **norm_launches(),
+                    **adamw_launches()},
                    {"ssd": 2 * steps * cfg.n_layers,
                     "ssd_bwd": steps * cfg.n_layers,
                     **mixer_want(2 * steps * cfg.n_layers,
                                  steps * cfg.n_layers),
+                    **norm_want(cfg, steps),
                     **adamw_want(steps, res["tensors"])})
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log_model_flops(f"{SSD_TRAIN_ARCH} train step", mf)
@@ -5157,6 +5382,7 @@ def check_moe_train_grads(dev) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels import mamba_mixer as mm
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.ssd import ssd, ssd_bwd
     from repro_torch.models import init_params, loss_fn, transformer
     from repro_torch.train.data import DataConfig, batch_at, to_device
@@ -5165,7 +5391,8 @@ def check_moe_train_grads(dev) -> dict:
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
                 "adamw_sqnorm": adamw_sqnorm,
-                **{k: getattr(mm, k) for k in MAMBA_KERNELS}}
+                **{k: getattr(mm, k) for k in MAMBA_KERNELS},
+                **{k: getattr(rn, k) for k in RMSNORM_KERNELS}}
     seen = []
     inner = transformer.moe_forward
 
@@ -5219,7 +5446,7 @@ def check_moe_train_grads(dev) -> dict:
             exact_launches(f"{dtype_name} gradients", launched,
                            {"flash_attention": 2, "flash_attention_bwd": 1,
                             "ssd": 2, "ssd_bwd": 1, **mixer_want(2, 1),
-                            **adamw_want(0, 0)})
+                            **norm_want(cfg, 1), **adamw_want(0, 0)})
             if not max(errs.values()) <= tol:
                 raise AssertionError(f"{MOE_TRAIN_ARCH} layers 3-4 "
                                      f"{dtype_name}: the kernel route's "
@@ -5253,11 +5480,11 @@ def moe_train_path(dev, card) -> dict:
     launched = {"flash_attention": flash_attention.launches,
                 "flash_attention_bwd": flash_attention_bwd.launches,
                 "ssd": ssd.launches, "ssd_bwd": ssd_bwd.launches,
-                **mixer_launches(), **adamw_launches()}
+                **mixer_launches(), **norm_launches(), **adamw_launches()}
     exact_launches(f"{steps} steps of layers 3-4", launched,
                    {"flash_attention": 2 * steps, "flash_attention_bwd":
                     steps, "ssd": 2 * steps, "ssd_bwd": steps,
-                    **mixer_want(2 * steps, steps),
+                    **mixer_want(2 * steps, steps), **norm_want(cfg, steps),
                     **adamw_want(steps, res["tensors"])})
     mf = model_flops(cfg, "train", 1, TRAIN_SEQ, res["step_ms_median"], card)
     log_model_flops(f"{MOE_TRAIN_ARCH} layers 3-4 train step", mf)
@@ -5310,6 +5537,7 @@ def check_dots(dev, card, run: dict) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels import mamba_mixer as mm
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.ssd import ssd, ssd_bwd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import (chunked_cross_entropy, forward_hidden,
@@ -5323,7 +5551,8 @@ def check_dots(dev, card, run: dict) -> dict:
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
                 "adamw_sqnorm": adamw_sqnorm,
-                **{k: getattr(mm, k) for k in MAMBA_KERNELS}}
+                **{k: getattr(mm, k) for k in MAMBA_KERNELS},
+                **{k: getattr(rn, k) for k in RMSNORM_KERNELS}}
 
     def loss_under(policy):
         if policy == "none":
@@ -5391,6 +5620,7 @@ def check_dots(dev, card, run: dict) -> dict:
                         "flash_attention_bwd": DOTS_STEPS,
                         "ssd": 2 * DOTS_STEPS, "ssd_bwd": DOTS_STEPS,
                         **mixer_want(2 * DOTS_STEPS, DOTS_STEPS),
+                        **norm_want(cfg, DOTS_STEPS),
                         **adamw_want(DOTS_STEPS, len(leaves))})
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"\"{policy}\" steps: losses {losses}")
@@ -5872,11 +6102,13 @@ def main() -> int:
     from repro_torch import resolve_device
     from repro_torch.kernels import _build
     from repro_torch.kernels import mamba_mixer as mm
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.matmul import matmul, matmul_plain
     from repro_torch.kernels.ssd import ssd, ssd_bwd
+    from repro_torch.models.layers import rmsnorm as norm_layer
     from repro_torch.models.mamba import mamba_forward
     from repro_torch.perf.roofline import card_of
 
@@ -5889,8 +6121,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all(["matmul", "flash_attention",
                              "flash_attention_bwd", "ssd", "ssd_bwd",
-                             "adamw", "mamba_mixer"])
-    log(f"    kernel build (seven nvcc at once) "
+                             "adamw", "mamba_mixer", "rmsnorm"])
+    log(f"    kernel build (eight nvcc at once) "
         f"{time.perf_counter() - t0:.1f} s -> " +
         ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     log("    nvcc seconds per source: " + ", ".join(
@@ -5961,6 +6193,18 @@ def main() -> int:
         raise AssertionError(f"ptxas reports {len(mamba_regs)} mamba_mixer "
                              f"kernels, not {MAMBA_INSTANTIATIONS}, or spills "
                              f"in {spilled}")
+    # the block norm's kernels, each instantiation by its mangled name,
+    # none spilling
+    norm_regs = ptxas_entries(libs["rmsnorm"].with_suffix(".log").read_text())
+    for name, (nreg, st, ld) in sorted(norm_regs.items()):
+        short = re.search(r"\d+(rmsnorm_[a-z_]+_kernel(?:I.*?E(?=Ev))?)", name)
+        log(f"    ptxas {short.group(1) if short else name}: {nreg} "
+            f"registers, spills {st} B stored / {ld} B loaded")
+    spilled = [k for k, v in norm_regs.items() if v[1] or v[2]]
+    if len(norm_regs) != RMSNORM_INSTANTIATIONS or spilled:
+        raise AssertionError(f"ptxas reports {len(norm_regs)} rmsnorm "
+                             f"kernels, not {RMSNORM_INSTANTIATIONS}, or "
+                             f"spills in {spilled}")
     # the matmul's SASS for phase 5, the attention libraries' for phases 6
     # and 14a, the SSD forward's for 6 and its backward's for 15a, dumped
     # meanwhile
@@ -5987,6 +6231,9 @@ def main() -> int:
     log("    the Mamba mixer's kernels (mamba_in, mamba_out, mamba_out_bwd, "
         "mamba_in_bwd) vs their plain versions on the card")
     mamba_res = phase("2 mamba", check_mamba, the_card)
+    log("    the block RMSNorm's kernels (rmsnorm_fwd, rmsnorm_bwd) vs their "
+        "plain versions on the card")
+    norm_res = phase("2 rmsnorm", check_rmsnorm, the_card, ptxas)
 
     # the main path: each of its paths runs with every kernel's count set
     # to 0 just before it and read just after
@@ -5994,7 +6241,8 @@ def main() -> int:
                 "flash_attention_bwd": flash_attention_bwd, "ssd": ssd,
                 "ssd_bwd": ssd_bwd, "adamw_update": adamw_update,
                 "adamw_sqnorm": adamw_sqnorm,
-                **{k: getattr(mm, k) for k in MAMBA_KERNELS}}
+                **{k: getattr(mm, k) for k in MAMBA_KERNELS},
+                **{k: getattr(rn, k) for k in RMSNORM_KERNELS}}
     launches = {name: {} for name in wrappers}
     # the attention forward's and backward's launches per route and path
     routed = {"matmul": matmul.launches_by_route,
@@ -6002,7 +6250,8 @@ def main() -> int:
               "flash_attention_bwd": flash_attention_bwd.route_launches,
               "ssd": ssd.route_launches,
               "ssd_bwd": ssd_bwd.route_launches,
-              "mamba_mixer": mamba_forward.route_calls}
+              "mamba_mixer": mamba_forward.route_calls,
+              "rmsnorm": norm_layer.route_calls}
     by_route = {name: {} for name in routed}
     route_launches = by_route["flash_attention"]
 
@@ -6170,12 +6419,13 @@ def main() -> int:
                    {k: launches[k]["train_sharded"] for k in (
                        "flash_attention", "flash_attention_bwd", "ssd",
                        "ssd_bwd", "adamw_update", "adamw_sqnorm",
-                       *MAMBA_KERNELS)},
+                       *MAMBA_KERNELS, *RMSNORM_KERNELS)},
                    {"flash_attention": 2 * (SHARDED_STEPS + 1),
                     "flash_attention_bwd": SHARDED_STEPS + 1,
                     "ssd": 2 * (SHARDED_STEPS + 1),
                     "ssd_bwd": SHARDED_STEPS + 1,
                     **mixer_want(2 * (SHARDED_STEPS + 1), SHARDED_STEPS + 1),
+                    **norm_want(moe_cell_config(), SHARDED_STEPS + 1),
                     **adamw_want(SHARDED_STEPS + 1,
                                  moe_training["tensors"])})
 
@@ -6198,7 +6448,8 @@ def main() -> int:
     log(f"  launches on the main path, per kernel and path: {launches}")
     log(f"  the matmul's, the attention forward's and backward's and the "
         f"SSD forward's and backward's launches per route and path, and the "
-        f"Mamba mixer's calls per route and path: {by_route}")
+        f"Mamba mixer's and the block norm's calls per route and path: "
+        f"{by_route}")
     # every Mamba layer of the models, serve and train paths goes through
     # the mixer's kernels: its composite route (torch ops around the SSD
     # kernel, for meshes that split the heads) and the plain one never run,
@@ -6213,6 +6464,17 @@ def main() -> int:
                 any(got[r] <= 0 for r in want):
             raise AssertionError(f"the Mamba mixer on path {path} did not "
                                  f"take its kernel routes {want}: {got}")
+    # every block and final norm of the models, serve and train paths takes
+    # the norm's kernels, the sharded step's on local shards; the plain
+    # route (real CPU tensors) and the reference route (use_kernel=False)
+    # never run there
+    for path, want in (("models", "kernel"), ("serve", "kernel"),
+                       ("train", "kernel"), ("train_moe", "kernel"),
+                       ("train_sharded", "local")):
+        got = by_route["rmsnorm"][path]
+        if got[want] <= 0 or any(n for r, n in got.items() if r != want):
+            raise AssertionError(f"the block norm on path {path} did not all "
+                                 f"take its route {want}: {got}")
     # the tile path and the store launch the matmul on the selected tile's
     # route; the tile path's sweep launches both routes
     for path in ("tiles", "store"):
@@ -6258,7 +6520,10 @@ def main() -> int:
                        ("adamw_update", "train_sharded"),
                        ("adamw_sqnorm", "train_sharded"),
                        *((k, path) for path in ("models", "serve")
-                         for k in ("mamba_in", "mamba_out")),
+                         for k in ("mamba_in", "mamba_out", "rmsnorm_fwd")),
+                       *((k, path) for path in ("train", "train_moe",
+                                                "train_sharded")
+                         for k in RMSNORM_KERNELS),
                        *((k, path) for path in ("train", "train_moe",
                                                 "train_sharded")
                          for k in MAMBA_KERNELS)):
@@ -6553,6 +6818,26 @@ def main() -> int:
                 **in_train_step("mamba_mixer", moe_training,
                                 "train_moe_step"))
           for k in MAMBA_KERNELS),
+        *(entry(k, f"{csrc}/rmsnorm.cu",
+                "none: the block RMSNorm, XLA-fused in the reference "
+                "(src/repro/models/layers.py:11-16)",
+                norm_res["kernels"][k],
+                {"registers": max(v[0] for n, v in norm_regs.items()
+                                  if any(e in n for e in RMSNORM_ENTRIES[k])),
+                 "spill_store_bytes": 0, "spill_load_bytes": 0},
+                library="torch.nn.functional.rms_norm, weight 1 + scale in "
+                "the model's dtype (its backward through autograd)",
+                shape=[TRAIN_SEQ, RMSNORM_WIDTHS[0]], dtype="bfloat16",
+                route_detail=RMSNORM_DETAIL[k],
+                rows={key: rows[k] for key, rows in
+                      norm_res["timed"].items()},
+                checks=norm_res["cases"],
+                launches_by_route=by_route["rmsnorm"],
+                **in_train_step("rmsnorm"),
+                **in_train_step("rmsnorm", ssd_training,
+                                "train_mamba_step"),
+                **in_train_step("rmsnorm", moe_training, "train_moe_step"))
+          for k in RMSNORM_KERNELS),
     ]}
     tuned.pop("session")
     for t in (attn_tuned, ssd_tuned):
@@ -6572,7 +6857,8 @@ def main() -> int:
                        "run": moe_training, "dots": dots},
          "distributed": {"sharded_step": sharded, "elastic": elastic,
                          "dryrun": dry},
-         "adamw": adamw_res, "mamba_mixer": mamba_res, "phase_s": phase_s,
+         "adamw": adamw_res, "mamba_mixer": mamba_res, "rmsnorm": norm_res,
+         "phase_s": phase_s,
          **kernels},
         indent=1, default=str))
     log(f"  phase host times (s): "

@@ -15,7 +15,9 @@ already carry:
   kv heads its query heads read); otherwise it replicates;
 * the SSD is shard-local over batch and heads the same way, B and C
   sharded over their groups where the groups divide, else replicated
-  (jamba has one group); a_log follows the heads.
+  (jamba has one group); a_log follows the heads;
+* the block norm is shard-local over every dim but its last: the hidden
+  state keeps its batch and sequence shards, its scale is replicated.
 
 An operand replicated over a mesh dimension whose work is sharded gets a
 ``Partial`` gradient there (each rank's share of the sum).  Any other
@@ -158,6 +160,27 @@ def mixer(fn: Callable, heads: int, zxbcdt, dt_bias, a_log, d_skip, norm_g,
                     in_grad_placements=grads, device_mesh=mesh,
                     redistribute_inputs=True)
     return run(*args)
+
+
+def rmsnorm(fn: Callable, x, scale):
+    """``fn(x, scale)`` (the block norm on a plain tensor) on local shards
+    of a ``DTensor`` x (..., d): x keeps its placements on every dim but
+    the last (the norm's row sum needs the whole row: a sharded last dim,
+    or a partial sum, is gathered first) and y takes them; scale (d,) is
+    replicated, its gradient a partial sum over the mesh dimensions that
+    shard x."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    last = x.dim() - 1
+    px = tuple(pl if isinstance(pl, Shard) and pl.dim != last
+               and pl.dim != -1 else Replicate() for pl in x.placements)
+    pv = tuple(Replicate() for _ in px)
+    gv = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+               for pl in px)
+    run = local_map(fn, out_placements=(px,), in_placements=(px, pv),
+                    in_grad_placements=(px, gv), device_mesh=x.device_mesh,
+                    redistribute_inputs=True)
+    return run(x, scale)
 
 
 #: the MoE expert weights, whose dim 0 (the experts) is expert-parallel

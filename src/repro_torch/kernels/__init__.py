@@ -20,6 +20,10 @@
   the SSD's operands from the in-projection's output, the D skip with the
   gated RMSNorm, and both backwards into one gradient buffer, spanned by
   ``MambaMixerFn`` (XLA fuses the reference's glue; no Pallas body)
+* ``rmsnorm`` -- the block RMSNorm: its forward (each row's rstd kept)
+  and its backward (scale's gradient as per-block partials and a
+  fixed-order finish), spanned by ``RmsNormFn`` (XLA fuses the
+  reference's norm; no Pallas body)
 
 ``ops`` holds the public wrappers, ``ref`` the plain PyTorch oracles.  The
 kernels are built from ``csrc/`` on first use (:mod:`._build`).  The
@@ -28,14 +32,16 @@ operators (``repro_torch::flash_attention_fwd``, ``flash_attention_bwd``,
 ``ssd_fwd``, ``ssd_bwd``) with fake implementations, autograd and flop
 formulas, and so are AdamW's (``adamw_sqnorm``, ``adamw_update``,
 ``adamw_update_apply``) and the mixer's (``mamba_in``, ``mamba_out``,
-``mamba_out_bwd``, ``mamba_in_bwd``), so that a sharded or traced step
-reaches them.
+``mamba_out_bwd``, ``mamba_in_bwd``) and the norm's (``rmsnorm_fwd``,
+``rmsnorm_bwd``), so that a sharded or traced step reaches them.
 """
 
 from . import ops, ref
 from .flash_attention import flash_attention, flash_attention_bwd
 from .matmul import matmul, smem_bytes, tile_legal
+from .rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from .ssd import ssd, ssd_bwd
 
 __all__ = ["ops", "ref", "matmul", "flash_attention", "flash_attention_bwd",
-           "ssd", "ssd_bwd", "smem_bytes", "tile_legal"]
+           "ssd", "ssd_bwd", "rmsnorm_fwd", "rmsnorm_bwd", "smem_bytes",
+           "tile_legal"]

@@ -7,6 +7,7 @@ tensor takes to a kernel.
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 #: opt-in shared memory per block of the H100 (bytes): the staging limit
 #: legality checks against when no card is asked about
@@ -31,3 +32,14 @@ def plain_route(t: torch.Tensor) -> bool:
     tensor.  CUDA and fake tensors go through the kernel's
     ``torch.library`` operator."""
     return t.device.type == "cpu" and not is_fake(t)
+
+
+def card_call(op, launch, *args):
+    """A kernel call on CUDA or fake tensors: through its operator where
+    the dispatcher must see it (fake tensors; any dispatch mode on, such
+    as a traced step's, a selective checkpoint's or a counter's), else
+    the launch itself.  A decode step is host-bound: the operator's
+    dispatch costs more host time than the launch."""
+    if is_fake(args[0]) or _get_current_dispatch_mode() is not None:
+        return op(*args)
+    return launch(*args)

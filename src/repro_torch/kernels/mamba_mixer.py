@@ -52,11 +52,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch._subclasses.fake_tensor import is_fake
-from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from . import _build
-from ._card import card_smem, plain_route
+from ._card import card_call, card_smem, plain_route
 from .ssd import (_plain_parts, _ssd_op, ssd_bwd, ssd_bwd_legal,
                   ssd_route_table, ssd_tile_legal)
 
@@ -427,18 +425,6 @@ def _(dx, db, dc, ddt, dy, zxbcdt, dt_bias, d_skip, grad):
 
 # ------------------------------------------------------------- wrappers --
 
-def _card_call(op, launch, *args):
-    """A kernel call on CUDA or fake tensors: through its operator where
-    the dispatcher must see it (fake tensors; any dispatch mode on, such
-    as a traced step's, a selective checkpoint's or a counter's), else
-    the launch itself.  A decode step makes two of these calls a layer
-    and is host-bound: the operator's dispatch costs more host time than
-    the launch."""
-    if is_fake(args[0]) or _get_current_dispatch_mode() is not None:
-        return op(*args)
-    return launch(*args)
-
-
 def _on_device(tensors, what: str) -> None:
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -483,8 +469,8 @@ def mamba_in(zxbcdt: torch.Tensor, dt_bias: torch.Tensor, *, heads: int,
         return mamba_in_plain(zxbcdt, dt_bias, heads=heads, groups=groups,
                               state=state)
     _kernel_ready(zxbcdt, (dt_bias,), (), "mamba_in")
-    return _card_call(_in_op, _launch_in, zxbcdt, dt_bias, heads, groups,
-                      state)
+    return card_call(_in_op, _launch_in, zxbcdt, dt_bias, heads, groups,
+                     state)
 
 
 def _out_shapes(y, zxbcdt, d_skip, norm_g, what: str) -> None:
@@ -514,7 +500,7 @@ def mamba_out(y: torch.Tensor, zxbcdt: torch.Tensor, d_skip: torch.Tensor,
     if not use_kernel or plain_route(y):
         return mamba_out_plain(y, zxbcdt, d_skip, norm_g)
     _kernel_ready(zxbcdt, (d_skip, norm_g), (y,), "mamba_out")
-    return _card_call(_out_op, _launch_out, y, zxbcdt, d_skip, norm_g)
+    return card_call(_out_op, _launch_out, y, zxbcdt, d_skip, norm_g)
 
 
 def mamba_out_bwd(d_out: torch.Tensor, y: torch.Tensor,
@@ -544,8 +530,8 @@ def mamba_out_bwd(d_out: torch.Tensor, y: torch.Tensor,
     if d_out.dtype != zxbcdt.dtype or not d_out.is_contiguous():
         raise ValueError(f"mamba_out_bwd takes a contiguous d_out in "
                          f"{zxbcdt.dtype}, got {d_out.dtype}")
-    return _card_call(_out_bwd_op, _launch_out_bwd, d_out, y, zxbcdt, r,
-                      d_skip, norm_g, grad)
+    return card_call(_out_bwd_op, _launch_out_bwd, d_out, y, zxbcdt, r,
+                     d_skip, norm_g, grad)
 
 
 def mamba_in_bwd(dx: torch.Tensor, db: torch.Tensor, dc: torch.Tensor,
@@ -581,8 +567,8 @@ def mamba_in_bwd(dx: torch.Tensor, db: torch.Tensor, dc: torch.Tensor,
                                   d_skip, grad)
     _kernel_ready(zxbcdt, (dt_bias, d_skip), (dx, db, dc, ddt, dy),
                   "mamba_in_bwd")
-    return _card_call(_in_bwd_op, _launch_in_bwd, dx, db, dc, ddt, dy, zxbcdt,
-                      dt_bias, d_skip, grad)
+    return card_call(_in_bwd_op, _launch_in_bwd, dx, db, dc, ddt, dy, zxbcdt,
+                     dt_bias, d_skip, grad)
 
 
 mamba_in.launches = 0

@@ -1,25 +1,69 @@
 """Shared neural-net layers, the counterparts of ``repro/models/layers.py``.
 
 Plain functions on tensors.  Each computes in float32 and casts back
-where the reference does.
+where the reference does.  The block RMSNorm runs on the card as the
+hand-written kernels of :mod:`repro_torch.kernels.rmsnorm`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
+from ..distributed import local
+from ..kernels._card import plain_route
+from ..kernels.rmsnorm import RmsNormFn, rmsnorm_fwd, rmsnorm_plain
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    dtype = x.dtype
-    x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + scale.float())).to(dtype)
+
+#: the block norm's routes, by :func:`norm_route`: "plain" (real CPU
+#: tensors, ``DTensor``s of them too: the plain version, its operations and
+#: its autograd graph as before the kernels), "kernel" (CUDA and fake
+#: tensors: the hand-written kernels, through
+#: :class:`repro_torch.kernels.rmsnorm.RmsNormFn` under grad), "local"
+#: (``DTensor``s of CUDA or fake tensors: the same on local shards,
+#: ``distributed.local.rmsnorm``) and "reference" (``use_kernel=False``:
+#: the plain version on any device)
+NORM_ROUTES = ("plain", "kernel", "local", "reference")
+
+
+def norm_route(x: torch.Tensor, use_kernel: bool) -> str:
+    """The route of one :func:`rmsnorm` call on ``x`` (:data:`NORM_ROUTES`)."""
+    if not use_kernel:
+        return "reference"
+    if plain_route(x):
+        return "plain"
+    return "local" if local.is_sharded(x) else "kernel"
+
+
+def _norm_on_tensor(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """The kernels' route on a plain (or local) tensor: :class:`RmsNormFn`
+    when a gradient is wanted, the forward kernel alone otherwise."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RmsNormFn.apply(x, scale, eps)
+    return rmsnorm_fwd(x, scale, eps)[0]
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+            use_kernel: bool = True) -> torch.Tensor:
+    """``(x / rms(x)) (1 + scale)`` in float32, cast back to x's dtype, by
+    :func:`norm_route`'s route, each call counted in
+    ``rmsnorm.route_calls``."""
+    route = norm_route(x, use_kernel)
+    rmsnorm.route_calls[route] += 1
+    if route == "local":
+        return local.rmsnorm(functools.partial(_norm_on_tensor, eps=eps), x,
+                             scale)
+    if route == "kernel":
+        return _norm_on_tensor(x, scale, eps)
+    return rmsnorm_plain(x, scale, eps)
+
+
+rmsnorm.route_calls = dict.fromkeys(NORM_ROUTES, 0)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -57,4 +57,4 @@ def prefill(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
             # a copy, so the full-length k and v are freed
             cache = tuple(t[:, :, s - ctx:].contiguous() for t in cache)
         caches.append(cache)
-    return _head(cfg, params, x[:, -1:, :]), caches
+    return _head(cfg, params, x[:, -1:, :], use_kernel), caches

@@ -11,9 +11,10 @@ attention layer, the (B, H, P, N) state for an SSM layer.
 
 Entry points: :func:`init_params` (random frozen parameters from a
 ``torch.Generator``; the trainer turns their gradients on),
-:func:`forward_hidden` / :func:`forward` (full sequence; attention and the
-SSD scan through the hand-written kernels; ``remat=True`` checkpoints each
-period, ``remat_policy="dots"`` keeping the products' outputs),
+:func:`forward_hidden` / :func:`forward` (full sequence; attention, the
+SSD scan and the block norms through the hand-written kernels;
+``remat=True`` checkpoints each period, ``remat_policy="dots"`` keeping
+the products' outputs),
 :func:`chunked_cross_entropy` and :func:`loss_fn` (the training loss),
 :func:`init_decode_state` and :func:`decode_step` (one token, KV caches
 written in place).  Sharded parameters and inputs (``DTensor``s,
@@ -149,14 +150,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------- forward --
 
 def _ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor,
-         route_by_position: bool = False) -> torch.Tensor:
+         route_by_position: bool = False,
+         use_kernel: bool = True) -> torch.Tensor:
     """The residual FFN half of a block.  ``route_by_position`` routes the
     MoE tokens of each position (one a row) as a call of their own, as a
-    decode step of the batch routes them."""
+    decode step of the batch routes them; ``use_kernel=False`` sends the
+    norm to its plain version."""
     spec = blk.spec
     if spec.ffn == "none":
         return x
-    h = rmsnorm(x, blk.ln2)
+    h = rmsnorm(x, blk.ln2, use_kernel=use_kernel)
     y = 0.0
     if spec.ffn in ("dense", "moe+dense"):
         y = y + swiglu(h, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down)
@@ -188,7 +191,7 @@ def _block_forward(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
 def _block_body(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
                 window: int, cache, cache_index, positions, mask_offset,
                 use_kernel: bool, route_by_position: bool):
-    h = rmsnorm(x, blk.ln1)
+    h = rmsnorm(x, blk.ln1, use_kernel=use_kernel)
     if blk.spec.mixer == "attn":
         y, new_cache = attn_forward(cfg, blk.attn, h, window=window,
                                     positions=positions, kv_cache=cache,
@@ -199,8 +202,8 @@ def _block_body(cfg: ArchConfig, blk: Block, x: torch.Tensor, *,
         y, new_cache = mamba_forward(cfg, blk.ssm, h, state=cache,
                                      return_state=True,
                                      use_kernel=use_kernel)
-    return _ffn(cfg, blk, x + local.like(y, x), route_by_position), \
-        new_cache
+    return _ffn(cfg, blk, x + local.like(y, x), route_by_position,
+                use_kernel), new_cache
 
 
 def _embed(cfg: ArchConfig, params: Model,
@@ -222,9 +225,11 @@ def _head_logits(cfg: ArchConfig, params: Model,
     return softcap(logits, cfg.logit_softcap)
 
 
-def _head(cfg: ArchConfig, params: Model, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: ArchConfig, params: Model, x: torch.Tensor,
+          use_kernel: bool = True) -> torch.Tensor:
     return _head_logits(cfg, params, rmsnorm(
-        x, local.gathered_weight(params.final_norm, x)))
+        x, local.gathered_weight(params.final_norm, x),
+        use_kernel=use_kernel))
 
 
 def _window(spec: LayerSpec, window_cap: int) -> int:
@@ -310,7 +315,8 @@ def forward_hidden(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
             x = checkpoint(run, x, group, use_reentrant=False, **kw)
         else:
             x = run(x, group)
-    return rmsnorm(x, local.gathered_weight(params.final_norm, x))
+    return rmsnorm(x, local.gathered_weight(params.final_norm, x),
+                   use_kernel=use_kernel)
 
 
 def forward(cfg: ArchConfig, params: Model, inputs: torch.Tensor, *,
@@ -352,9 +358,9 @@ def loss_fn(cfg: ArchConfig, params: Model, inputs: torch.Tensor,
             labels: torch.Tensor, *, remat_policy: Optional[str] = None,
             use_kernel: bool = True, act_spec=None) -> torch.Tensor:
     """The training loss: the forward with per-period remat, then the
-    chunked cross entropy.  ``use_kernel=False`` sends attention and the
-    SSD to their plain versions on any device (autograd differentiates
-    them), to compare the kernels' gradients with; ``act_spec`` as
+    chunked cross entropy.  ``use_kernel=False`` sends attention, the
+    SSD and the norms to their plain versions on any device (autograd
+    differentiates them), to compare the kernels' gradients with; ``act_spec`` as
     :func:`forward_hidden`'s."""
     x = forward_hidden(cfg, params, inputs, remat=True,
                        remat_policy=remat_policy, use_kernel=use_kernel,

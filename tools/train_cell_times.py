@@ -32,12 +32,12 @@ from pathlib import Path
 
 #: chip_smoke's train cells: (its function, the kernels it launches)
 CELLS = {"14c": ("train_path", ["flash_attention", "flash_attention_bwd",
-                                "adamw"]),
+                                "adamw", "rmsnorm"]),
          "15c": ("ssd_train_path", ["ssd", "ssd_bwd", "adamw",
-                                    "mamba_mixer"]),
+                                    "mamba_mixer", "rmsnorm"]),
          "16c": ("moe_train_path", ["flash_attention", "flash_attention_bwd",
                                     "ssd", "ssd_bwd", "adamw",
-                                    "mamba_mixer"])}
+                                    "mamba_mixer", "rmsnorm"])}
 
 
 def main() -> None:
